@@ -1,19 +1,25 @@
-// Shared edge engine of the three TP-conv kernels (float32, sm_90a).
+// Shared edge engine of the TP-conv kernels (float32, sm_90a).
 //
-// Every TP-conv message on the score model's path is
+// Every TP-conv message on the score and confidence models' paths is
 //   h   = relu([edge_emb | recv[:ns] | send[:ns]] @ w1 + b1)        (F -> H)
 //   w   = h @ w2 + b2                                                 (H -> W)
-//   msg = WeightedTensorProduct(send, sh1(send_pos - recv_pos), w)
-// summed over the edges of each receiver. The Pallas kernels
-// (ops/pallas/tpconv_rec.py, tpconv_lig.py) build it from one-hot gather
-// matmuls, a CG matrix G and expand/reduce matrices E/R sized for a 128x128
-// MXU. Here a block gathers its own edges and runs the product directly:
+//   msg = WeightedTensorProduct(send, sh(send_pos - recv_pos), w)
+// summed over the edges of each receiver, with harmonics of lmax=1 (SHD=4
+// components, the score model) or lmax=2 (SHD=9, the all-atom confidence
+// model); SHD is a template parameter, so each kernel is compiled for one.
+// The Pallas kernels (ops/pallas/tpconv_rec.py, tpconv_lig.py, tpconv_g.py)
+// build it from one-hot gather matmuls, a CG matrix G and expand/reduce
+// matrices E/R sized for a 128x128 MXU. Here a block gathers its own edges
+// and runs the product directly:
 //
 //   1. compact: warp 0 ballots the candidate edges of the block's receivers
 //      and keeps the valid ones in order, TM per chunk, so masked edges cost
 //      nothing and contribute exactly zero;
 //   2. fill: per edge the MLP input z [F], the sender features [Din] and the
-//      lmax=1 harmonics (1, sqrt(3) v / |v|, |v|^2 clamped at 1e-12);
+//      harmonics of u = v / |v| (|v|^2 clamped at 1e-12, so a zero vector
+//      gives zero in every l >= 1 component): 1, sqrt(3) u and, for SHD=9,
+//      the l=2 block (xy, yz, 2z^2-x^2-y^2, zx, x^2-y^2) scaled as in
+//      ops/irreps.spherical_harmonics;
 //   3. hidden layer h [H, TM] and the CG contributions X [TM, S]
 //      (X[e][g][u][c] = sum_ab x[u,a] sh[b] cg[a,b,c] for output group g);
 //   4. the H -> W product as a register-tiled float32 GEMM over TN-column
@@ -25,8 +31,9 @@
 //      so the sum order is fixed and the result deterministic.
 //
 // What bounds it on the card: the H x W product, 2*H*W flops per edge
-// (about 0.32 MFLOP at H=96, W=1660), at the 67 TFLOP/s float32 rate of the
-// CUDA cores; bytes are small beside it (an edge reads ~1 KB). The design
+// (about 0.32 MFLOP at H=96, W=1660; 0.28 MFLOP at the confidence model's
+// H=72, W=1944), at the 67 TFLOP/s float32 rate of the CUDA cores; bytes are
+// small beside it (an edge reads ~1 KB). The design
 // keeps w2 tiles in shared memory for TM edges at a time and never writes w
 // or the per-edge messages to device memory. Tensor cores (wgmma, bf16 or
 // TF32) are later work.
@@ -71,11 +78,15 @@ struct Layout {
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
+// At SHD=9 and the confidence trunk's 84 -> 84 layer (S=312, H=72) this is
+// about 41k floats (165 KB) plus the receiver tile, under the 227 KB a block
+// may take.
+template <int SHD>
 __host__ __device__ inline Layout make_layout(const Dims& d, int S, int RT) {
   Layout L;
   L.ldz = d.F | 1;  // odd strides: rows of consecutive threads hit distinct banks
   L.ldx = d.Din | 1;
-  L.ldsh = 5;
+  L.ldsh = SHD | 1;
   L.ldxs = S | 1;
   L.ldc = TN + 1;
   L.ldm = d.Dout | 1;
@@ -146,6 +157,7 @@ __device__ void compact(int ncand, Valid valid, EdgeSlots& s) {
 // MLP input, sender features and harmonics of the first `count` slots.
 // recv/send may be swapped by the caller (the reversed cross direction);
 // sign flips the edge vector with them. sig (nullable) is added to emb.
+template <int SHD>
 __device__ void fill_edges(float* sm, const Layout& L, const Dims& d, int count, const float* const* emb,
                            const float* const* recv, const float* const* send, const float (*vec)[3],
                            const float* sig, float sign) {
@@ -176,12 +188,25 @@ __device__ void fill_edges(float* sm, const Layout& L, const Dims& d, int count,
       y = sign * vec[m][1];
       w = sign * vec[m][2];
     }
-    const float r = 1.7320508075688772f / sqrtf(fmaxf(x * x + y * y + w * w, 1e-12f));
     float* s = sh + m * L.ldsh;
     s[0] = 1.f;
-    s[1] = x * r;
-    s[2] = y * r;
-    s[3] = w * r;
+    if (SHD == 4) {
+      const float r = 1.7320508075688772f / sqrtf(fmaxf(x * x + y * y + w * w, 1e-12f));
+      s[1] = x * r;
+      s[2] = y * r;
+      s[3] = w * r;
+    } else {
+      const float r = 1.f / sqrtf(fmaxf(x * x + y * y + w * w, 1e-12f));
+      const float ux = x * r, uy = y * r, uz = w * r;
+      s[1] = 1.7320508075688772f * ux;
+      s[2] = 1.7320508075688772f * uy;
+      s[3] = 1.7320508075688772f * uz;
+      s[4] = 3.8729833462074170f * ux * uy;                       // sqrt(15) xy
+      s[5] = 3.8729833462074170f * uy * uz;                       // sqrt(15) yz
+      s[6] = 1.1180339887498949f * (2.f * uz * uz - ux * ux - uy * uy);  // sqrt(5)/2
+      s[7] = 3.8729833462074170f * uz * ux;                       // sqrt(15) zx
+      s[8] = 1.9364916731037085f * (ux * ux - uy * uy);           // sqrt(15)/2
+    }
   }
 }
 
@@ -275,10 +300,11 @@ __device__ void weighted_tp(float* sm, const Layout& L, const Dims& d, const TPW
 }
 
 // Steps 2-4 for the slots of one chunk; leaves msg in shared memory.
+template <int SHD>
 __device__ void run_engine(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const TPTables& T,
                            const EdgeSlots& s, const float* const* recv, const float* const* send,
                            const float* sig, float sign) {
-  fill_edges(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
+  fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
   __syncthreads();
   hidden_layer(sm, L, d, W);
   contributions(sm, L, T);
@@ -295,6 +321,99 @@ __device__ void reduce_to_tile(float* sm, const Layout& L, const Dims& d, const 
 }
 
 inline size_t smem_bytes(const Layout& L) { return (size_t)L.total * sizeof(float); }
+
+// One block's tile of RT receivers of a kNN group whose senders and
+// receivers are one node table [B, N, Din] (the rec and rec_g kernels).
+// Candidates are the RT*K neighbour slots in (receiver, k) order; sig [B, Fe]
+// is added to the cached edge embedding in the fill.
+template <int SHD>
+__device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node, const float* __restrict__ pos,
+                         const int64_t* __restrict__ nbr, const float* __restrict__ emb,
+                         const float* __restrict__ sig, const uint8_t* __restrict__ mask, const TPWeights& W,
+                         const TPTables& T, const Dims& d, int N, int K, int RT, float* __restrict__ out) {
+  const Layout L = make_layout<SHD>(d, T.S, RT);
+  const int b = blockIdx.y, i0 = blockIdx.x * RT;
+  const int nrecv = min(RT, N - i0);
+  const size_t row0 = (size_t)b * N;
+  float* outs = sm + L.out;
+  for (int i = threadIdx.x; i < RT * d.Dout; i += NT) outs[i] = 0.f;
+  if (threadIdx.x == 0) s.cursor = 0;
+  __syncthreads();
+  const uint8_t* mrow = mask + (row0 + i0) * K;
+  while (true) {
+    compact(nrecv * K, [&](int c) { return mrow[c] != 0; }, s);
+    if (s.count == 0) break;
+    for (int m = threadIdx.x; m < s.count; m += NT) {
+      const int c = s.cand[m], r = c / K, i = i0 + r;
+      const size_t e = (row0 + i) * K + c % K;
+      const int64_t j = nbr[e];
+      s.slot[m] = r;
+      s.emb[m] = emb + e * d.Fe;
+      s.recv[m] = node + (row0 + i) * d.Din;
+      s.send[m] = node + (row0 + j) * d.Din;
+      for (int q = 0; q < 3; ++q) s.vec[m][q] = pos[(row0 + j) * 3 + q] - pos[(row0 + i) * 3 + q];
+    }
+    __syncthreads();
+    run_engine<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f);
+    reduce_to_tile(sm, L, d, s);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < nrecv * d.Dout; i += NT) out[(row0 + i0) * d.Dout + i] = outs[i];
+}
+
+// One block's tile of RT receivers [B, L, Din] of a capped cross list over a
+// sender table [B, N, Din] (the cross_rev and cross_g kernels). Candidates
+// are the tile's RT*K sender slots. Each chunk runs the engine on the
+// receivers with the forward weights (summed onto the tile in slot order),
+// then, when with_rev is set, sender <- receiver with the roles swapped and
+// the harmonics negated, added into out_rec [B, N, Dout] with atomicAdd:
+// those sums' order varies from run to run (a few float32 ulps).
+template <int SHD>
+__device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ lig, const float* __restrict__ lpos,
+                           const float* __restrict__ rec, const float* __restrict__ rpos,
+                           const int64_t* __restrict__ idx, const float* __restrict__ emb,
+                           const uint8_t* __restrict__ mask, const TPWeights& Wf, const TPWeights& Wr, int with_rev,
+                           const TPTables& T, const Dims& d, int L, int N, int K, int RT,
+                           float* __restrict__ out_lig, float* __restrict__ out_rec) {
+  const Layout Ly = make_layout<SHD>(d, T.S, RT);
+  const int b = blockIdx.y, l0 = blockIdx.x * RT;
+  const int nrecv = min(RT, L - l0);
+  const size_t lrow0 = (size_t)b * L, rrow0 = (size_t)b * N;
+  float* outs = sm + Ly.out;
+  for (int i = threadIdx.x; i < RT * d.Dout; i += NT) outs[i] = 0.f;
+  if (threadIdx.x == 0) s.cursor = 0;
+  __syncthreads();
+  const uint8_t* mrow = mask + (lrow0 + l0) * K;
+  while (true) {
+    compact(nrecv * K, [&](int c) { return mrow[c] != 0; }, s);
+    if (s.count == 0) break;
+    for (int m = threadIdx.x; m < s.count; m += NT) {
+      const int c = s.cand[m], r = c / K, l = l0 + r;
+      const size_t e = (lrow0 + l) * K + c % K;
+      const int64_t j = idx[e];
+      s.slot[m] = r;
+      s.dst[m] = (int)j;
+      s.emb[m] = emb + e * d.Fe;
+      s.recv[m] = lig + (lrow0 + l) * d.Din;
+      s.send[m] = rec + (rrow0 + j) * d.Din;
+      for (int q = 0; q < 3; ++q) s.vec[m][q] = rpos[(rrow0 + j) * 3 + q] - lpos[(lrow0 + l) * 3 + q];
+    }
+    __syncthreads();
+    run_engine<SHD>(sm, Ly, d, Wf, T, s, s.recv, s.send, nullptr, 1.f);
+    reduce_to_tile(sm, Ly, d, s);
+    __syncthreads();
+    if (with_rev) {
+      run_engine<SHD>(sm, Ly, d, Wr, T, s, s.send, s.recv, nullptr, -1.f);
+      const float* msg = sm + Ly.msg;
+      for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
+        const int m = i / d.Dout, o = i % d.Dout;
+        atomicAdd(out_rec + (rrow0 + s.dst[m]) * d.Dout + o, msg[m * Ly.ldm + o]);
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < nrecv * d.Dout; i += NT) out_lig[(lrow0 + l0) * d.Dout + i] = outs[i];
+}
 
 }  // namespace cbt
 

@@ -22,7 +22,7 @@ __global__ void __launch_bounds__(NT) tpconv_pb_kernel(const float* __restrict__
                                                        float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
   __shared__ EdgeSlots s;
-  const Layout Ly = make_layout(d, T.S, RT);
+  const Layout Ly = make_layout<4>(d, T.S, RT);
   const int b = blockIdx.y, i0 = blockIdx.x * RT;
   const int nrecv = min(RT, L - i0);
   const int npair = nrecv * L;
@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(NT) tpconv_pb_kernel(const float* __restrict__
       for (int q = 0; q < 3; ++q) s.vec[m][q] = pos[(row0 + j) * 3 + q] - pos[(row0 + i) * 3 + q];
     }
     __syncthreads();
-    run_engine(sm, Ly, d, W, T, s, s.recv, s.send, nullptr, 1.f);
+    run_engine<4>(sm, Ly, d, W, T, s, s.recv, s.send, nullptr, 1.f);
     reduce_to_tile(sm, Ly, d, s);
     __syncthreads();
   }
@@ -75,7 +75,7 @@ extern "C" int cbt_tpconv_pb(const float* lig, const float* pos, const float* pa
   const Dims d{Fe, ns, Fe + 2 * ns, H, Din, Dout};
   const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad};
   const TPWeights W{w1, b1, w2, b2};
-  const size_t smem = smem_bytes(make_layout(d, S, RT));
+  const size_t smem = smem_bytes(make_layout<4>(d, S, RT));
   cudaError_t err = cudaFuncSetAttribute(tpconv_pb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + RT - 1) / RT, B);

@@ -1,8 +1,10 @@
 """Padded, fixed-shape ligand/receptor complex batches.
 
-Port of ``confidence_bootstrapping_tpu/data/complex_graph.py`` (score-model
-fields): every complex is padded to a ``Bucket``, batching is a leading axis,
-neighbour relations are fixed-capacity padded lists and dense masks.
+Port of ``confidence_bootstrapping_tpu/data/complex_graph.py`` (the score
+model's fields and the confidence model's receptor atoms): every complex is
+padded to a ``Bucket``, batching is a leading axis, neighbour relations are
+fixed-capacity padded lists and dense masks. ``atom_knn`` is the kNN part of
+the JAX package's ``data/featurize.featurize_receptor_atoms``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from scipy.spatial import cKDTree
 
 from ..runtime import resolve_device
 
@@ -27,6 +30,9 @@ class Bucket(NamedTuple):
     N: int  # receptor residues
     KR: int = 24  # receptor kNN neighbours
     KC: int = 48  # cross-edge capacity per ligand atom
+    A: int = 0  # receptor heavy atoms (0: residue graph only)
+    KA: int = 8  # atom kNN neighbours (atom_max_neighbors)
+    KCA: int = 24  # ligand-to-atom cross capacity per ligand atom
 
 
 LIG_SIZES = (16, 24, 32, 48, 64, 96, 128)
@@ -40,11 +46,13 @@ def _round_up(x: int, sizes: Sequence[int]) -> int:
     raise ValueError(f"size {x} exceeds largest bucket {sizes[-1]}")
 
 
-def pick_bucket(n_lig: int, n_bond_edges: int, n_tor: int, n_rec: int) -> Bucket:
+def pick_bucket(n_lig: int, n_bond_edges: int, n_tor: int, n_rec: int, n_atoms: int = 0,
+                all_atoms: bool = False) -> Bucket:
     L = _round_up(max(n_lig, 1), LIG_SIZES)
     R = max(8, int(np.ceil(n_tor / 8)) * 8) if n_tor > 0 else 8
     N = _round_up(max(n_rec, 1), REC_SIZES)
-    return Bucket(L=L, E=2 * L, R=R, N=N, KC=min(N, 48))
+    A = _round_up(max(n_atoms, 1), tuple(8 * s for s in REC_SIZES)) if all_atoms else 0
+    return Bucket(L=L, E=2 * L, R=R, N=N, KC=min(N, 48), A=A)
 
 
 @dataclass(frozen=True)
@@ -72,6 +80,13 @@ class ComplexBatch:
     t_rot: torch.Tensor  # f32 [B]
     t_tor: torch.Tensor  # f32 [B]
     orig_center: torch.Tensor  # f32 [B, 3]
+    # receptor heavy atoms (the all-atom confidence model); None when unused
+    atom_f: Optional[torch.Tensor] = None  # int64 [B, A, 4] categorical features
+    atom_pos: Optional[torch.Tensor] = None  # f32 [B, A, 3]
+    atom_mask: Optional[torch.Tensor] = None  # bool [B, A]
+    atom_nbr: Optional[torch.Tensor] = None  # int64 [B, A, KA] kNN neighbour indices
+    atom_nbr_mask: Optional[torch.Tensor] = None  # bool [B, A, KA]
+    atom_res: Optional[torch.Tensor] = None  # int64 [B, A] residue of each atom
 
     @property
     def batch_size(self) -> int:
@@ -90,8 +105,9 @@ class ComplexBatch:
         return self.replace(t_tr=f(t_tr), t_rot=f(t_rot), t_tor=f(t_tor))
 
     def map(self, fn) -> "ComplexBatch":
-        """Apply fn to every tensor field."""
-        return ComplexBatch(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
+        """Apply fn to every tensor field (None fields stay None)."""
+        return ComplexBatch(**{f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
+                               for f in dataclasses.fields(self)})
 
 
 class HostComplex(NamedTuple):
@@ -167,7 +183,7 @@ def pad_complex(hc: HostComplex, bucket: Bucket, lm_dim: int = 1280) -> dict:
 
     rec_lm = hc.rec_lm if hc.rec_lm.shape[-1] == lm_dim else np.zeros((n, lm_dim), dtype=np.float32)
     kr = min(hc.rec_nbr.shape[1], KR) if hc.rec_nbr.size else 0
-    return dict(
+    out = dict(
         lig_f=pad(hc.lig_f.astype(np.int64), (L, hc.lig_f.shape[1])),
         lig_pos=pad(hc.lig_pos.astype(np.float32), (L, 3)),
         lig_mask=pad(np.ones(l, dtype=bool), (L,)),
@@ -190,6 +206,31 @@ def pad_complex(hc: HostComplex, bucket: Bucket, lm_dim: int = 1280) -> dict:
         t_tor=np.zeros((), np.float32),
         orig_center=hc.orig_center.astype(np.float32),
     )
+    if bucket.A and hc.atom_f is not None:
+        a, A, KA = len(hc.atom_f), bucket.A, bucket.KA
+        if a > A:
+            raise ValueError(f"complex {hc.name} has {a} atoms, over the bucket's {A}")
+        ka = min(hc.atom_nbr.shape[1], KA) if hc.atom_nbr is not None and hc.atom_nbr.size else 0
+        out.update(
+            atom_f=pad(hc.atom_f.astype(np.int64), (A, hc.atom_f.shape[1])),
+            atom_pos=pad(hc.atom_pos.astype(np.float32), (A, 3)),
+            atom_mask=pad(np.ones(a, dtype=bool), (A,)),
+            atom_nbr=pad(hc.atom_nbr[:, :ka].astype(np.int64), (A, KA)) if ka else np.zeros((A, KA), np.int64),
+            atom_nbr_mask=pad(hc.atom_nbr_mask[:, :ka].astype(bool), (A, KA)) if ka else np.zeros((A, KA), bool),
+            atom_res=pad(hc.atom_res.astype(np.int64), (A,)),
+        )
+    return out
+
+
+def atom_knn(atom_pos: np.ndarray, atom_radius: float = 5.0, atom_max_neighbors: int = 8):
+    """Receptor-atom kNN lists as the JAX package's featurization builds them:
+    each atom's ``atom_max_neighbors`` nearest other atoms (scipy cKDTree),
+    masked where farther than ``atom_radius``. -> (nbr [a, K] int64, mask
+    [a, K] bool)."""
+    a = len(atom_pos)
+    k = min(atom_max_neighbors, a - 1)
+    d, idx = cKDTree(atom_pos).query(atom_pos, k=k + 1)
+    return idx[:, 1:].astype(np.int64), d[:, 1:] < atom_radius
 
 
 def batch_complexes(padded: Sequence[dict], device=None) -> ComplexBatch:

@@ -5,12 +5,16 @@ Input: the Flax variables as a nested dict of numpy arrays,
 variables)`` gives them. The port's module tree mirrors the Flax one, so each
 path maps mechanically:
 
-* ``name_<i>`` (``conv_layers_0``, ``edge_mlps_1``, ``Dense_0``, ``Embed_3``)
-  becomes ``name.<i>``, with ``Dense`` -> ``layers`` and ``Embed`` ->
-  ``embeddings``;
+* ``name_<i>`` (``conv_layers_0``, ``edge_mlps_1``, ``Dense_0``, ``Embed_3``,
+  ``MaskedBatchNorm1d_1``) becomes ``name.<i>``, with ``Dense`` -> ``layers``,
+  ``Embed`` -> ``embeddings`` and ``MaskedBatchNorm1d`` -> ``norms``;
 * ``kernel`` [in, out] becomes ``weight`` [out, in] (transposed), Embed's
   ``embedding`` becomes ``weight``;
-* batch statistics ``mean``/``var``/``norm`` become buffers of the same names.
+* batch statistics ``mean``/``var``/``norm`` become buffers of the same names;
+  other parameters (batch norms' ``weight``/``bias``/``scale``) keep theirs.
+
+This covers the score model and the all-atom confidence model (its 4- and
+9-group ``TPConv``s and its ``ConfidenceHead``).
 
 Nothing here imports flax or msgpack; reading a checkpoint file is not ported.
 """
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_RENAME = {"Dense": "layers", "Embed": "embeddings"}
+_RENAME = {"Dense": "layers", "Embed": "embeddings", "MaskedBatchNorm1d": "norms"}
 
 
 def _key(path) -> str:

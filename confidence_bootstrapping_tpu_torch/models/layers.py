@@ -4,9 +4,12 @@ Port of ``confidence_bootstrapping_tpu/models/layers.py`` for inference:
 ``FCBlock``, ``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps`` (with
 running statistics) and ``TPConv``. ``TPConv``'s receptor, ligand-pair and
 cross convolutions go through the CUDA kernels of ``ops/cuda`` for CUDA
-tensors and through their plain PyTorch versions for CPU tensors. The
-Mosaic-only restrictions of the JAX package (N % 32, L % 8, K % 16, K chunks)
-have no counterpart: the kernels take any N, L and K and sum every edge.
+tensors and through their plain PyTorch versions for CPU tensors: the lmax=1
+kernels for the score model's ``1x0e + 1x1o`` harmonics, the lmax=2 ones
+(``rec_g``, ``cross_g``) for the confidence model's ``1x0e + 1x1o + 1x2e``.
+The Mosaic-only restrictions of the JAX package (N % 32 or N % 8, N <= 2048,
+L % 8, K % 16, K chunks) have no counterpart: the kernels take any N, L and
+K and sum every edge.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda.tpconv_common import PackedWeights, pack_weights
+from ..ops.cuda.tpconv_common import SH2_IRREPS, PackedWeights, pack_weights
+from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
 from ..ops.cuda.tpconv_lig import fused_tpconv_cross_rev, fused_tpconv_pb
 from ..ops.cuda.tpconv_rec import fused_tpconv_rec
 from ..ops.graph_builders import scatter_count_to_nodes
@@ -108,6 +112,9 @@ class BatchNormIrreps(nn.Module):
         return torch.cat(out, dim=-1)
 
 
+_SH2 = str(Irreps(SH2_IRREPS))
+
+
 def pad_residual(x, out_dim: int):
     """Residual with zero padding to the wider irreps (the ladder only appends)."""
     return torch.nn.functional.pad(x, (0, out_dim - x.shape[-1]))
@@ -129,7 +136,8 @@ class TPConv(nn.Module):
         self.bn = BatchNormIrreps(out_irreps) if batch_norm else None
         self.residual = residual
         self.out_dim = Irreps(out_irreps).dim
-        self._packed = {}  # group -> (key of its parameters, PackedWeights, the parameters)
+        self._packed = {}  # (group, harmonics) -> (key of its parameters, PackedWeights, the parameters)
+        self.lmax2 = self.sh_irreps == _SH2  # conv_rec takes the lmax=2 kernel
 
     def mlp_weights(self, group: int):
         """(w1 [in, H], b1, w2 [H, W], b2) of an edge group, in the [in, out]
@@ -145,11 +153,12 @@ class TPConv(nn.Module):
             return None
         weights = self.mlp_weights(group)
         key = tuple((w.data_ptr(), w._version) for w in weights)
-        hit = self._packed.get(group)
+        hit = self._packed.get((group, self.sh_irreps))
         if hit is None or hit[0] != key:
             # the entry holds the weights it was made from, so a replaced
             # parameter's storage is not freed and its address not reused
-            hit = self._packed[group] = (key, pack_weights(*weights, self.in_irreps, self.out_irreps), weights)
+            packed = pack_weights(*weights, self.in_irreps, self.out_irreps, self.sh_irreps)
+            hit = self._packed[(group, self.sh_irreps)] = (key, packed, weights)
         return hit[1]
 
     def messages(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask):
@@ -158,13 +167,29 @@ class TPConv(nn.Module):
         return torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
 
     def conv_rec(self, group: int, node_attr, pos, nbr, edge_emb, sig, nbr_mask):
-        """Receptor <- receptor kNN messages: (sums [B, N, out], counts [B, N])."""
+        """kNN messages of one node set (receptor <- receptor, atom <- atom):
+        (sums [B, N, out], counts [B, N]); the rec kernel at lmax=1, rec_g
+        at lmax=2."""
         counts = nbr_mask.sum(-1).to(torch.float32)
-        out = fused_tpconv_rec(node_attr.contiguous(), pos.contiguous(), nbr.contiguous(), edge_emb.contiguous(),
-                               sig.contiguous(), nbr_mask.contiguous(), *self.mlp_weights(group),
-                               self.in_irreps, self.out_irreps, edge_emb.shape[-1],
-                               packed=self.packed_weights(group, node_attr))
+        args = (node_attr.contiguous(), pos.contiguous(), nbr.contiguous(), edge_emb.contiguous(), sig.contiguous(),
+                nbr_mask.contiguous(), *self.mlp_weights(group))
+        packed = self.packed_weights(group, node_attr)
+        if self.lmax2:
+            out = fused_tpconv_rec_g(*args, self.in_irreps, self.sh_irreps, self.out_irreps, edge_emb.shape[-1],
+                                     packed=packed)
+        else:
+            out = fused_tpconv_rec(*args, self.in_irreps, self.out_irreps, edge_emb.shape[-1], packed=packed)
         return out, counts
+
+    def conv_cross(self, group: int, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, idx_mask, ns: int):
+        """Messages of receivers over a capped list of senders from another
+        node set at lmax=2 (ligand <- receptor, ligand <- atom; the cross_g
+        kernel): (sums [B, L, out], counts [B, L])."""
+        out = fused_tpconv_cross_g(recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(),
+                                   src_pos.contiguous(), idx.contiguous(), edge_emb.contiguous(), idx_mask.contiguous(),
+                                   *self.mlp_weights(group), self.in_irreps, self.sh_irreps, self.out_irreps, ns,
+                                   packed=self.packed_weights(group, recv_attr))
+        return out, idx_mask.sum(-1).to(torch.float32)
 
     def conv_pb(self, group: int, lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_emb, bond_mask, ns: int):
         """Ligand <- ligand messages over dense pairs + bonds: (sums, counts)."""

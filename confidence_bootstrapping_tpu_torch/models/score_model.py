@@ -9,7 +9,9 @@ pairs are a dense masked [L, L] adjacency, cross edges are the nearest
 receptor kNN lists come with the batch. The t-independent receptor embedding
 is separate (``embed_receptor``) so the sampler computes it once.
 
-Confidence mode, ``torsional_forward`` and the all-atom model are not ported.
+``ConfidenceHead`` and ``MaskedBatchNorm1d`` (running statistics) serve the
+all-atom confidence model (``models/all_atom_model.py``). Confidence mode of
+this residue-level model and ``torsional_forward`` are not ported.
 """
 
 from __future__ import annotations
@@ -274,6 +276,39 @@ class TensorProductScoreModel(nn.Module):
         if c.scale_by_sigma:
             tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
         return ScoreOutput(tr_pred, rot_pred, torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred)))
+
+
+class MaskedBatchNorm1d(nn.Module):
+    """Plain batch norm over the last axis at inference (running statistics):
+    (x - mean) / sqrt(var + eps) * scale + bias."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x):
+        return (x - self.mean) / torch.sqrt(self.var + self.epsilon) * self.scale + self.bias
+
+
+class ConfidenceHead(nn.Module):
+    """(Linear, batch norm, ReLU) x 2, then Linear: the confidence predictor."""
+
+    def __init__(self, in_dim: int, ns: int, out_dim: int, use_batchnorm: bool = True):
+        super().__init__()
+        self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, ns), nn.Linear(ns, out_dim)])
+        self.norms = nn.ModuleList(MaskedBatchNorm1d(ns) for _ in range(2)) if use_batchnorm else None
+
+    def forward(self, x):
+        for i in range(2):
+            x = self.layers[i](x)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = torch.relu(x)
+        return self.layers[2](x)
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -19,7 +19,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNEL_SOURCES = ("tpconv_rec", "tpconv_pb", "tpconv_cross_rev")
+KERNEL_SOURCES = ("tpconv_rec", "tpconv_pb", "tpconv_cross_rev", "tpconv_rec_g", "tpconv_cross_g")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,0 +1,168 @@
+"""TP-conv kernels with lmax=2 harmonics (``csrc/tpconv_rec_g.cu``,
+``csrc/tpconv_cross_g.cu``).
+
+Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py`` at inference,
+the all-atom confidence model's path:
+
+* ``fused_tpconv_rec_g``: message sums [B, N, Dout] of a kNN group whose
+  senders and receivers are one node table (receptor <- receptor, atom <-
+  atom), with the neighbour gather, the harmonics, the [emb + sig | recv
+  scalars | send scalars] edge MLP, the weighted TP and the masked K-sum in
+  one kernel.
+* ``fused_tpconv_cross_g``: message sums [B, L, Dout] of ligand receivers
+  over a capped list of senders from another table (ligand <- receptor,
+  ligand <- atom); the edge embedding already holds the sigma embedding.
+
+The Pallas kernels take any mul-1 harmonics up to l=2; these take
+``1x0e + 1x1o + 1x2e`` or ``1x0e + 1x1o`` (``tpconv_common.sh_dim``), and
+input and output irreps of l <= 1. Positions stay float32 (the Pallas
+kernels split them into bf16 halves, about 1e-4 from a float32 composition).
+What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
+Each wrapper launches its kernel for CUDA tensors, calls its ``*_plain``
+version for CPU tensors, and counts launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..graph_builders import gather_nodes
+from . import build
+from .tpconv_common import check_inputs, device_tables, edge_messages, launch_weights, ptr, sh_dim, sh_kernel, tp_layout
+
+RT_REC = 8  # receivers per rec_g block: 8 * K=24 receptor or K=8 atom neighbours
+EDGES_PER_CHUNK = 64  # csrc/tpconv_engine.cuh: TM
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_REC_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_CROSS_ARGTYPES = [_P] * 15 + [_I] * 13 + [_P, _P]
+
+
+def cross_rows_per_block(K: int) -> int:
+    """Ligand receivers per cross_g block: enough to fill a 64-edge chunk."""
+    return max(1, EDGES_PER_CHUNK // max(K, 1))
+
+
+def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
+                       ns):
+    """The same function in plain PyTorch: gather, harmonics, edge MLP,
+    weighted TP, masked sum over K."""
+    sender = gather_nodes(node_attr, nbr)  # [B, N, K, Din]
+    vec = gather_nodes(pos, nbr) - pos[:, :, None, :]
+    scal = node_attr[..., :ns]
+    eattr = torch.cat(
+        [edge_emb + sig[:, None, None, :], scal[:, :, None, :].expand_as(sender[..., :ns]), sender[..., :ns]], dim=-1
+    )
+    return edge_messages(eattr, sender, sh_kernel(vec, irreps_sh), mask, w1, b1, w2, b2, irreps_in, irreps_out,
+                         irreps_sh).sum(dim=-2)
+
+
+def tpconv_cross_g_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                         irreps_in, irreps_sh, irreps_out, ns):
+    """The same function in plain PyTorch (the JAX package's XLA path)."""
+    sender = gather_nodes(src_attr, idx)  # [B, L, K, Dr]
+    vec = gather_nodes(src_pos, idx) - recv_pos[:, :, None, :]
+    rscal = recv_attr[..., :ns][:, :, None, :].expand_as(sender[..., :ns])
+    eattr = torch.cat([edge_emb, rscal, sender[..., :ns]], dim=-1)
+    return edge_messages(eattr, sender, sh_kernel(vec, irreps_sh), mask, w1, b1, w2, b2, irreps_in, irreps_out,
+                         irreps_sh).sum(dim=-2)
+
+
+def fused_tpconv_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in: str, irreps_sh: str,
+                       irreps_out: str, ns: int, packed=None):
+    """Message sums [B, N, Dout].
+
+    node_attr [B, N, Din] (canonical irreps layout, senders and receivers),
+    pos [B, N, 3], nbr [B, N, K] int64, edge_emb [B, N, K, Fe], sig [B, Fe]
+    (added to edge_emb; zeros to skip), mask [B, N, K] bool; w1 [Fe + 2 ns, H],
+    b1 [H], w2 [H, W], b2 [W] in Flax's [in, out] layout; ``packed``: the same
+    weights from ``pack_weights(..., irreps_sh)`` (made per launch when None)."""
+    if node_attr.device.type == "cpu":
+        return tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh,
+                                  irreps_out, ns)
+    out = _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
+                        ns, packed)
+    fused_tpconv_rec_g.launches += 1
+    return out
+
+
+def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, ns,
+                  packed):
+    dev = node_attr.device
+    if sh_dim(irreps_sh) != 9:
+        raise ValueError(f"fused_tpconv_rec_g runs lmax=2 harmonics; use fused_tpconv_rec for {irreps_sh}")
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    B, N, Din = node_attr.shape
+    K, Fe, H = nbr.shape[2], edge_emb.shape[-1], w2.shape[0]
+    check_inputs(dev, floats=(node_attr, pos, edge_emb, sig), longs=(nbr,), bools=(mask,))
+    if (Din != lay.din or pos.shape != (B, N, 3) or nbr.shape != (B, N, K) or edge_emb.shape[:3] != (B, N, K)
+            or sig.shape != (B, Fe) or mask.shape != (B, N, K) or tuple(w1.shape) != (Fe + 2 * ns, H)
+            or tuple(w2.shape) != (H, lay.weight_numel)):
+        raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
+    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
+    lib = build.load("tpconv_rec_g")
+    fn = lib.cbt_tpconv_rec_g
+    fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
+    code = fn(
+        ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask), ptr(w1c), ptr(b1c), ptr(w2p),
+        ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H,
+        Din, lay.dout, RT_REC, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, code, "tpconv_rec_g")
+    return out
+
+
+fused_tpconv_rec_g.launches = 0
+
+
+def fused_tpconv_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                         irreps_in: str, irreps_sh: str, irreps_out: str, ns: int, packed=None):
+    """Message sums [B, L, Dout] of the receivers over their capped senders.
+
+    recv_attr [B, L, D] receivers, recv_pos [B, L, 3], src_attr [B, N, D]
+    sender table, src_pos [B, N, 3], idx [B, L, K] int64, edge_emb
+    [B, L, K, Fe], mask [B, L, K] bool; weights as in ``fused_tpconv_rec_g``.
+    The kernel reads both tables at the TP's input width D."""
+    if recv_attr.device.type == "cpu":
+        return tpconv_cross_g_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                                    irreps_in, irreps_sh, irreps_out, ns)
+    out = _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                          irreps_in, irreps_sh, irreps_out, ns, packed)
+    fused_tpconv_cross_g.launches += 1
+    return out
+
+
+def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                    irreps_in, irreps_sh, irreps_out, ns, packed):
+    dev = recv_attr.device
+    if sh_dim(irreps_sh) != 9:
+        raise ValueError(f"fused_tpconv_cross_g runs lmax=2 harmonics; use fused_tpconv_cross_rev for {irreps_sh}")
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    B, L, D = recv_attr.shape
+    N, K, Fe, H = src_attr.shape[1], idx.shape[2], edge_emb.shape[-1], w2.shape[0]
+    check_inputs(dev, floats=(recv_attr, recv_pos, src_attr, src_pos, edge_emb), longs=(idx,), bools=(mask,))
+    if (D != lay.din or src_attr.shape != (B, N, D) or recv_pos.shape != (B, L, 3) or src_pos.shape != (B, N, 3)
+            or idx.shape != (B, L, K) or edge_emb.shape[:3] != (B, L, K) or mask.shape != (B, L, K)
+            or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
+        raise ValueError("fused_tpconv_cross_g: inconsistent shapes")
+    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
+    lib = build.load("tpconv_cross_g")
+    fn = lib.cbt_tpconv_cross_g
+    fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
+    code = fn(
+        ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask), ptr(w1c),
+        ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad,
+        B, L, N, K, Fe, ns, H, D, lay.dout, cross_rows_per_block(K), ptr(out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, code, "tpconv_cross_g")
+    return out
+
+
+fused_tpconv_cross_g.launches = 0

@@ -7,8 +7,10 @@ the shared receptor embedding, phased receptor compaction
 Python loop and the ``lax.cond`` a Python branch. Randomness comes from an
 explicit ``torch.Generator``; a step can instead take the noise tensors
 (``tr_z``, ``rot_z``, ``tor_z``), so a test can feed the exact noise that
-JAX's threefry drew. SVGD, ``derive_phase_plan`` and confidence scoring are
-not ported.
+JAX's threefry drew. ``score_confidence`` scores poses with the all-atom
+confidence model (crop and compaction per pose, or a shared receptor
+embedding). SVGD, ``derive_phase_plan`` and ``score_confidence``'s
+``embed_full_receptor`` option are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..config import SamplerConfig, ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
+from ..models.all_atom_model import compact_crop
 from ..ops.geometry import quaternion_to_matrix
 from ..ops.graph_builders import pairwise_dist
 from ..ops.poses import modify_conformer
@@ -199,8 +202,11 @@ def _phase_plan(cfg: SamplerConfig, n: int):
 
 
 def _receptors_identical(batch: ComplexBatch) -> bool:
-    fields = (batch.rec_f, batch.rec_lm, batch.rec_pos, batch.rec_mask, batch.rec_nbr, batch.rec_nbr_mask)
-    return all(torch.equal(f, f[:1].expand_as(f)) for f in fields)
+    """Every batch element carries the same receptor: every field an
+    ``embed_receptor`` reads (residues and, where present, atoms)."""
+    fields = (batch.rec_f, batch.rec_lm, batch.rec_pos, batch.rec_mask, batch.rec_nbr, batch.rec_nbr_mask,
+              batch.atom_f, batch.atom_pos, batch.atom_mask, batch.atom_nbr, batch.atom_nbr_mask, batch.atom_res)
+    return all(torch.equal(f, f[:1].expand_as(f)) for f in fields if f is not None)
 
 
 def receptor_cache(model, batch: ComplexBatch, shared: bool = True):
@@ -249,3 +255,29 @@ def sample(model, batch: ComplexBatch, model_cfg: ScoreModelConfig, cfg: Sampler
         seg_batch, seg_cache = _compact_receptor(seg_batch.replace(lig_pos=pos), seg_cache, radius, cap)
         pos = run(seg_batch, seg_cache, pos, s, bounds[i + 1])
     return batch.replace(lig_pos=pos), (torch.stack(traj) if return_trajectory else None)
+
+
+@torch.no_grad()
+def score_confidence(conf_model, batch: ComplexBatch, lig_pos=None, shared_receptor: bool = True,
+                     compact: bool = True) -> torch.Tensor:
+    """Confidence of each pose at t=0: [B]; NaN scores come back as -1000.
+
+    ``batch`` is the confidence model's view of the complexes (with receptor
+    atoms); ``lig_pos`` replaces its ligand positions with the poses to
+    score. With ``compact`` and a model that crops (``crop_beyond``), each
+    pose's kept residues and atoms are packed into the config's
+    (crop_res_cap, crop_atom_cap) buckets before the forward, so the
+    receptor embedding too runs on the cropped subgraph (as in training and
+    the reference). Otherwise, with ``shared_receptor``, the receptor is
+    embedded once and shared when every pose carries the same receptor."""
+    if lig_pos is not None:
+        batch = batch.replace(lig_pos=lig_pos)
+    b = batch.set_time(0.0, 0.0, 0.0)
+    cfg = conf_model.cfg
+    rec_cache = None
+    if (compact and cfg.all_atoms and cfg.crop_beyond is not None and cfg.crop_res_cap > 0
+            and cfg.crop_atom_cap > 0 and b.atom_f is not None and b.rec_pos.shape[1] > cfg.crop_res_cap):
+        b, _ = compact_crop(b, float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)
+    elif shared_receptor:
+        rec_cache = receptor_cache(conf_model, b, shared=True)
+    return torch.nan_to_num(conf_model(b, rec_cache=rec_cache).confidence, nan=-1000.0)

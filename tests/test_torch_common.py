@@ -46,11 +46,16 @@ def both_batches(padded: dict, B: int, lig_pos=None, t: float = 0.5):
     if lig_pos is not None:
         jb = jb.replace(lig_pos=jnp.asarray(lig_pos, jnp.float32))
     jb = jb.set_time(t, t, t)
-    fields = {k: np.asarray(getattr(jb, k)) for k in tcg.ComplexBatch.__dataclass_fields__}
-    tb = tcg.ComplexBatch(**{
-        k: torch.as_tensor(v.astype(np.int64) if v.dtype == np.int32 else np.array(v)) for k, v in fields.items()
+    return jb, port_batch(jb)
+
+
+def port_batch(jb):
+    """The port's ComplexBatch (CPU) of a JAX ComplexBatch; absent fields stay None."""
+    fields = {k: getattr(jb, k) for k in tcg.ComplexBatch.__dataclass_fields__}
+    return tcg.ComplexBatch(**{
+        k: None if v is None else torch.as_tensor(np.asarray(v).astype(np.int64) if np.asarray(v).dtype == np.int32
+                                                  else np.array(v)) for k, v in fields.items()
     })
-    return jb, tb
 
 
 def perturbed_pose(padded: dict, B: int, seed: int = 0, scale: float = 1.5):
@@ -70,15 +75,21 @@ def randomize_stats(variables, seed: int = 0):
         for k, v in d.items():
             if isinstance(v, dict):
                 out[k] = walk(v, path + (k,))
-            elif "bn" in path and k in ("mean", "bias"):
+            elif _is_norm(path) and k in ("mean", "bias"):
                 out[k] = (rng.randn(*v.shape) * 0.3).astype(np.float32)
-            elif "bn" in path and k in ("var", "norm", "weight"):
+            elif _is_norm(path) and k in ("var", "norm", "weight", "scale"):
                 out[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
             else:
                 out[k] = v
         return out
 
     return walk(tree)
+
+
+def _is_norm(path) -> bool:
+    """A batch norm's variables: the TP-convs' ``bn`` or a confidence head's
+    ``MaskedBatchNorm1d_<i>``."""
+    return "bn" in path or any(p.startswith("MaskedBatchNorm1d") for p in path)
 
 
 def install_jax_score_norms(monkeypatch):
