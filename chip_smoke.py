@@ -27,8 +27,20 @@ Phases (each one fails the script when it fails):
      the crop's kept residues and atoms, launches of rec_g and cross_g against
      the config), the card against the CPU on 2 of them, every rec_g and
      cross_g call of the timed forward replayed through kernel and plain
-     version as in phase 3, and one forward under torch.profiler.
-Then one JSON line with every kernel's numbers, and last the device line.
+     version as in phase 3, and one forward under torch.profiler;
+  7. training: one step of the full-width score model at B=2 and dropout 0,
+     the card against the CPU (loss, every parameter's gradient, the batch
+     statistics after it); then TrainConfig() steps at B=16 (1a0q replicated)
+     with dropout 0.1: one warm-up and 5 timed steps (median ms, training
+     poses/s, the split into noise + forward, backward and optimiser + EMA by
+     CUDA events, the launches per step of the edge-list forward, rec with the
+     dropout mask and the edge backward against the config), the eval loss in
+     batch-statistics mode over 8 fixed draws before and after them, every
+     call of one more step replayed through kernel and plain version (and the
+     two autograd ops forward and backward), one step under torch.profiler.
+Then one JSON line with every kernel's numbers (launches per 20-step sample
+for phase 3's kernels, per confidence forward for phase 6's, per training
+step for phase 7's), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -251,11 +263,13 @@ def kernel_phase(model, run) -> list:
     return replay(calls, kernels)
 
 
-def replay(calls: dict, kernels: dict) -> list:
+def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
     """Replay every recorded call through its kernel and its plain version:
     error against the stated tolerance, both timed, the bound from the
     call's own data. Prints per shape and as means over the calls; returns
-    one JSON row per kernel (without ``launches``)."""
+    one JSON row per kernel (without ``launches``). ``rtols``: per kernel, a
+    tolerance per output (default KERNEL_RTOL for each), each output held to
+    it times max(1, max |its plain value|)."""
     import torch
 
     def outputs(o):
@@ -267,13 +281,16 @@ def replay(calls: dict, kernels: dict) -> list:
         for args, kwargs in calls[name]:
             got, ref = outputs(fn(*args, **kwargs)), outputs(plain(*args))
             torch.cuda.synchronize()
-            err = max((g - w).abs().max().item() for g, w in zip(got, ref))
-            scale = max(w.abs().max().item() for w in ref)
+            errs = [(g - w).abs().max().item() for g, w in zip(got, ref)]
+            scales = [w.abs().max().item() for w in ref]
+            tols = (rtols or {}).get(name, (KERNEL_RTOL,) * len(ref))
+            err, scale = max(errs), max(scales)
             flops, tag = work(args)
             bound_bytes = nbytes(*(a for a in args if torch.is_tensor(a)), *got) / PEAK_BYTES * 1e3
             bound_ops = flops / PEAK_FP32_FLOPS * 1e3
             shapes.setdefault(tag, []).append(dict(
-                err=err, rel=err / max(scale, 1e-30), ok=err <= KERNEL_RTOL * max(1.0, scale),
+                err=err, rel=err / max(scale, 1e-30),
+                ok=all(e <= t * max(1.0, sc) for e, t, sc in zip(errs, tols, scales)),
                 ms=cuda_time(lambda: fn(*args, **kwargs), reps=5, warmup=1),
                 plain_ms=cuda_time(lambda: plain(*args), reps=2, warmup=0),
                 bound_bytes=bound_bytes, bound_ops=bound_ops, bound=max(bound_bytes, bound_ops), flops=flops))
@@ -282,7 +299,7 @@ def replay(calls: dict, kernels: dict) -> list:
             mean = {k: float(np.mean([m[k] for m in ms])) for k in ("ms", "plain_ms", "bound", "bound_ops", "bound_bytes", "flops")}
             ok = all(m["ok"] for m in ms)
             print(f"kernel {name} [{tag}], {len(ms)} calls: max_abs_err {max(m['err'] for m in ms):.3g} (max rel "
-                  f"{max(m['rel'] for m in ms):.3g}; tolerance {KERNEL_RTOL} x max(1, max |plain|)) "
+                  f"{max(m['rel'] for m in ms):.3g}; tolerance {(rtols or {}).get(name, KERNEL_RTOL)} x max(1, max |plain|)) "
                   f"{'ok' if ok else 'MISMATCH'}; mean kernel {mean['ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, "
                   f"bound {mean['bound']:.4f} ms ({'operations' if mean['bound_ops'] >= mean['bound_bytes'] else 'bytes'}; "
                   f"{mean['flops']:.4g} flops); per run {mean['ms'] * len(ms):.2f} ms", flush=True)
@@ -560,6 +577,345 @@ def confidence_phase(dev, final_pos) -> tuple:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------- phase 7: training
+
+
+TRAIN_STEPS, EVAL_DRAWS = 5, 8  # the timed steps' batch is TrainConfig().batch_size
+SUM_RTOL = 1e-3  # weight gradients: sums over every edge of a call, in another order than the plain version's
+RELU_GUARD = 1e-5  # a hidden pre-activation within this of zero, relative to sum |z w1| + |b1|, is "at the ReLU"
+TRAIN_KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "tpconv_edge": ("csrc/tpconv_edge.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:303"),
+    "tpconv_rec_dm": ("csrc/tpconv_rec.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
+    "tpconv_bwd": ("csrc/tpconv_bwd.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_bwd.py:151"),
+}
+TRAIN_OPS = {  # the autograd ops over them
+    "fused_tpconv_train": "confidence_bootstrapping_tpu/ops/pallas/tpconv_train.py:266",
+    "fused_tpconv_rec_train": "confidence_bootstrapping_tpu/ops/pallas/tpconv_train.py:380",
+}
+
+
+def expected_train_launches(model) -> dict:
+    """Kernel launches of one training step (the JAX package's training
+    routing): per ligand conv (embedding and trunk) the pairs (K-sum) and the
+    bonds (per edge), per trunk layer the ligand <- receptor lists (K-sum) and
+    per trunk layer but the last the receptor <- ligand lists (per edge), the
+    center and the torsion conv (per edge) on the edge-list kernel; every
+    receptor kNN group (embedding, and trunk but the last) on rec with the
+    dropout mask; one edge backward per op."""
+    P, C = len(model.lig_emb_layers), len(model.conv_layers)
+    edge = 2 * (P + C) + C + (C - 1) + 1 + (0 if model.cfg.no_torsion else 1)
+    rec = len(model.rec_emb_layers) + C - 1
+    return {"tpconv_edge": edge, "tpconv_rec_dm": rec, "tpconv_bwd": edge + rec}
+
+
+def train_counters() -> dict:
+    """name -> (wrapper, the attribute that counts its training kernel's
+    launches): rec's dropout-mask variant is counted apart from inference."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
+
+    return {"tpconv_edge": (tpconv_edge.fused_tpconv_edge, "launches"),
+            "tpconv_rec_dm": (tpconv_rec.fused_tpconv_rec, "dm_launches"),
+            "tpconv_bwd": (tpconv_bwd.edge_bwd, "launches")}
+
+
+def bwd_flops_per_edge(irreps_in: str, irreps_out: str, F: int, H: int, irreps_sh: str) -> int:
+    """One valid edge's backward: the MLP and TP-weight recompute, the CG
+    contributions, d_w and d_X (the TP contraction twice), dh, d_z, the
+    sender and harmonic gradients, and its share of dW1 and dW2."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import tp_layout
+    from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
+
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
+    contract = sum(g.fan_in * g.w_shape[1] * tp.irreps_out[g.out_index].ir.dim for g in tp.groups)
+    cg = int(sum(r[1] * r[3] for r in lay.xtab))
+    return 2 * (3 * F * H + 3 * H * lay.weight_numel + 2 * contract + 3 * cg)
+
+
+def edge_work(args):
+    attr, _, sh, mask, _, _, w2, _, ir_in, ir_sh, ir_out, dmask, sum_k = args
+    M, K, F = attr.shape
+    flops = int(mask.sum()) * flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
+    return flops, (f"M={M} K={K} D {attr.shape[-1]}/{tp_dout(ir_in, ir_out, ir_sh)} sh {sh.shape[-1]} "
+                   f"{'K-sum' if sum_k else 'per edge'}{', dropout' if dmask is not None else ''}")
+
+
+def bwd_work(args):
+    attr, _, sh, g, _, _, _, w2, _, ir_in, ir_sh, ir_out = args
+    T, F = attr.shape
+    valid = int((g != 0).any(-1).sum())  # masked edges carry a zero cotangent: no work
+    flops = valid * bwd_flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
+    return flops, f"T={T} valid={valid} F={F} sh {sh.shape[-1]} -> {g.shape[-1]}"
+
+
+def near_relu_boundary(z, w1, b1):
+    """[...] bool: the edges (MLP inputs z [..., F]) with a hidden
+    pre-activation within rounding of zero. There the kernel and the plain
+    version, summing in other orders, may take different sides of the ReLU,
+    and a gradient then differs by a whole term; the gradient checks leave
+    these edges out (both sides of a comparison get the same inputs)."""
+    import torch
+
+    with torch.no_grad():
+        hpre = z @ w1 + b1
+        return (hpre.abs() < RELU_GUARD * (z.abs() @ w1.abs() + b1.abs())).any(-1)
+
+
+def record_train_calls(run) -> dict:
+    """Run ``run()`` with the training kernels' wrappers, as the autograd
+    ops call them, wrapped to keep every call's inputs in the plain
+    versions' positional order; and the autograd ops, as the conv layers
+    call them."""
+    from confidence_bootstrapping_tpu_torch.models import layers
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_train as tt
+
+    calls = {name: [] for name in list(TRAIN_KERNELS) + list(TRAIN_OPS)}
+    orig = {"edge": tt.fused_tpconv_edge, "rec": tt.fused_tpconv_rec, "bwd": tt.edge_bwd,
+            "op": layers.fused_tpconv_train, "rec_op": layers.fused_tpconv_rec_train}
+
+    def edge(*a, dmask=None, sum_k=True, packed=None):
+        calls["tpconv_edge"].append((a + (dmask, sum_k), {}))
+        return orig["edge"](*a, dmask=dmask, sum_k=sum_k, packed=packed)
+
+    def rec(*a, packed=None, dmask=None):
+        calls["tpconv_rec_dm"].append((a + (dmask,), {}))
+        return orig["rec"](*a, packed=packed, dmask=dmask)
+
+    def bwd(*a):
+        calls["tpconv_bwd"].append((a, {}))
+        return orig["bwd"](*a)
+
+    def op(*a, **kw):
+        calls["fused_tpconv_train"].append((a, kw))
+        return orig["op"](*a, **kw)
+
+    def rec_op(*a, **kw):
+        calls["fused_tpconv_rec_train"].append((a, kw))
+        return orig["rec_op"](*a, **kw)
+
+    try:
+        tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = edge, rec, bwd
+        layers.fused_tpconv_train, layers.fused_tpconv_rec_train = op, rec_op
+        run()
+    finally:
+        tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = orig["edge"], orig["rec"], orig["bwd"]
+        layers.fused_tpconv_train, layers.fused_tpconv_rec_train = orig["op"], orig["rec_op"]
+    return calls
+
+
+def replay_train_ops(calls: dict) -> list:
+    """Rows 11 and 12: every recorded call of the two autograd ops, forward
+    and backward against a random cotangent, through the kernels and through
+    autograd of the plain composition on the card: outputs and every
+    gradient against the stated tolerances, both timed. Bound: the sum of
+    the call's forward and backward bounds."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_rec, tpconv_train as tt
+    from confidence_bootstrapping_tpu_torch.ops.graph_builders import gather_nodes
+
+    rows = []
+    for name, replaces in TRAIN_OPS.items():
+        ms = []
+        for args, kw in calls[name]:
+            args = list(args)
+            if name == "fused_tpconv_train":
+                near, mask0 = near_relu_boundary(args[0], args[4], args[5]), args[3]
+                args[3] = mask0 & ~near
+                grad_at = [0, 1, 2, 4, 5, 6, 7]  # edge_attr, sender, sh, w1, b1, w2, b2
+                kernel = lambda a: tt.fused_tpconv_train(*a, dmask=kw.get("dmask"), sum_k=kw["sum_k"])
+                plain = lambda a: tpconv_edge.tpconv_edge_plain(*a, kw.get("dmask"), kw["sum_k"])
+                attr, mask = args[0], args[3]
+                H, ir = args[6].shape[0], args[8:11]
+                fwd_flops = int(mask.sum()) * flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1])
+                bwd_flops = int(mask.sum()) * bwd_flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1])
+            else:
+                node, nbr, emb, sig, ns = args[0], args[2], args[3], args[4], args[13]
+                z = torch.cat([emb + sig[:, None, None, :], node[:, :, None, :ns].expand(emb.shape[:-1] + (ns,)),
+                               gather_nodes(node, nbr)[..., :ns]], dim=-1)
+                near, mask0 = near_relu_boundary(z, args[6], args[7]), args[5]
+                args[5] = mask0 & ~near
+                grad_at = [0, 1, 3, 4, 6, 7, 8, 9]  # node_attr, pos, edge_emb, sig, w1, b1, w2, b2
+                kernel = lambda a: tt.fused_tpconv_rec_train(*a, dmask=kw.get("dmask"))
+                plain = lambda a: tpconv_rec.tpconv_rec_plain(*a[:10], a[10], a[12], a[13], kw.get("dmask"))
+                mask, H = args[5], args[8].shape[0]
+                ir = (args[10], args[11], args[12])
+                F = args[3].shape[-1] + 2 * args[13]
+                fwd_flops = rec_work(tuple(args[:10]) + (args[10], args[12], args[13]))[0]
+                bwd_flops = int(mask.sum()) * bwd_flops_per_edge(ir[0], ir[2], F, H, ir[1])
+            leaves = [args[i].detach().clone().requires_grad_(True) for i in grad_at]
+            a = list(args)
+            for i, t in zip(grad_at, leaves):
+                a[i] = t
+
+            def fwd_bwd(f, cot=None):
+                out = f(a)
+                c = torch.ones_like(out) if cot is None else cot
+                return (out, *torch.autograd.grad(out, leaves, c))
+
+            cot = torch.randn(kernel(a).shape, device=mask.device)
+            got, ref = fwd_bwd(kernel, cot), fwd_bwd(plain, cot)
+            torch.cuda.synchronize()
+            errs = [(g - w).abs().max().item() for g, w in zip(got, ref)]
+            scales = [w.abs().max().item() for w in ref]
+            n_edge = 1 + (2 if name == "fused_tpconv_rec_train" else 3)  # outputs held per edge/node at 2e-4
+            ok = all(e <= (KERNEL_RTOL if i < n_edge else SUM_RTOL) * max(1.0, sc)
+                     for i, (e, sc) in enumerate(zip(errs, scales)))
+            bound = max(nbytes(*(t for t in args if torch.is_tensor(t)), *got) / PEAK_BYTES,
+                        (fwd_flops + bwd_flops) / PEAK_FP32_FLOPS) * 1e3
+            ms.append(dict(err=max(errs), ok=ok, bound=bound, guarded=int((near & mask0).sum()), edges=int(mask0.sum()),
+                           ms=cuda_time(lambda: fwd_bwd(kernel, cot), reps=3, warmup=1),
+                           plain_ms=cuda_time(lambda: fwd_bwd(plain, cot), reps=1, warmup=0)))
+            if not ok:
+                fail(f"{name}: the autograd op through the kernels disagrees with autograd of the plain version "
+                     f"(errors {errs})")
+        mean = {k: float(np.mean([m[k] for m in ms])) for k in ("ms", "plain_ms", "bound")}
+        print(f"op {name}, {len(ms)} calls (forward + backward): max_abs_err {max(m['err'] for m in ms):.3g} ok "
+              f"({sum(m['guarded'] for m in ms)} of {sum(m['edges'] for m in ms)} edges at the ReLU left out); "
+              f"mean {mean['ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, bound {mean['bound']:.4f} ms", flush=True)
+        rows.append(dict(name=name, route="cuda", source="confidence_bootstrapping_tpu_torch/ops/cuda/tpconv_train.py",
+                         replaces=replaces, max_abs_err=max(m["err"] for m in ms), ms=mean["ms"],
+                         plain_ms=mean["plain_ms"], bound_ms=mean["bound"], bound_by="operations", library_ms=None))
+    return rows
+
+
+def train_phase(dev) -> tuple:
+    """Phase 7: training steps of the full-width score model (see the module
+    docstring). Returns (JSON rows, launches per step by kernel)."""
+    import dataclasses
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
+    from confidence_bootstrapping_tpu_torch.train import diffusion, losses, train_loop
+
+    padded, _ = host_complex(LM_DIM)
+    tcfg = TrainConfig()
+
+    # the card against the CPU: one step's loss, gradients and batch statistics at dropout 0
+    cfg0 = ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=0.0)
+    draws = None
+    res = []
+    for device in (dev, torch.device("cpu")):  # the card first: it builds the so3/torus tables
+        model = TensorProductScoreModel(cfg0, device=device, seed=0)
+        model.requires_grad_(True)
+        batch = replicate_complex(padded, 2, device=device)
+        if draws is None:
+            draws = diffusion.draw_noise(batch, cfg0.sigma, tcfg, torch.Generator(device=device).manual_seed(5))
+        noised, targets = diffusion.apply_draws(batch, diffusion.NoiseDraws(*(d.to(device) for d in draws)),
+                                                cfg0.sigma)
+        out = model(noised, deterministic=False, use_running_average=False)
+        lb = losses.score_matching_loss(out.tr_pred, out.rot_pred, out.tor_pred, targets, noised, cfg0.sigma,
+                                        tcfg.tr_weight, tcfg.rot_weight, tcfg.tor_weight)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(lb.loss, [p for _, p in model.named_parameters()], allow_unused=True)
+        res.append((lb.loss.detach().cpu(), {n: (torch.zeros(()) if g is None else g.cpu()) for n, g in zip(names, grads)},
+                    {n: b.cpu() for n, b in model.named_buffers()}))
+    (lg, gg, bg), (lc, gc, bc) = res
+    checks = [("loss", lg, lc)] + [(f"grad {n}", gg[n], gc[n]) for n in gc] + [(f"stat {n}", bg[n], bc[n]) for n in bc]
+    checks = [c for c in checks if c[2].numel()]  # batch norms of outputs with no scalars have empty statistics
+    worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
+    print(f"training step card vs CPU (B=2, dropout 0): loss {lg.item():.6f} vs {lc.item():.6f}; "
+          f"{len(gc)} gradients and {len(bc)} batch statistics; worst error {worst[0]:.3g} of its tolerance "
+          f"({MODEL_RTOL} x max(1, max |cpu|)) at {worst[1]}", flush=True)
+    if not (worst[0] <= 1.0 and torch.isfinite(lg)):
+        fail("training step: the card disagrees with the CPU")
+
+    # timed steps at TrainConfig().batch_size (16) with dropout
+    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM)
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    state = train_loop.init_train_state(model, tcfg)
+    batch = replicate_complex(padded, tcfg.batch_size, device=dev)
+    step = train_loop.make_train_step(cfg, tcfg)
+    evaluate = train_loop.make_eval_step(cfg, tcfg, use_running_average=False)
+
+    def eval_loss():
+        return float(np.mean([evaluate(state, batch, torch.Generator(device=dev).manual_seed(100 + i))["loss"].item()
+                              for i in range(EVAL_DRAWS)]))
+
+    print(f"training: full-width score model (ns={cfg.ns}, nv={cfg.nv}, {cfg.num_prot_emb_layers}+"
+          f"{cfg.num_prot_emb_layers} embedding and {cfg.num_conv_layers} trunk layers, lm_dim {LM_DIM}, dropout "
+          f"{cfg.dropout}), 1a0q x {tcfg.batch_size}, TrainConfig() (lr {tcfg.lr}, Adam, EMA {tcfg.ema_rate})",
+          flush=True)
+    eval_before = eval_loss()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = train_loop.batch_stats(model)
+    t0 = time.perf_counter()
+    step(state, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"training warm-up step: {time.perf_counter() - t0:.3f} s", flush=True)
+    counters = train_counters()
+    walls, parts, loss_vals, launches = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, batch, gen, mark)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts.append((start.elapsed_time(events["forward"]), events["forward"].elapsed_time(events["backward"]),
+                      events["backward"].elapsed_time(events["update"])))
+        loss_vals.append(metrics["loss"].item())
+        launches.append({name: getattr(fn, attr) for name, (fn, attr) in counters.items()})
+    med = float(np.median(walls))
+    fwd, bwd, upd = (float(np.median([p[i] for p in parts])) for i in range(3))
+    print(f"training step: median {med:.2f} ms over {TRAIN_STEPS} steps ({', '.join(f'{w:.1f}' for w in walls)}), "
+          f"{tcfg.batch_size / med * 1e3:.3f} training poses/s; CUDA events: noise + forward {fwd:.2f} ms, backward "
+          f"{bwd:.2f} ms, optimiser + EMA {upd:.2f} ms; losses {', '.join(f'{v:.4f}' for v in loss_vals)}", flush=True)
+    want = expected_train_launches(model)
+    print(f"launches per training step: {launches[-1]}; expected from the config: {want}", flush=True)
+    if any(n != want for n in launches):
+        fail("a training step did not run every TP-conv through its kernels")
+    moved = max((p.detach() - params0[n]).abs().max().item() for n, p in model.named_parameters() if p.numel())
+    smoved = max((b - stats0[n]).abs().max().item() for n, b in model.named_buffers() if b.numel())
+    print(f"after {TRAIN_STEPS + 1} steps: parameters moved up to {moved:.3g}, batch statistics up to {smoved:.3g}, "
+          f"EMA step {state.step}", flush=True)
+    if not (all(np.isfinite(loss_vals)) and moved > 0 and smoved > 0):
+        fail("training: a loss is not finite, or the parameters or batch statistics did not move")
+    eval_after = eval_loss()
+    print(f"eval loss (batch statistics, {EVAL_DRAWS} fixed draws, a measurement): {eval_before:.4f} before, "
+          f"{eval_after:.4f} after the timed steps", flush=True)
+
+    # one step's calls, replayed through kernel and plain version
+    calls = record_train_calls(lambda: step(state, batch, gen))
+    torch.cuda.synchronize()
+    guarded = 0
+    for i, (a, kw) in enumerate(calls["tpconv_bwd"]):  # no cotangent on edges at the ReLU (near_relu_boundary)
+        near = near_relu_boundary(a[0], a[5], a[6])
+        guarded += int((near & (a[3] != 0).any(-1)).sum())
+        calls["tpconv_bwd"][i] = (a[:3] + (a[3] * ~near[:, None],) + a[4:], kw)
+    print(f"edge backward replay: {guarded} edges at the ReLU left out", flush=True)
+    kernels = {
+        "tpconv_edge": (lambda *a: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12]),
+                        tpconv_edge.tpconv_edge_plain, edge_work, TRAIN_KERNELS["tpconv_edge"][1]),
+        "tpconv_rec_dm": (lambda *a: tpconv_rec.fused_tpconv_rec(*a[:13], dmask=a[13]), tpconv_rec.tpconv_rec_plain,
+                          lambda a: rec_work(a[:13]), TRAIN_KERNELS["tpconv_rec_dm"][1]),
+        "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_work, TRAIN_KERNELS["tpconv_bwd"][1]),
+    }
+    with torch.no_grad():
+        rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4})
+    for r in rows:
+        r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
+    rows += replay_train_ops(calls)
+    profile_run(lambda: step(state, batch, gen), med)
+    per_step = dict(launches[-1])
+    per_step.update({"fused_tpconv_train": len(calls["fused_tpconv_train"]),
+                     "fused_tpconv_rec_train": len(calls["fused_tpconv_rec_train"])})
+    return rows, per_step
+
+
 def main() -> None:
     import torch
 
@@ -591,9 +947,12 @@ def main() -> None:
     torch.cuda.synchronize()
     conf_rows, conf_launches = confidence_phase(dev, final_pos)
     torch.cuda.synchronize()
+    train_rows, train_launches = train_phase(dev)
+    torch.cuda.synchronize()
 
     launches.update(conf_launches)
-    rows += conf_rows
+    launches.update(train_launches)
+    rows += conf_rows + train_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

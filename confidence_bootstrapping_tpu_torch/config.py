@@ -1,11 +1,11 @@
 """Typed configuration of the score and confidence models and the sampler.
 
 Port of ``confidence_bootstrapping_tpu/config.py`` for the fields the port
-reads (score mode, the all-atom confidence model, sampling), and of
-``models/factory.py:confidence_model_config``. No yaml: the machine that runs
-the port need not have it. Field names and defaults equal the JAX package's,
-so a config can be carried over with ``ScoreModelConfig(**fields)``; dropout
-is not a field (the port runs inference only).
+reads (score mode, the all-atom confidence model, sampling, the training
+step), and of ``models/factory.py:confidence_model_config``. No yaml: the
+machine that runs the port need not have it. Field names and defaults equal
+the JAX package's, so a config can be carried over with
+``ScoreModelConfig(**fields)``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class ScoreModelConfig:
     embed_also_ligand: bool = True
     reduce_pseudoscalars: bool = True
     batch_norm: bool = True
+    dropout: float = 0.1  # training only: the edge MLPs, embeddings and heads
     in_lig_edge_features: int = 4
     sigma_embed_dim: int = 32
     distance_embed_dim: int = 32
@@ -122,3 +123,25 @@ class SamplerConfig:
     rec_phase_steps: Tuple[int, ...] = ()
     rec_phase_caps: Tuple[int, ...] = ()
     rec_phase_margin: float = 5.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-step knobs (the fields ``train/train_loop`` and
+    ``train/diffusion`` read, and the batch a caller makes, as
+    ``chip_smoke.py``'s timed steps do), defaults as the JAX package's."""
+
+    lr: float = 1e-3
+    w_decay: float = 0.0
+    batch_size: int = 16
+    ema_rate: float = 0.999
+    tr_weight: float = 0.33
+    rot_weight: float = 0.33
+    tor_weight: float = 0.33
+    # forward-diffusion time sampling t ~ Beta(alpha, beta)
+    sampling_alpha: float = 2.0
+    sampling_beta: float = 1.0
+    grad_clip: Optional[float] = None
+    # CB time floor / mixing
+    minimum_t: float = 0.0
+    sampling_mixing_coeff: float = 0.0

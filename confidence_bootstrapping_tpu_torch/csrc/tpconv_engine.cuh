@@ -223,6 +223,25 @@ __device__ void hidden_layer(float* sm, const Layout& L, const Dims& d, const TP
   }
 }
 
+// The training variant: h[k][m] times the hidden-layer dropout mask of the
+// slot's edge, dm[cand[m] * hd + k] ({0, 1/keep}; hd = H, or 1 for one value
+// per edge), applied after the ReLU as the JAX package's kernels apply it.
+__device__ void hidden_layer_dm(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const EdgeSlots& s,
+                                const float* __restrict__ dm, int hd) {
+  const float* z = sm + L.z;
+  float* h = sm + L.h;
+  const int ks = hd > 1 ? 1 : 0;
+  for (int i = threadIdx.x; i < TM * d.H; i += NT) {
+    const int m = i % TM, k = i / TM;
+    const float* zr = z + m * L.ldz;
+    float acc = W.b1[k];
+    for (int f = 0; f < d.F; ++f) acc = fmaf(zr[f], W.w1[f * d.H + k], acc);
+    float v = fmaxf(acc, 0.f);
+    if (m < s.count) v *= dm[(size_t)s.cand[m] * hd + k * ks];
+    h[k * TM + m] = v;
+  }
+}
+
 // X[m][e] = sum_{a,b} x[in_base + a] sh[sh_base + b] cg[(a*ds + b)*dout + c].
 __device__ void contributions(float* sm, const Layout& L, const TPTables& T) {
   const float* xs = sm + L.xs;
@@ -299,14 +318,20 @@ __device__ void weighted_tp(float* sm, const Layout& L, const Dims& d, const TPW
   }
 }
 
-// Steps 2-4 for the slots of one chunk; leaves msg in shared memory.
-template <int SHD>
+// Steps 2-4 for the slots of one chunk; leaves msg in shared memory. DM
+// selects the training variant of the hidden layer (dropout mask dm, whose
+// rows are indexed by the slots' candidate numbers); the inference
+// instantiation (DM = false) is the code it was before the mask existed.
+template <int SHD, bool DM = false>
 __device__ void run_engine(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const TPTables& T,
                            const EdgeSlots& s, const float* const* recv, const float* const* send,
-                           const float* sig, float sign) {
+                           const float* sig, float sign, const float* dm = nullptr, int hd = 0) {
   fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
   __syncthreads();
-  hidden_layer(sm, L, d, W);
+  if constexpr (DM)
+    hidden_layer_dm(sm, L, d, W, s, dm, hd);
+  else
+    hidden_layer(sm, L, d, W);
   contributions(sm, L, T);
   __syncthreads();
   weighted_tp(sm, L, d, W, T);
@@ -325,12 +350,14 @@ inline size_t smem_bytes(const Layout& L) { return (size_t)L.total * sizeof(floa
 // One block's tile of RT receivers of a kNN group whose senders and
 // receivers are one node table [B, N, Din] (the rec and rec_g kernels).
 // Candidates are the RT*K neighbour slots in (receiver, k) order; sig [B, Fe]
-// is added to the cached edge embedding in the fill.
-template <int SHD>
+// is added to the cached edge embedding in the fill. With DM (training), dm
+// [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot.
+template <int SHD, bool DM = false>
 __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node, const float* __restrict__ pos,
                          const int64_t* __restrict__ nbr, const float* __restrict__ emb,
                          const float* __restrict__ sig, const uint8_t* __restrict__ mask, const TPWeights& W,
-                         const TPTables& T, const Dims& d, int N, int K, int RT, float* __restrict__ out) {
+                         const TPTables& T, const Dims& d, int N, int K, int RT, float* __restrict__ out,
+                         const float* __restrict__ dm = nullptr, int hd = 0) {
   const Layout L = make_layout<SHD>(d, T.S, RT);
   const int b = blockIdx.y, i0 = blockIdx.x * RT;
   const int nrecv = min(RT, N - i0);
@@ -354,7 +381,11 @@ __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node
       for (int q = 0; q < 3; ++q) s.vec[m][q] = pos[(row0 + j) * 3 + q] - pos[(row0 + i) * 3 + q];
     }
     __syncthreads();
-    run_engine<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f);
+    if constexpr (DM)
+      run_engine<SHD, true>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
+                            dm + (row0 + i0) * K * hd, hd);
+    else
+      run_engine<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f);
     reduce_to_tile(sm, L, d, s);
     __syncthreads();
   }
@@ -413,6 +444,78 @@ __device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ li
     }
   }
   for (int i = threadIdx.x; i < nrecv * d.Dout; i += NT) out_lig[(lrow0 + l0) * d.Dout + i] = outs[i];
+}
+
+// Edge-list fill: the MLP input (all F columns), sender features and
+// harmonics (SHD given components) of each kept slot, read from per-edge
+// rows; edge e = the slot's candidate number past the block's first edge.
+template <int SHD>
+__device__ void fill_given(float* sm, const Layout& L, const Dims& d, const EdgeSlots& s,
+                           const float* __restrict__ attr, const float* __restrict__ send,
+                           const float* __restrict__ shin) {
+  float* z = sm + L.z;
+  float* xs = sm + L.xs;
+  float* sh = sm + L.sh;
+  for (int i = threadIdx.x; i < TM * d.F; i += NT) {
+    const int m = i / d.F, f = i % d.F;
+    z[m * L.ldz + f] = (m < s.count) ? attr[(size_t)s.cand[m] * d.F + f] : 0.f;
+  }
+  for (int i = threadIdx.x; i < TM * d.Din; i += NT) {
+    const int m = i / d.Din, a = i % d.Din;
+    xs[m * L.ldx + a] = (m < s.count) ? send[(size_t)s.cand[m] * d.Din + a] : 0.f;
+  }
+  for (int i = threadIdx.x; i < TM * SHD; i += NT) {
+    const int m = i / SHD, b = i % SHD;
+    sh[m * L.ldsh + b] = (m < s.count) ? shin[(size_t)s.cand[m] * SHD + b] : 0.f;
+  }
+}
+
+// One block's RT rows of a pre-gathered edge list [M, K, *] (the edge-list
+// kernel): attr [M, K, F], send [M, K, Din], harmonics [M, K, SHD], mask
+// [M, K]; with DM the hidden-layer dropout mask dm [M, K, hd]. Candidates are
+// the RT*K edges of the rows in order. sum_k: the rows' message sums
+// [M, Dout]; otherwise each kept edge's message at out [M, K, Dout] (the
+// caller zeroes out, so masked edges read zero).
+template <int SHD, bool DM>
+__device__ void edge_tile(float* sm, EdgeSlots& s, const float* __restrict__ attr, const float* __restrict__ send,
+                          const float* __restrict__ shin, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ dm, int hd, const TPWeights& W, const TPTables& T, const Dims& d,
+                          int M, int K, int RT, int sum_k, float* __restrict__ out) {
+  const Layout L = make_layout<SHD>(d, T.S, RT);
+  const int m0 = blockIdx.x * RT;
+  const int nrows = min(RT, M - m0);
+  const size_t e0 = (size_t)m0 * K;
+  float* outs = sm + L.out;
+  for (int i = threadIdx.x; i < RT * d.Dout; i += NT) outs[i] = 0.f;
+  if (threadIdx.x == 0) s.cursor = 0;
+  __syncthreads();
+  const uint8_t* mrow = mask + e0;
+  while (true) {
+    compact(nrows * K, [&](int c) { return mrow[c] != 0; }, s);
+    if (s.count == 0) break;
+    for (int m = threadIdx.x; m < s.count; m += NT) s.slot[m] = s.cand[m] / K;
+    fill_given<SHD>(sm, L, d, s, attr + e0 * d.F, send + e0 * d.Din, shin + e0 * SHD);
+    __syncthreads();
+    if constexpr (DM)
+      hidden_layer_dm(sm, L, d, W, s, dm + e0 * hd, hd);
+    else
+      hidden_layer(sm, L, d, W);
+    contributions(sm, L, T);
+    __syncthreads();
+    weighted_tp(sm, L, d, W, T);
+    if (sum_k) {
+      reduce_to_tile(sm, L, d, s);
+    } else {
+      const float* msg = sm + L.msg;
+      for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
+        const int m = i / d.Dout, o = i % d.Dout;
+        out[(e0 + s.cand[m]) * d.Dout + o] = msg[m * L.ldm + o];
+      }
+    }
+    __syncthreads();
+  }
+  if (sum_k)
+    for (int i = threadIdx.x; i < nrows * d.Dout; i += NT) out[(size_t)m0 * d.Dout + i] = outs[i];
 }
 
 }  // namespace cbt

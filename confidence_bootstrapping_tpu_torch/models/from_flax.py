@@ -14,7 +14,11 @@ path maps mechanically:
   other parameters (batch norms' ``weight``/``bias``/``scale``) keep theirs.
 
 This covers the score model and the all-atom confidence model (its 4- and
-9-group ``TPConv``s and its ``ConfidenceHead``).
+9-group ``TPConv``s and its ``ConfidenceHead``). Training adds no parameter
+or buffer (dropout rates are plain attributes), so the same map carries a
+JAX training state's parameters and batch statistics into the trainable
+model, and its gradients into parameter names
+(tests/test_torch_training.py).
 
 Nothing here imports flax or msgpack; reading a checkpoint file is not ported.
 """

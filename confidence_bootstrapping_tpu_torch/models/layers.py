@@ -1,15 +1,22 @@
 """Building blocks of the equivariant score model.
 
-Port of ``confidence_bootstrapping_tpu/models/layers.py`` for inference:
-``FCBlock``, ``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps`` (with
-running statistics) and ``TPConv``. ``TPConv``'s receptor, ligand-pair and
-cross convolutions go through the CUDA kernels of ``ops/cuda`` for CUDA
-tensors and through their plain PyTorch versions for CPU tensors: the lmax=1
-kernels for the score model's ``1x0e + 1x1o`` harmonics, the lmax=2 ones
-(``rec_g``, ``cross_g``) for the confidence model's ``1x0e + 1x1o + 1x2e``.
-The Mosaic-only restrictions of the JAX package (N % 32 or N % 8, N <= 2048,
-L % 8, K % 16, K chunks) have no counterpart: the kernels take any N, L and
-K and sum every edge.
+Port of ``confidence_bootstrapping_tpu/models/layers.py``: ``FCBlock``,
+``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps`` and ``TPConv``.
+``TPConv``'s receptor, ligand-pair and cross convolutions go through the CUDA
+kernels of ``ops/cuda`` for CUDA tensors and through their plain PyTorch
+versions for CPU tensors: the lmax=1 kernels for the score model's
+``1x0e + 1x1o`` harmonics, the lmax=2 ones (``rec_g``, ``cross_g``) for the
+confidence model's ``1x0e + 1x1o + 1x2e``. The Mosaic-only restrictions of the
+JAX package (N % 32 or N % 8, N <= 2048, L % 8, K % 16, K chunks) have no
+counterpart: the kernels take any N, L and K and sum every edge.
+
+Training (``deterministic=False``) follows the JAX package's training
+routing: every TP-conv goes through the differentiable ops of
+``ops/cuda/tpconv_train.py`` (the receptor kNN groups through
+``fused_tpconv_rec_train``, every other group through ``fused_tpconv_train``)
+with a hidden-layer dropout mask drawn once per call; dropout masks come from
+the generator the caller passes. ``use_running_average=False`` normalizes with
+the batch's masked statistics and updates the running ones.
 """
 
 from __future__ import annotations
@@ -23,21 +30,38 @@ from ..ops.cuda.tpconv_common import SH2_IRREPS, PackedWeights, pack_weights
 from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
 from ..ops.cuda.tpconv_lig import fused_tpconv_cross_rev, fused_tpconv_pb
 from ..ops.cuda.tpconv_rec import fused_tpconv_rec
-from ..ops.graph_builders import scatter_count_to_nodes
-from ..ops.irreps import Irreps, WeightedTensorProduct
+from ..ops.cuda.tpconv_train import fused_tpconv_rec_train, fused_tpconv_train
+from ..ops.graph_builders import gather_nodes, scatter_count_to_nodes
+from ..ops.irreps import Irreps, WeightedTensorProduct, spherical_harmonics
+
+
+def dropout_mask(shape, p: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """nn.Dropout's mask: 1/keep with probability keep = 1 - p, else 0
+    (float32, drawn from ``generator``)."""
+    keep = 1.0 - p
+    return (torch.rand(shape, generator=generator, device=device) < keep).to(torch.float32) / keep
+
+
+def dropout(x, p: float, deterministic: bool, generator: Optional[torch.Generator]):
+    if deterministic or p <= 0.0:
+        return x
+    return x * dropout_mask(x.shape, p, generator, x.device)
 
 
 class FCBlock(nn.Module):
-    """Linear (ReLU Linear) * (depth - 1)."""
+    """Linear (ReLU Dropout Linear) * (depth - 1)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, depth: int = 2):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, depth: int = 2, dropout: float = 0.0):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (depth - 1) + [out_dim]
         self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.dropout = dropout
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         for i, lin in enumerate(self.layers):
-            x = lin(torch.relu(x) if i else x)
+            if i:
+                x = dropout(torch.relu(x), self.dropout, deterministic, generator)
+            x = lin(x)
         return x
 
 
@@ -75,16 +99,21 @@ class GaussianSmearing(nn.Module):
 
 
 class BatchNormIrreps(nn.Module):
-    """Irreps batch norm at inference (running statistics).
+    """Masked irreps batch norm (e3nn's semantics, the JAX package's).
 
     Scalars (0e): (x - mean) / sqrt(var + eps) * weight + bias. Every other
-    block (l > 0 and 0o): divided by sqrt(norm + eps), times weight.
+    block (l > 0 and 0o): divided by sqrt(norm + eps), times weight, where
+    norm is the mean square over the block's components. With
+    ``use_running_average`` the running statistics; otherwise the masked
+    statistics of the batch's valid rows (biased variance), which the running
+    ones then move toward with ``momentum``.
     """
 
-    def __init__(self, irreps, epsilon: float = 1e-5):
+    def __init__(self, irreps, epsilon: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.irreps = Irreps(irreps)
         self.epsilon = epsilon
+        self.momentum = momentum
         n_scalar = sum(mul for mul, ir in self.irreps if ir.l == 0 and ir.p == 1)
         n_field = sum(mul for mul, ir in self.irreps if not (ir.l == 0 and ir.p == 1))
         self.weight = nn.Parameter(torch.ones(self.irreps.num_irreps))
@@ -93,22 +122,43 @@ class BatchNormIrreps(nn.Module):
         self.register_buffer("var", torch.ones(n_scalar))
         self.register_buffer("norm", torch.ones(n_field))
 
-    def forward(self, x):
-        out = []
+    def forward(self, x, mask=None, use_running_average: bool = True):
+        if not use_running_average:
+            m = (torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device) if mask is None else mask).to(x.dtype)
+            denom = torch.clamp(m.sum(), min=1.0)
+            axes = tuple(range(x.ndim - 1))
+        out, new_means, new_vars, new_norms = [], [], [], []
         i_s = i_f = i_w = 0
         for (mul, ir), sl in zip(self.irreps, self.irreps.slices()):
             blk = x[..., sl]
             w = self.weight[i_w : i_w + mul]
             i_w += mul
             if ir.l == 0 and ir.p == 1:
-                mean, var, b = self.mean[i_s : i_s + mul], self.var[i_s : i_s + mul], self.bias[i_s : i_s + mul]
+                if use_running_average:
+                    mean, var = self.mean[i_s : i_s + mul], self.var[i_s : i_s + mul]
+                else:
+                    mean = torch.sum(blk * m[..., None], dim=axes) / denom
+                    var = torch.sum((blk - mean) ** 2 * m[..., None], dim=axes) / denom
+                    new_means.append(mean)
+                    new_vars.append(var)
+                b = self.bias[i_s : i_s + mul]
                 i_s += mul
                 out.append((blk - mean) / torch.sqrt(var + self.epsilon) * w + b)
             else:
                 f = blk.reshape(blk.shape[:-1] + (mul, ir.dim))
-                norm = self.norm[i_f : i_f + mul]
+                if use_running_average:
+                    norm = self.norm[i_f : i_f + mul]
+                else:
+                    norm = torch.sum(torch.mean(f**2, dim=-1) * m[..., None], dim=axes) / denom
+                    new_norms.append(norm)
                 i_f += mul
                 out.append((f / torch.sqrt(norm + self.epsilon)[:, None] * w[:, None]).reshape(blk.shape))
+        if not use_running_average:
+            with torch.no_grad():
+                mom = self.momentum
+                for buf, new in ((self.mean, new_means), (self.var, new_vars), (self.norm, new_norms)):
+                    if new:
+                        buf.mul_(1 - mom).add_(mom * torch.cat(new).detach())
         return torch.cat(out, dim=-1)
 
 
@@ -127,11 +177,14 @@ class TPConv(nn.Module):
     ``num_groups`` edge groups share the TP but have their own edge MLP."""
 
     def __init__(self, in_irreps: str, sh_irreps: str, out_irreps: str, n_edge_features: int, num_groups: int = 1,
-                 hidden_features: Optional[int] = None, batch_norm: bool = True, residual: bool = True):
+                 hidden_features: Optional[int] = None, batch_norm: bool = True, residual: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.in_irreps, self.sh_irreps, self.out_irreps = str(Irreps(in_irreps)), str(Irreps(sh_irreps)), str(Irreps(out_irreps))
         self.tp = WeightedTensorProduct(in_irreps, sh_irreps, out_irreps)
         hidden = hidden_features or n_edge_features
+        self.hidden = hidden
+        self.dropout = dropout  # the edge MLPs' hidden layer, in training
         self.edge_mlps = nn.ModuleList(FCBlock(n_edge_features, hidden, self.tp.weight_numel) for _ in range(num_groups))
         self.bn = BatchNormIrreps(out_irreps) if batch_norm else None
         self.residual = residual
@@ -161,30 +214,75 @@ class TPConv(nn.Module):
             hit = self._packed[(group, self.sh_irreps)] = (key, packed, weights)
         return hit[1]
 
-    def messages(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask):
-        """Per-edge messages [..., out_dim]; masked edges are zero."""
+    def _dmask(self, lead, generator, device):
+        """The hidden-layer dropout mask of one training call, lead + (H,);
+        None without dropout."""
+        return dropout_mask(tuple(lead) + (self.hidden,), self.dropout, generator, device) if self.dropout > 0 else None
+
+    def _train_op(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k: bool):
+        """The differentiable edge-list op over [..., K, *] edge tensors
+        (broadcast to one shape): [..., out_dim] (sum_k) or [..., K, out_dim]."""
+        lead = torch.broadcast_shapes(sender_attr.shape[:-1], edge_sh.shape[:-1], edge_attr.shape[:-1], edge_mask.shape)
+        K = lead[-1]
+        flat = lambda a: a.expand(lead + a.shape[-1:]).reshape(-1, K, a.shape[-1])
+        mask = edge_mask.expand(lead).reshape(-1, K)
+        out = fused_tpconv_train(flat(edge_attr), flat(sender_attr), flat(edge_sh), mask, *self.mlp_weights(group),
+                                 self.in_irreps, self.sh_irreps, self.out_irreps,
+                                 dmask=self._dmask(mask.shape, generator, mask.device), sum_k=sum_k,
+                                 packed=self.packed_weights(group, edge_attr))
+        return out.reshape((lead[:-1] if sum_k else lead) + (out.shape[-1],))
+
+    def messages(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        """Per-edge messages [..., out_dim]; masked edges are zero. In
+        training, the differentiable edge-list op (per-edge messages)."""
+        if not deterministic:
+            return self._train_op(group, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k=False)
         msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr))
         return torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
 
-    def conv_rec(self, group: int, node_attr, pos, nbr, edge_emb, sig, nbr_mask):
+    def conv_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        """Messages summed over the trailing neighbour axis: [..., K, *] ->
+        (sums [..., out_dim], counts [...])."""
+        counts = edge_mask.sum(-1).to(torch.float32)
+        if not deterministic:
+            return self._train_op(group, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k=True), counts
+        return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask).sum(dim=-2), counts
+
+    def conv_rec(self, group: int, node_attr, pos, nbr, edge_emb, sig, nbr_mask, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
         """kNN messages of one node set (receptor <- receptor, atom <- atom):
         (sums [B, N, out], counts [B, N]); the rec kernel at lmax=1, rec_g
-        at lmax=2."""
+        at lmax=2; in training the differentiable ``fused_tpconv_rec_train``
+        with the hidden-layer dropout mask."""
         counts = nbr_mask.sum(-1).to(torch.float32)
         args = (node_attr.contiguous(), pos.contiguous(), nbr.contiguous(), edge_emb.contiguous(), sig.contiguous(),
                 nbr_mask.contiguous(), *self.mlp_weights(group))
         packed = self.packed_weights(group, node_attr)
-        if self.lmax2:
+        if not deterministic:
+            out = fused_tpconv_rec_train(*args, self.in_irreps, self.sh_irreps, self.out_irreps, edge_emb.shape[-1],
+                                         dmask=self._dmask(nbr.shape, generator, nbr.device), packed=packed)
+        elif self.lmax2:
             out = fused_tpconv_rec_g(*args, self.in_irreps, self.sh_irreps, self.out_irreps, edge_emb.shape[-1],
                                      packed=packed)
         else:
             out = fused_tpconv_rec(*args, self.in_irreps, self.out_irreps, edge_emb.shape[-1], packed=packed)
         return out, counts
 
-    def conv_cross(self, group: int, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, idx_mask, ns: int):
+    def conv_cross(self, group: int, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, idx_mask, ns: int,
+                   deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """Messages of receivers over a capped list of senders from another
-        node set at lmax=2 (ligand <- receptor, ligand <- atom; the cross_g
-        kernel): (sums [B, L, out], counts [B, L])."""
+        node set (ligand <- receptor, ligand <- atom): (sums [B, L, out],
+        counts [B, L]). At inference the cross_g kernel (lmax=2 only on the
+        card); in training the JAX package's fallback: the senders gathered,
+        then ``conv_nbr``."""
+        if not deterministic:
+            sender = gather_nodes(src_attr, idx)
+            sh = spherical_harmonics(2 if self.lmax2 else 1, gather_nodes(src_pos, idx) - recv_pos[:, :, None, :])
+            eattr = torch.cat([edge_emb, recv_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,)),
+                               sender[..., :ns]], dim=-1)
+            return self.conv_nbr(group, sender, sh, eattr, idx_mask, deterministic, generator)
         out = fused_tpconv_cross_g(recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(),
                                    src_pos.contiguous(), idx.contiguous(), edge_emb.contiguous(), idx_mask.contiguous(),
                                    *self.mlp_weights(group), self.in_irreps, self.sh_irreps, self.out_irreps, ns,
@@ -218,11 +316,12 @@ class TPConv(nn.Module):
             rec_counts = scatter_count_to_nodes(idx.reshape(B, -1), idx_mask.reshape(B, -1), src_attr.shape[1])
         return lig_sum, lig_counts, rec_sum, rec_counts
 
-    def finalize(self, x_in, msg_sum, msg_count, node_mask):
-        """Mean-aggregate, batch norm (padded nodes zeroed), residual."""
+    def finalize(self, x_in, msg_sum, msg_count, node_mask, use_running_average: bool = True):
+        """Mean-aggregate, batch norm (padded nodes zeroed; batch statistics
+        over the valid nodes unless ``use_running_average``), residual."""
         out = msg_sum / torch.clamp(msg_count, min=1.0)[..., None]
         if self.bn is not None:
-            out = self.bn(out)
+            out = self.bn(out, node_mask, use_running_average)
             out = torch.where(node_mask[..., None], out, torch.zeros_like(out))
         if self.residual:
             out = out + pad_residual(x_in, self.out_dim)

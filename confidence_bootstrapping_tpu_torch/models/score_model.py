@@ -9,6 +9,16 @@ pairs are a dense masked [L, L] adjacency, cross edges are the nearest
 receptor kNN lists come with the batch. The t-independent receptor embedding
 is separate (``embed_receptor``) so the sampler computes it once.
 
+Training (``deterministic=False``, ``use_running_average=False``) follows the
+JAX package's training composition (``score_model.py:326-350``, ``:447-477``,
+``:504-584``): the receptor embedding inside the forward, the ligand pairs
+through ``conv_nbr`` and the bonds through ``messages``, the ligand <-
+receptor lists through ``conv_cross`` and the receptor <- ligand ones through
+``messages`` and a scatter, dropout in the edge embeddings, the edge MLPs and
+the heads. The inference kernels ``pb`` and ``cross_rev`` are inference only,
+as in the JAX package. Parameters are frozen at construction (inference);
+``train.train_loop.init_train_state`` unfreezes them.
+
 ``ConfidenceHead`` and ``MaskedBatchNorm1d`` (running statistics) serve the
 all-atom confidence model (``models/all_atom_model.py``). Confidence mode of
 this residue-level model and ``torsional_forward`` are not ported.
@@ -25,11 +35,11 @@ from ..config import ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
 from ..data.vocab import LIG_FEATURE_DIMS, REC_RESIDUE_FEATURE_DIMS
 from ..ops import so3, torus
-from ..ops.graph_builders import gather_nodes, radius_mask, topk_neighbors
+from ..ops.graph_builders import gather_nodes, radius_mask, scatter_mean_to_nodes, topk_neighbors
 from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
-from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv
+from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv, dropout
 
 
 def get_irrep_seq(ns: int, nv: int, reduce_pseudoscalars: bool):
@@ -53,25 +63,28 @@ class ScoreOutput(NamedTuple):
 
 
 class FinalNormMLP(nn.Module):
-    """MLP rescaling the tr/rot vector norm: Linear ReLU Linear."""
+    """MLP rescaling the tr/rot vector norm: Linear Dropout ReLU Linear."""
 
-    def __init__(self, in_dim: int, ns: int):
+    def __init__(self, in_dim: int, ns: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, 1)])
+        self.dropout = dropout
 
-    def forward(self, norm, sigma_emb):
-        return self.layers[1](torch.relu(self.layers[0](torch.cat([norm, sigma_emb], dim=-1))))
+    def forward(self, norm, sigma_emb, deterministic: bool = True, generator=None):
+        x = self.layers[0](torch.cat([norm, sigma_emb], dim=-1))
+        return self.layers[1](torch.relu(dropout(x, self.dropout, deterministic, generator)))
 
 
 class TorFinalMLP(nn.Module):
-    """Bias-free tanh MLP for the torsion logits."""
+    """Bias-free tanh MLP for the torsion logits: Linear tanh Dropout Linear."""
 
-    def __init__(self, in_dim: int, ns: int):
+    def __init__(self, in_dim: int, ns: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, ns, bias=False), nn.Linear(ns, 1, bias=False)])
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.layers[1](torch.tanh(self.layers[0](x)))
+    def forward(self, x, deterministic: bool = True, generator=None):
+        return self.layers[1](dropout(torch.tanh(self.layers[0](x)), self.dropout, deterministic, generator))
 
 
 class TensorProductScoreModel(nn.Module):
@@ -88,12 +101,13 @@ class TensorProductScoreModel(nn.Module):
         self.timestep_emb = get_timestep_embedding(c.embedding_type, c.sigma_embed_dim, c.embedding_scale)
         sig = c.sigma_embed_dim
 
+        p = c.dropout
         self.lig_node_embedding = AtomEncoder(ns, LIG_FEATURE_DIMS, n_scalar=sig)
-        self.lig_edge_embedding = FCBlock(c.in_lig_edge_features + sig + c.distance_embed_dim, ns, ns)
+        self.lig_edge_embedding = FCBlock(c.in_lig_edge_features + sig + c.distance_embed_dim, ns, ns, dropout=p)
         self.rec_node_embedding = AtomEncoder(ns, REC_RESIDUE_FEATURE_DIMS, n_scalar=c.lm_embedding_dim)
-        self.rec_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns)
-        self.rec_sigma_embedding = FCBlock(sig, ns, ns)
-        self.cross_edge_embedding = FCBlock(sig + c.cross_distance_embed_dim, ns, ns)
+        self.rec_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
+        self.rec_sigma_embedding = FCBlock(sig, ns, ns, dropout=p)
+        self.cross_edge_embedding = FCBlock(sig + c.cross_distance_embed_dim, ns, ns, dropout=p)
         self.lig_distance_expansion = GaussianSmearing(0.0, c.lig_max_radius, c.distance_embed_dim)
         self.rec_distance_expansion = GaussianSmearing(0.0, c.rec_max_radius, c.distance_embed_dim)
         self.cross_distance_expansion = GaussianSmearing(0.0, c.cross_max_distance, c.cross_distance_embed_dim)
@@ -103,7 +117,7 @@ class TensorProductScoreModel(nn.Module):
 
         def conv(i, groups):
             return TPConv(seq[min(i, 3)], sh, seq[min(i + 1, 3)], 3 * ns, num_groups=groups,
-                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True)
+                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p)
 
         self.rec_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P))
         self.lig_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P))
@@ -113,18 +127,18 @@ class TensorProductScoreModel(nn.Module):
         self.final_irreps = seq[min(P + C, 3)]
 
         self.center_distance_expansion = GaussianSmearing(0.0, c.center_max_distance, c.distance_embed_dim)
-        self.center_edge_embedding = FCBlock(c.distance_embed_dim + sig, ns, ns)
+        self.center_edge_embedding = FCBlock(c.distance_embed_dim + sig, ns, ns, dropout=p)
         self.final_conv = TPConv(self.final_irreps, sh, "2x1o + 2x1e" if not c.odd_parity else "1x1o + 1x1e",
-                                 2 * ns, batch_norm=c.batch_norm, residual=False)
-        self.tr_final_layer = FinalNormMLP(1 + sig, ns)
-        self.rot_final_layer = FinalNormMLP(1 + sig, ns)
+                                 2 * ns, batch_norm=c.batch_norm, residual=False, dropout=p)
+        self.tr_final_layer = FinalNormMLP(1 + sig, ns, p)
+        self.rot_final_layer = FinalNormMLP(1 + sig, ns, p)
         if not c.no_torsion:
-            self.final_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns)
+            self.final_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
             self.final_tp_tor = FullTensorProduct(sh, "1x2e")
             tor_out = f"{ns}x0o + {ns}x0e" if not c.odd_parity else f"{ns}x0o"
             self.tor_bond_conv = TPConv(self.final_irreps, str(self.final_tp_tor.irreps_out), tor_out, 3 * ns,
-                                        batch_norm=c.batch_norm, residual=False)
-            self.tor_final_layer = TorFinalMLP(Irreps(tor_out).dim, ns)
+                                        batch_norm=c.batch_norm, residual=False, dropout=p)
+            self.tor_final_layer = TorFinalMLP(Irreps(tor_out).dim, ns, p)
 
         init_weights(self, seed)
         self.requires_grad_(False)
@@ -134,70 +148,106 @@ class TensorProductScoreModel(nn.Module):
     # receptor embedding (t-independent)
     # ------------------------------------------------------------------ #
 
-    def embed_receptor(self, batch: ComplexBatch) -> RecCache:
+    def embed_receptor(self, batch: ComplexBatch, deterministic: bool = True, use_running_average: bool = True,
+                       generator: Optional[torch.Generator] = None) -> RecCache:
         c = self.cfg
+        det, gen = deterministic, generator
         rec_attr = self.rec_node_embedding(batch.rec_f[..., None], batch.rec_lm)
         vec = gather_nodes(batch.rec_pos, batch.rec_nbr) - batch.rec_pos[:, :, None, :]
-        edge_emb = self.rec_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(vec, dim=-1)))
+        edge_emb = self.rec_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(vec, dim=-1)), det, gen)
         emask = batch.rec_nbr_mask
         zero_sig = torch.zeros(rec_attr.shape[0], c.ns, dtype=rec_attr.dtype, device=rec_attr.device)
         for layer in self.rec_emb_layers:
-            s, cnt = layer.conv_rec(0, rec_attr, batch.rec_pos, batch.rec_nbr, edge_emb, zero_sig, emask)
-            rec_attr = layer.finalize(rec_attr, s, cnt, batch.rec_mask)
+            s, cnt = layer.conv_rec(0, rec_attr, batch.rec_pos, batch.rec_nbr, edge_emb, zero_sig, emask, det, gen)
+            rec_attr = layer.finalize(rec_attr, s, cnt, batch.rec_mask, use_running_average)
         return RecCache(rec_attr=rec_attr, rec_edge_emb=edge_emb, rec_edge_mask=emask)
 
     # ------------------------------------------------------------------ #
     # ligand graph
     # ------------------------------------------------------------------ #
 
-    def _lig_graph(self, batch: ComplexBatch, sigma_emb):
-        """Embedded dense radius pairs (receiver i, sender j) and bond edges."""
+    def _lig_graph(self, batch: ComplexBatch, sigma_emb, deterministic: bool = True, generator=None) -> dict:
+        """Embedded dense radius pairs (receiver i, sender j) and bond edges;
+        in training also their harmonics (the explicit composition needs
+        them)."""
         c = self.cfg
+        det, gen = deterministic, generator
         pos = batch.lig_pos
         pair_mask, pair_d = radius_mask(pos, pos, c.lig_max_radius, batch.lig_mask, batch.lig_mask, exclude_self=True)
         zeros_bond = pair_d.new_zeros(pair_d.shape + (c.in_lig_edge_features,))
         se = sigma_emb[:, None, None, :].expand(pair_d.shape + (sigma_emb.shape[-1],))
-        pair_emb = self.lig_edge_embedding(torch.cat([zeros_bond, se, self.lig_distance_expansion(pair_d)], dim=-1))
+        pair_emb = self.lig_edge_embedding(torch.cat([zeros_bond, se, self.lig_distance_expansion(pair_d)], dim=-1),
+                                           det, gen)
         bvec = gather_nodes(pos, batch.lig_edge_dst) - gather_nodes(pos, batch.lig_edge_src)
         bd = torch.linalg.norm(bvec, dim=-1)
         se_b = sigma_emb[:, None, :].expand(bd.shape + (sigma_emb.shape[-1],))
-        bond_emb = self.lig_edge_embedding(torch.cat([batch.lig_edge_attr, se_b, self.lig_distance_expansion(bd)], dim=-1))
-        return pair_mask, pair_emb, bond_emb
+        bond_emb = self.lig_edge_embedding(torch.cat([batch.lig_edge_attr, se_b, self.lig_distance_expansion(bd)],
+                                                     dim=-1), det, gen)
+        g = dict(pair_mask=pair_mask, pair_emb=pair_emb, bond_emb=bond_emb)
+        if not det:
+            g["pair_sh"] = spherical_harmonics(c.sh_lmax, pos[:, None, :, :] - pos[:, :, None, :])
+            g["bond_sh"] = spherical_harmonics(c.sh_lmax, bvec)
+        return g
 
-    def _lig_conv(self, layer: TPConv, group: int, lig_attr, graph, batch: ComplexBatch):
-        pair_mask, pair_emb, bond_emb = graph
-        return layer.conv_pb(group, lig_attr, batch.lig_pos, pair_emb, pair_mask, batch.lig_edge_src,
-                             batch.lig_edge_dst, bond_emb, batch.lig_edge_mask, self.cfg.ns)
+    def _lig_conv(self, layer: TPConv, group: int, lig_attr, g: dict, batch: ComplexBatch, deterministic: bool = True,
+                  generator=None):
+        """Messages into ligand nodes from the ligand pairs and bonds (one
+        edge MLP): (sums, counts). The pb kernel at inference; in training
+        the pairs through ``conv_nbr`` and the bonds through ``messages``."""
+        ns = self.cfg.ns
+        if deterministic:
+            return layer.conv_pb(group, lig_attr, batch.lig_pos, g["pair_emb"], g["pair_mask"], batch.lig_edge_src,
+                                 batch.lig_edge_dst, g["bond_emb"], batch.lig_edge_mask, ns)
+        scal = lig_attr[..., :ns]
+        pe = g["pair_emb"]
+        eattr = torch.cat([pe, scal[:, :, None, :].expand(pe.shape[:-1] + (ns,)),
+                           scal[:, None, :, :].expand(pe.shape[:-1] + (ns,))], dim=-1)
+        sender_pair = lig_attr[:, None, :, :].expand(eattr.shape[:-1] + (lig_attr.shape[-1],))
+        sum_pair, cnt_pair = layer.conv_nbr(group, sender_pair, g["pair_sh"], eattr, g["pair_mask"], False, generator)
+        src, dst = batch.lig_edge_src, batch.lig_edge_dst
+        eattr_b = torch.cat([g["bond_emb"], gather_nodes(scal, src), gather_nodes(scal, dst)], dim=-1)
+        msg_b = layer.messages(group, gather_nodes(lig_attr, dst), g["bond_sh"], eattr_b, batch.lig_edge_mask, False,
+                               generator)
+        sum_b, cnt_b = scatter_mean_to_nodes(msg_b, src, batch.lig_edge_mask, lig_attr.shape[1])
+        return sum_pair + sum_b, cnt_pair + cnt_b
 
     # ------------------------------------------------------------------ #
     # forward
     # ------------------------------------------------------------------ #
 
-    def forward(self, batch: ComplexBatch, rec_cache: Optional[RecCache] = None) -> ScoreOutput:
+    def forward(self, batch: ComplexBatch, rec_cache: Optional[RecCache] = None, deterministic: bool = True,
+                use_running_average: bool = True, generator: Optional[torch.Generator] = None) -> ScoreOutput:
+        """Scores of the batch's poses. ``deterministic=False``: the training
+        composition with dropout drawn from ``generator``;
+        ``use_running_average=False``: batch-norm statistics of the batch
+        (the running ones move toward them)."""
         c = self.cfg
         ns = c.ns
+        det, ura, gen = deterministic, use_running_average, generator
         B, L, _ = batch.lig_pos.shape
         N = batch.rec_pos.shape[1]
         tr_sigma, rot_sigma, tor_sigma = t_to_sigma(batch.t_tr, batch.t_rot, batch.t_tor, c.sigma)
         sigma_emb = self.timestep_emb(batch.t_tr)
 
         if rec_cache is None:
-            rec_cache = self.embed_receptor(batch)
-        rec_sig = self.rec_sigma_embedding(sigma_emb)
+            rec_cache = self.embed_receptor(batch, det, ura, gen)
+        rec_sig = self.rec_sigma_embedding(sigma_emb, det, gen)
         rec_attr = rec_cache.rec_attr
         rec_attr = torch.cat([rec_attr[..., :ns] + rec_sig[:, None, :], rec_attr[..., ns:]], dim=-1)
 
         lig_attr = self.lig_node_embedding(batch.lig_f, sigma_emb[:, None, :].expand(B, L, sigma_emb.shape[-1]))
-        graph = self._lig_graph(batch, sigma_emb)
+        graph = self._lig_graph(batch, sigma_emb, det, gen)
         for layer in self.lig_emb_layers:
-            s, n = self._lig_conv(layer, 0, lig_attr, graph, batch)
-            lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask)
+            s, n = self._lig_conv(layer, 0, lig_attr, graph, batch, det, gen)
+            lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask, ura)
 
         cutoff = (tr_sigma * 3 + 20)[:, None, None] if c.dynamic_max_cross else c.cross_max_distance
         cr_idx, cr_mask, cr_d = topk_neighbors(batch.lig_pos, batch.rec_pos, cutoff, batch.lig_mask, batch.rec_mask,
                                                c.effective_cross_cap(N))
         se_c = sigma_emb[:, None, None, :].expand(cr_d.shape + (sigma_emb.shape[-1],))
-        cr_emb = self.cross_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(cr_d)], dim=-1))
+        cr_emb = self.cross_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(cr_d)], dim=-1), det, gen)
+        if not det:
+            cr_sh_rev = spherical_harmonics(c.sh_lmax, batch.lig_pos[:, :, None, :] - gather_nodes(batch.rec_pos, cr_idx))
 
         n_layers = len(self.conv_layers)
         for li, layer in enumerate(self.conv_layers):
@@ -207,18 +257,30 @@ class TensorProductScoreModel(nn.Module):
             else:
                 g_lig = g_lr = g_rec = 0
                 g_rl = None if last else 0
-            lig_sum, lig_cnt = self._lig_conv(layer, g_lig, lig_attr, graph, batch)
-            s_lr, c_lr, s_rl, c_rl = layer.conv_cross_rev(g_lr, g_rl, lig_attr, batch.lig_pos, rec_attr,
-                                                          batch.rec_pos, cr_idx, cr_emb, cr_mask, ns)
+            lig_sum, lig_cnt = self._lig_conv(layer, g_lig, lig_attr, graph, batch, det, gen)
+            if det:
+                s_lr, c_lr, s_rl, c_rl = layer.conv_cross_rev(g_lr, g_rl, lig_attr, batch.lig_pos, rec_attr,
+                                                              batch.rec_pos, cr_idx, cr_emb, cr_mask, ns)
+            else:
+                s_lr, c_lr = layer.conv_cross(g_lr, lig_attr, batch.lig_pos, rec_attr, batch.rec_pos, cr_idx, cr_emb,
+                                              cr_mask, ns, False, gen)
             lig_sum, lig_cnt = lig_sum + s_lr, lig_cnt + c_lr
             if not last:
                 rec_sum, rec_cnt = layer.conv_rec(g_rec, rec_attr, batch.rec_pos, batch.rec_nbr,
-                                                  rec_cache.rec_edge_emb, rec_sig, rec_cache.rec_edge_mask)
-                new_lig = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask)
-                rec_attr = layer.finalize(rec_attr, rec_sum + s_rl, rec_cnt + c_rl, batch.rec_mask)
+                                                  rec_cache.rec_edge_emb, rec_sig, rec_cache.rec_edge_mask, det, gen)
+                if not det:  # receptor <- ligand over the reversed cross lists
+                    D = lig_attr.shape[-1]
+                    eattr_rl = torch.cat([cr_emb, gather_nodes(rec_attr, cr_idx)[..., :ns],
+                                          lig_attr[:, :, None, :ns].expand(cr_emb.shape[:-1] + (ns,))], dim=-1)
+                    msg_rl = layer.messages(g_rl, lig_attr[:, :, None, :].expand(cr_emb.shape[:-1] + (D,)), cr_sh_rev,
+                                            eattr_rl, cr_mask, False, gen)
+                    s_rl, c_rl = scatter_mean_to_nodes(msg_rl.reshape(B, -1, msg_rl.shape[-1]), cr_idx.reshape(B, -1),
+                                                       cr_mask.reshape(B, -1), N)
+                new_lig = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura)
+                rec_attr = layer.finalize(rec_attr, rec_sum + s_rl, rec_cnt + c_rl, batch.rec_mask, ura)
                 lig_attr = new_lig
             else:
-                lig_attr = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask)
+                lig_attr = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura)
 
         # center convolution: translational / rotational pseudo-vectors
         m = batch.lig_mask.to(lig_attr.dtype)[..., None]
@@ -227,21 +289,21 @@ class TensorProductScoreModel(nn.Module):
         cd = torch.linalg.norm(cvec, dim=-1)
         csh = spherical_harmonics(c.sh_lmax, cvec)
         se_l = sigma_emb[:, None, :].expand(cd.shape + (sigma_emb.shape[-1],))
-        cattr = self.center_edge_embedding(torch.cat([self.center_distance_expansion(cd), se_l], dim=-1))
+        cattr = self.center_edge_embedding(torch.cat([self.center_distance_expansion(cd), se_l], dim=-1), det, gen)
         cattr = torch.cat([cattr, lig_attr[..., :ns]], dim=-1)
-        msg_c = self.final_conv.messages(0, lig_attr, csh, cattr, batch.lig_mask)
+        msg_c = self.final_conv.messages(0, lig_attr, csh, cattr, batch.lig_mask, det, gen)
         cnt_c = torch.sum(batch.lig_mask, dim=1).to(msg_c.dtype)
         global_pred = self.final_conv.finalize(None, msg_c.sum(dim=1), cnt_c,
-                                               torch.ones(B, dtype=torch.bool, device=msg_c.device))
+                                               torch.ones(B, dtype=torch.bool, device=msg_c.device), ura)
         if c.odd_parity:
             tr_pred, rot_pred = global_pred[:, :3], global_pred[:, 3:6]
         else:
             tr_pred = global_pred[:, :3] + global_pred[:, 6:9]
             rot_pred = global_pred[:, 3:6] + global_pred[:, 9:12]
         tr_norm = torch.linalg.norm(tr_pred, dim=1, keepdim=True)
-        tr_pred = tr_pred / (tr_norm + 1e-12) * self.tr_final_layer(tr_norm, sigma_emb)
+        tr_pred = tr_pred / (tr_norm + 1e-12) * self.tr_final_layer(tr_norm, sigma_emb, det, gen)
         rot_norm = torch.linalg.norm(rot_pred, dim=1, keepdim=True)
-        rot_pred = rot_pred / (rot_norm + 1e-12) * self.rot_final_layer(rot_norm, sigma_emb)
+        rot_pred = rot_pred / (rot_norm + 1e-12) * self.rot_final_layer(rot_norm, sigma_emb, det, gen)
         if c.scale_by_sigma:
             tr_pred = tr_pred / tr_sigma[:, None]
             rot_pred = rot_pred * so3.score_norm(rot_sigma)[:, None]
@@ -259,7 +321,7 @@ class TensorProductScoreModel(nn.Module):
         tb_sh0 = spherical_harmonics(c.sh_lmax, tb_vec)
         bond_sh2 = spherical_harmonics(2, bond_vec)[..., 4:]  # the l=2 block
         tb_sh = self.final_tp_tor(tb_sh0, bond_sh2[:, :, None, :].expand(tb_sh0.shape[:-1] + (5,)))
-        tb_emb = self.final_edge_embedding(self.lig_distance_expansion(tb_d))
+        tb_emb = self.final_edge_embedding(self.lig_distance_expansion(tb_d), det, gen)
         tor_bond_attr = gather_nodes(lig_attr, batch.tor_src) + gather_nodes(lig_attr, batch.tor_dst)
         eattr_t = torch.cat(
             [
@@ -270,9 +332,10 @@ class TensorProductScoreModel(nn.Module):
             dim=-1,
         )
         sender_t = lig_attr[:, None, :, :].expand(tb_emb.shape[:-1] + (lig_attr.shape[-1],))
-        msg_t = self.tor_bond_conv.messages(0, sender_t, tb_sh, eattr_t, tb_mask)
-        tor_feat = self.tor_bond_conv.finalize(None, msg_t.sum(dim=2), tb_mask.sum(dim=2).to(msg_t.dtype), batch.tor_mask)
-        tor_pred = self.tor_final_layer(tor_feat)[..., 0]
+        msg_t = self.tor_bond_conv.messages(0, sender_t, tb_sh, eattr_t, tb_mask, det, gen)
+        tor_feat = self.tor_bond_conv.finalize(None, msg_t.sum(dim=2), tb_mask.sum(dim=2).to(msg_t.dtype),
+                                               batch.tor_mask, ura)
+        tor_pred = self.tor_final_layer(tor_feat, det, gen)[..., 0]
         if c.scale_by_sigma:
             tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
         return ScoreOutput(tr_pred, rot_pred, torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred)))

@@ -16,10 +16,15 @@ layout directly:
 * the epilogue items of each column tile: (col_lo, col_hi, x_base, x_step,
   out_col), one per (g, v) segment in the tile and output component c.
 
-The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model) or
-``1x0e + 1x1o + 1x2e`` (lmax=2, the all-atom confidence model); the harmonic
-width (4 or 9) is a compile-time parameter of the kernels. Input and output
-irreps may hold any l <= 1 blocks.
+The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model),
+``1x0e + 1x1o + 1x2e`` (lmax=2, the all-atom confidence model) or, for the
+edge-list kernel that takes them as input, the score model's torsion-head
+harmonics ``1x2e + 1x1o + 1x2o + 1x3o``; the harmonic width (4, 9 or 20) is a
+compile-time parameter of the kernels. Input and output irreps may hold any
+l <= 1 blocks.
+
+The training backward (``csrc/tpconv_bwd.cu``) reads w2 in its canonical
+column order and three more tables (``bwd_layout``).
 """
 
 from __future__ import annotations
@@ -30,12 +35,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..irreps import Irreps, WeightedTensorProduct, _sh_norms, clebsch_gordan
+from ..irreps import FullTensorProduct, Irreps, WeightedTensorProduct, _sh_norms, clebsch_gordan
 
 SH_IRREPS = "1x0e + 1x1o"  # lmax=1
 SH2_IRREPS = "1x0e + 1x1o + 1x2e"  # lmax=2
-SH_BASE = {0: 0, 1: 1, 2: 4}  # offset of each harmonic block in the sh vector
-TN = 64  # column tile of the kernels (csrc/tpconv_engine.cuh: TN)
+TOR_SH_IRREPS = str(FullTensorProduct(SH_IRREPS, "1x2e").irreps_out)  # the torsion head's, 1x2e + 1x1o + 1x2o + 1x3o
+TN = 64  # column tile of the kernels (csrc/tpconv_engine.cuh: TN, csrc/tpconv_bwd.cu: BN)
 XROW = 8
 EROW = 5
 
@@ -56,11 +61,12 @@ class TPLayout(NamedTuple):
 
 
 def sh_dim(irreps_sh: str) -> int:
-    """Width of the kernels' harmonic vector: 4 (lmax=1) or 9 (lmax=2)."""
-    dims = {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9}
+    """Width of the kernels' harmonic vector: 4 (lmax=1), 9 (lmax=2) or 20
+    (the torsion head's, edge-list kernel only)."""
+    dims = {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9, str(Irreps(TOR_SH_IRREPS)): 20}
     key = str(Irreps(irreps_sh))
     if key not in dims:
-        raise ValueError(f"TP-conv kernels take {SH_IRREPS} or {SH2_IRREPS} harmonics, got {irreps_sh}")
+        raise ValueError(f"TP-conv kernels take {SH_IRREPS}, {SH2_IRREPS} or {TOR_SH_IRREPS} harmonics, got {irreps_sh}")
     return dims[key]
 
 
@@ -71,7 +77,7 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TP
     for _, ir in tuple(tp.irreps_in) + tuple(tp.irreps_out):
         if ir.l > 1:
             raise ValueError(f"TP-conv kernels take l <= 1 irreps, got {irreps_in} -> {irreps_out}")
-    in_sl, out_sl = tp.irreps_in.slices(), tp.irreps_out.slices()
+    in_sl, out_sl, sh_sl = tp.irreps_in.slices(), tp.irreps_out.slices(), tp.irreps_sh.slices()
     xrows, cg, perm, scale, segs = [], [], [], [], []
     x_off = w_off = 0
     for g in tp.groups:
@@ -85,7 +91,7 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TP
             cg.extend(C.ravel().tolist())
             for u in range(mul_in):
                 for c in range(do):
-                    xrows.append((in_sl[ii].start + u * ir_in.dim, ir_in.dim, SH_BASE[ir_sh.l], ir_sh.dim, do, c, cg_off, 0))
+                    xrows.append((in_sl[ii].start + u * ir_in.dim, ir_in.dim, sh_sl[si].start, ir_sh.dim, do, c, cg_off, 0))
         for v in range(mul_out):
             for u in range(fan):
                 perm.append(w_off + u * mul_out + v)
@@ -197,11 +203,14 @@ def sh_kernel(vec: torch.Tensor, irreps_sh: str) -> torch.Tensor:
 
 
 def edge_messages(eattr, sender, sh, mask, w1, b1, w2, b2, irreps_in: str, irreps_out: str,
-                  irreps_sh: str = SH_IRREPS) -> torch.Tensor:
-    """Per-edge messages [..., Dout]: edge MLP -> TP weights -> weighted TP;
-    masked edges exactly zero. w1 [F, H] and w2 [H, W] as Flax stores them."""
+                  irreps_sh: str = SH_IRREPS, dmask=None) -> torch.Tensor:
+    """Per-edge messages [..., Dout]: edge MLP (dmask, when given, after the
+    ReLU) -> TP weights -> weighted TP; masked edges exactly zero. w1 [F, H]
+    and w2 [H, W] as Flax stores them."""
     tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
     h = torch.relu(eattr @ w1 + b1)
+    if dmask is not None:
+        h = h * dmask
     msg = tp(sender, sh, h @ w2 + b2)
     return torch.where(mask[..., None], msg, torch.zeros_like(msg))
 
@@ -223,6 +232,17 @@ def check_inputs(device: torch.device, floats=(), longs=(), bools=()) -> None:
                     f"expected a contiguous {dtype} tensor on {device}, got {t.dtype} on {t.device}"
                     f" (contiguous={t.is_contiguous()}, shape={tuple(t.shape)})"
                 )
+
+
+def check_dmask(dmask, lead: tuple, H: int, device: torch.device):
+    """A hidden-layer dropout mask lead + (H',) (H' in {1, H}), checked as a
+    kernel input; None passes through."""
+    if dmask is None:
+        return None
+    check_inputs(device, floats=(dmask,))
+    if tuple(dmask.shape[:-1]) != tuple(lead) or dmask.shape[-1] not in (1, H):
+        raise ValueError(f"dropout mask of shape {tuple(dmask.shape)} for edges {tuple(lead)} and H={H}")
+    return dmask
 
 
 def ptr(t) -> int | None:

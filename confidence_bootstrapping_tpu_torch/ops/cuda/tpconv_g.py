@@ -19,7 +19,10 @@ input and output irreps of l <= 1. Positions stay float32 (the Pallas
 kernels split them into bf16 halves, about 1e-4 from a float32 composition).
 What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
 Each wrapper launches its kernel for CUDA tensors, calls its ``*_plain``
-version for CPU tensors, and counts launches in ``<wrapper>.launches``.
+version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
+training, ``fused_tpconv_rec_g``'s ``dmask`` (the hidden-layer dropout mask)
+selects the kernel's training variant (``tpconv_rec_g_dm_kernel``), counted
+apart in ``fused_tpconv_rec_g.dm_launches``.
 """
 
 from __future__ import annotations
@@ -30,25 +33,28 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import check_inputs, device_tables, edge_messages, launch_weights, ptr, sh_dim, sh_kernel, tp_layout
+from .tpconv_common import (check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh_dim,
+                            sh_kernel, tp_layout)
 
 RT_REC = 8  # receivers per rec_g block: 8 * K=24 receptor or K=8 atom neighbours
 EDGES_PER_CHUNK = 64  # csrc/tpconv_engine.cuh: TM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _REC_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
 _CROSS_ARGTYPES = [_P] * 15 + [_I] * 13 + [_P, _P]
 
 
 def cross_rows_per_block(K: int) -> int:
-    """Ligand receivers per cross_g block: enough to fill a 64-edge chunk."""
+    """Receivers per block of a list of K senders each (cross_g, the
+    edge-list kernel): enough to fill a 64-edge chunk."""
     return max(1, EDGES_PER_CHUNK // max(K, 1))
 
 
 def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
-                       ns):
-    """The same function in plain PyTorch: gather, harmonics, edge MLP,
-    weighted TP, masked sum over K."""
+                       ns, dmask=None):
+    """The same function in plain PyTorch: gather, harmonics, edge MLP
+    (dropout mask after the ReLU), weighted TP, masked sum over K."""
     sender = gather_nodes(node_attr, nbr)  # [B, N, K, Din]
     vec = gather_nodes(pos, nbr) - pos[:, :, None, :]
     scal = node_attr[..., :ns]
@@ -56,7 +62,7 @@ def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2,
         [edge_emb + sig[:, None, None, :], scal[:, :, None, :].expand_as(sender[..., :ns]), sender[..., :ns]], dim=-1
     )
     return edge_messages(eattr, sender, sh_kernel(vec, irreps_sh), mask, w1, b1, w2, b2, irreps_in, irreps_out,
-                         irreps_sh).sum(dim=-2)
+                         irreps_sh, dmask).sum(dim=-2)
 
 
 def tpconv_cross_g_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
@@ -71,25 +77,29 @@ def tpconv_cross_g_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, 
 
 
 def fused_tpconv_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in: str, irreps_sh: str,
-                       irreps_out: str, ns: int, packed=None):
+                       irreps_out: str, ns: int, packed=None, dmask=None):
     """Message sums [B, N, Dout].
 
     node_attr [B, N, Din] (canonical irreps layout, senders and receivers),
     pos [B, N, 3], nbr [B, N, K] int64, edge_emb [B, N, K, Fe], sig [B, Fe]
     (added to edge_emb; zeros to skip), mask [B, N, K] bool; w1 [Fe + 2 ns, H],
     b1 [H], w2 [H, W], b2 [W] in Flax's [in, out] layout; ``packed``: the same
-    weights from ``pack_weights(..., irreps_sh)`` (made per launch when None)."""
+    weights from ``pack_weights(..., irreps_sh)`` (made per launch when None);
+    ``dmask``: None, or [B, N, K, H'] float32 ({0, 1/keep}, H' in {1, H})."""
     if node_attr.device.type == "cpu":
         return tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh,
-                                  irreps_out, ns)
+                                  irreps_out, ns, dmask)
     out = _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
-                        ns, packed)
-    fused_tpconv_rec_g.launches += 1
+                        ns, packed, dmask)
+    if dmask is None:
+        fused_tpconv_rec_g.launches += 1
+    else:
+        fused_tpconv_rec_g.dm_launches += 1
     return out
 
 
 def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, ns,
-                  packed):
+                  packed, dmask=None):
     dev = node_attr.device
     if sh_dim(irreps_sh) != 9:
         raise ValueError(f"fused_tpconv_rec_g runs lmax=2 harmonics; use fused_tpconv_rec for {irreps_sh}")
@@ -101,22 +111,29 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
             or sig.shape != (B, Fe) or mask.shape != (B, N, K) or tuple(w1.shape) != (Fe + 2 * ns, H)
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
+    dm = check_dmask(dmask, (B, N, K), H, dev)
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
     w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec_g")
-    fn = lib.cbt_tpconv_rec_g
-    fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask), ptr(w1c), ptr(b1c), ptr(w2p),
-        ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H,
-        Din, lay.dout, RT_REC, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    tables = (ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
+              lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT_REC, ptr(out),
+              torch.cuda.current_stream(dev).cuda_stream)
+    inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
+    if dm is None:
+        fn = lib.cbt_tpconv_rec_g
+        fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, *tables)
+    else:
+        fn = lib.cbt_tpconv_rec_g_dm
+        fn.argtypes, fn.restype = _REC_DM_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(dm), dm.shape[-1], *tables)
     build.check(lib, code, "tpconv_rec_g")
     return out
 
 
 fused_tpconv_rec_g.launches = 0
+fused_tpconv_rec_g.dm_launches = 0
 
 
 def fused_tpconv_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,

@@ -9,7 +9,10 @@ kernel is laid out: ``csrc/tpconv_engine.cuh``.
 
 ``fused_tpconv_rec`` launches the kernel for CUDA tensors and calls
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts
-kernel launches.
+launches of the inference kernel. In training, ``dmask`` (the hidden-layer
+dropout mask of every neighbour slot) selects the kernel's training variant
+(``tpconv_rec_dm_kernel``), counted apart in ``fused_tpconv_rec.dm_launches``;
+without it the inference kernel runs as before.
 """
 
 from __future__ import annotations
@@ -20,43 +23,50 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
+from .tpconv_common import check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
 
 RT = 8  # receivers per block: 8 * K=24 neighbours fill three 64-edge chunks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
 
 
-def tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns):
-    """The same function in plain PyTorch: gather, harmonics, edge MLP,
-    weighted TP, masked sum over K."""
+def tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, dmask=None):
+    """The same function in plain PyTorch: gather, harmonics, edge MLP
+    (dropout mask after the ReLU), weighted TP, masked sum over K."""
     sender = gather_nodes(node_attr, nbr)  # [B, N, K, Din]
     vec = gather_nodes(pos, nbr) - pos[:, :, None, :]
     scal = node_attr[..., :ns]
     eattr = torch.cat(
         [edge_emb + sig[:, None, None, :], scal[:, :, None, :].expand_as(sender[..., :ns]), sender[..., :ns]], dim=-1
     )
-    return edge_messages(eattr, sender, sh1(vec), mask, w1, b1, w2, b2, irreps_in, irreps_out).sum(dim=-2)
+    return edge_messages(eattr, sender, sh1(vec), mask, w1, b1, w2, b2, irreps_in, irreps_out,
+                         dmask=dmask).sum(dim=-2)
 
 
 def fused_tpconv_rec(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in: str, irreps_out: str, ns: int,
-                     packed=None):
+                     packed=None, dmask=None):
     """Message sums [B, N, Dout].
 
     node_attr [B, N, Din] (canonical irreps layout), pos [B, N, 3],
     nbr [B, N, K] int64, edge_emb [B, N, K, Fe], sig [B, Fe] (added to
     edge_emb; zeros to skip), mask [B, N, K] bool; w1 [Fe + 2 ns, H], b1 [H],
     w2 [H, W], b2 [W] in Flax's [in, out] layout; ``packed``: the same
-    weights from ``pack_weights`` (made per launch when None)."""
+    weights from ``pack_weights`` (made per launch when None); ``dmask``:
+    None, or [B, N, K, H'] float32 ({0, 1/keep}, H' in {1, H})."""
     if node_attr.device.type == "cpu":
-        return tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns)
-    out = _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, packed)
-    fused_tpconv_rec.launches += 1
+        return tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns,
+                                dmask)
+    out = _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, packed, dmask)
+    if dmask is None:
+        fused_tpconv_rec.launches += 1
+    else:
+        fused_tpconv_rec.dm_launches += 1
     return out
 
 
-def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, packed):
+def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, packed, dmask=None):
     dev = node_attr.device
     lay = tp_layout(irreps_in, irreps_out)
     B, N, Din = node_attr.shape
@@ -66,19 +76,26 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
             or sig.shape != (B, Fe) or mask.shape != (B, N, K) or tuple(w1.shape) != (Fe + 2 * ns, H)
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec: inconsistent shapes")
+    dm = check_dmask(dmask, (B, N, K), H, dev)
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
     w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec")
-    fn = lib.cbt_tpconv_rec
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask), ptr(w1c), ptr(b1c), ptr(w2p),
-        ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H,
-        Din, lay.dout, RT, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    tables = (ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
+              lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT, ptr(out),
+              torch.cuda.current_stream(dev).cuda_stream)
+    inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
+    if dm is None:
+        fn = lib.cbt_tpconv_rec
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        code = fn(*inputs, *tables)
+    else:
+        fn = lib.cbt_tpconv_rec_dm
+        fn.argtypes, fn.restype = _DM_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(dm), dm.shape[-1], *tables)
     build.check(lib, code, "tpconv_rec")
     return out
 
 
 fused_tpconv_rec.launches = 0
+fused_tpconv_rec.dm_launches = 0

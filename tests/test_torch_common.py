@@ -26,7 +26,8 @@ TINY = dict(ns=16, nv=4, num_conv_layers=2, num_prot_emb_layers=1)
 
 def tiny_configs(lm_dim: int):
     """(JAX config, port config) of the tiny score model, dropout off."""
-    return JaxScoreConfig(lm_embedding_dim=lm_dim, dropout=0.0, **TINY), ScoreModelConfig(lm_embedding_dim=lm_dim, **TINY)
+    return (JaxScoreConfig(lm_embedding_dim=lm_dim, dropout=0.0, **TINY),
+            ScoreModelConfig(lm_embedding_dim=lm_dim, dropout=0.0, **TINY))
 
 
 def padded_1a0q(lm_dim: int, seed: int = 0):
@@ -101,3 +102,17 @@ def install_jax_score_norms(monkeypatch):
     t = torch.as_tensor(np.array(jtorus.SCORE_NORM_TABLE))
     monkeypatch.setattr(so3, "_table", lambda device: s.to(device))
     monkeypatch.setattr(torus, "_table", lambda device: t.to(device))
+
+
+def install_jax_tables(monkeypatch):
+    """Serve every so3/torus lookup of the port (score norms, the IGSO(3)
+    cdf and score grids, the torus score table) from the JAX tables, so the
+    CPU tests build none of them."""
+    from confidence_bootstrapping_tpu.ops import so3 as jso3, torus as jtorus
+    from confidence_bootstrapping_tpu_torch.ops import so3, torus
+
+    install_jax_score_norms(monkeypatch)
+    cdf, score = torch.as_tensor(np.array(jso3.CDF)), torch.as_tensor(np.array(jso3.SCORE))
+    table = torch.as_tensor(np.array(jtorus.SCORE_TABLE))
+    monkeypatch.setattr(so3, "_grids", lambda device: (cdf.to(device), score.to(device)))
+    monkeypatch.setattr(torus, "_score_table", lambda device: table.to(device))

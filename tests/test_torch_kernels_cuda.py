@@ -5,10 +5,14 @@ without them. They reach what the main path's fixed buckets do not: ragged
 receiver tiles, a K that spans several 64-edge chunks or is not a multiple of
 16 (or is 1), wholly masked tiles and batch elements, input and output irreps
 that differ (the embedding layers), lmax=2 harmonics (the confidence model's
-rec_g and cross_g kernels), and the wrappers' input checks. Tolerance:
+rec_g and cross_g kernels), the training kernels (the edge-list forward with
+and without a dropout mask, rec and rec_g with one, the edge backward) and
+the autograd ops over them, and the wrappers' input checks. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
-bar; the plain versions are held against the Pallas kernels by
-tests/test_torch_tpconv.py.
+bar; the backward's weight gradients, sums over every edge in another order
+than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
+are held against the Pallas kernels by tests/test_torch_tpconv.py and
+tests/test_torch_train_ops.py.
 
 Run on the card from the repository root (tests/conftest.py imports JAX,
 which the card's machine does not have, hence --noconftest):
@@ -19,7 +23,8 @@ which the card's machine does not have, hence --noconftest):
 import pytest
 import torch
 
-from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g, tpconv_lig, tpconv_rec
+from confidence_bootstrapping_tpu_torch.ops.cuda import (tpconv_bwd, tpconv_common, tpconv_edge, tpconv_g, tpconv_lig,
+                                                          tpconv_rec, tpconv_train)
 from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
 
 pytestmark = pytest.mark.cuda
@@ -48,11 +53,11 @@ def _weights(g, irreps_in, irreps_out, ns, dev, sh=SH1):
     return [(torch.randn(s, generator=g) * 0.2).to(dev) for s in shapes]
 
 
-def _close(got, want):
+def _close(got, want, rel=REL):
     got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
-    scale = max(1.0, float(want.abs().max()))
-    err = float((got - want).abs().max())
-    assert err <= REL * scale, (err, scale)
+    scale = max(1.0, float(want.detach().abs().max()))
+    err = float((got.detach() - want.detach()).abs().max())
+    assert err <= rel * scale, (err, scale)
 
 
 def _ns(irreps):
@@ -297,3 +302,124 @@ def test_tpconv_lmax2_weight_cache_and_kernels(dev):
     assert tpconv_g.fused_tpconv_cross_g.launches == cross_before + 1
     _close(got, plain)
     _close(got_c, plain_c)
+
+
+SUM_REL = 1e-3  # weight gradients: sums over every edge, in another order than the plain version's
+TOR_OUT = "32x0o + 32x0e"
+
+
+def _edge_inputs(g, irreps_in, irreps_sh, irreps_out, M, K, F, dev, dropout):
+    D = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_in.dim
+    dsh = tpconv_common.sh_dim(irreps_sh)
+    H = 96
+    W = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).weight_numel
+    attr, send, sh = torch.randn(M, K, F, generator=g), torch.randn(M, K, D, generator=g), torch.randn(M, K, dsh, generator=g)
+    mask = torch.rand(M, K, generator=g) > 0.3
+    mask[: min(M, 3)] = False  # rows with no valid edge
+    weights = [torch.randn(s, generator=g) * 0.2 for s in ((F, H), (H,), (H, W), (W,))]
+    dmask = (torch.rand(M, K, H, generator=g) > 0.1).float() / 0.9 if dropout else None
+    to = lambda t: None if t is None else t.to(dev)
+    return [to(t) for t in (attr, send, sh, mask)], [to(w) for w in weights], to(dmask)
+
+
+@pytest.mark.parametrize("sum_k", [True, False])
+@pytest.mark.parametrize("irreps_sh,irreps_out,M,K,dropout", [
+    (SH1, FLAGSHIP, 50, 24, False),  # ligand pairs
+    (SH1, FLAGSHIP, 9, 128, True),  # ligand <- receptor: one row spans two 64-edge chunks
+    (SH2, FLAGSHIP, 7, 5, True),
+    (tpconv_common.TOR_SH_IRREPS, TOR_OUT, 33, 24, True),  # the torsion head's 20-wide harmonics
+])
+def test_edge_kernel_matches_plain(dev, irreps_sh, irreps_out, M, K, dropout, sum_k):
+    inputs, weights, dmask = _edge_inputs(_gen(7), FLAGSHIP, irreps_sh, irreps_out, M, K, 96, dev, dropout)
+    before = tpconv_edge.fused_tpconv_edge.launches
+    got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask=dmask, sum_k=sum_k)
+    torch.cuda.synchronize()
+    assert tpconv_edge.fused_tpconv_edge.launches == before + 1
+    want = tpconv_edge.tpconv_edge_plain(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask, sum_k)
+    _close(got, want)
+    assert float(got[:3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("lmax2", [False, True])
+def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
+    g = _gen(8)
+    irreps, sh, ns = (CONF_TRUNK, SH2, 24) if lmax2 else (FLAGSHIP, SH1, 32)
+    B, N, K = 2, 37, 24
+    D = WeightedTensorProduct(irreps, sh, irreps).irreps_in.dim
+    args = [t.to(dev) for t in (torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+                                torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+                                torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3)]
+    args += _weights(g, irreps, irreps, ns, dev, sh)
+    wrapper = tpconv_g.fused_tpconv_rec_g if lmax2 else tpconv_rec.fused_tpconv_rec
+    before = (wrapper.launches, wrapper.dm_launches)
+    for hd in (3 * ns, 1):
+        dmask = ((torch.rand(B, N, K, hd, generator=g) > 0.1).float() / 0.9).to(dev)
+        if lmax2:
+            got = tpconv_g.fused_tpconv_rec_g(*args, irreps, sh, irreps, ns, dmask=dmask)
+            want = tpconv_g.tpconv_rec_g_plain(*args, irreps, sh, irreps, ns, dmask)
+        else:
+            got = tpconv_rec.fused_tpconv_rec(*args, irreps, irreps, ns, dmask=dmask)
+            want = tpconv_rec.tpconv_rec_plain(*args, irreps, irreps, ns, dmask)
+        torch.cuda.synchronize()
+        _close(got, want)
+    assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 2)  # counted apart from inference
+
+
+@pytest.mark.parametrize("irreps_sh,irreps_out,T,dropout", [
+    (SH1, FLAGSHIP, 333, True),  # a ragged last block
+    (SH1, FLAGSHIP, 6000, False),  # several slices of the weight reduction
+    (tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, True),
+    (SH2, FLAGSHIP, 100, False),
+])
+def test_edge_bwd_kernel_matches_plain(dev, irreps_sh, irreps_out, T, dropout):
+    g = _gen(9)
+    (attr, send, sh, mask), weights, dmask = _edge_inputs(g, FLAGSHIP, irreps_sh, irreps_out, T, 1, 96, dev, dropout)
+    dout = WeightedTensorProduct(FLAGSHIP, irreps_sh, irreps_out).irreps_out.dim
+    cot = (torch.randn(T, dout, generator=g).to(dev) * mask.reshape(T, 1)).contiguous()
+    flat = lambda t: None if t is None else t.reshape(T, -1).contiguous()
+    ins = (flat(attr), flat(send), flat(sh), cot, flat(dmask), *weights, FLAGSHIP, irreps_sh, irreps_out)
+    before = tpconv_bwd.edge_bwd.launches
+    got = tpconv_bwd.edge_bwd(*ins)
+    torch.cuda.synchronize()
+    assert tpconv_bwd.edge_bwd.launches == before + 1
+    want = tpconv_bwd.edge_bwd_plain(*ins)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, REL if i < 3 else SUM_REL)
+
+
+def test_train_ops_match_autograd_of_plain(dev):
+    """The autograd ops on the card (edge-list and rec kernels forward, the
+    edge backward kernel) against autograd through the plain compositions
+    on the card: outputs and every gradient."""
+    g = _gen(10)
+    inputs, weights, dmask = _edge_inputs(g, FLAGSHIP, SH1, FLAGSHIP, 40, 24, 96, dev, True)
+    for sum_k in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in inputs[:3] + weights]
+        a = leaves[:3] + [inputs[3]] + leaves[3:]
+        out = tpconv_train.fused_tpconv_train(*a, FLAGSHIP, SH1, FLAGSHIP, dmask=dmask, sum_k=sum_k)
+        ref = tpconv_edge.tpconv_edge_plain(*a, FLAGSHIP, SH1, FLAGSHIP, dmask, sum_k)
+        cot = torch.randn(out.shape, generator=g).to(dev)
+        _close(out, ref)
+        for i, (x, y) in enumerate(zip(torch.autograd.grad((out * cot).sum(), leaves),
+                                       torch.autograd.grad((ref * cot).sum(), leaves))):
+            _close(x, y, REL if i < 3 else SUM_REL)
+    B, N, K, ns = 2, 40, 24, 32
+    # no self-edges: at a zero vector d_pos is a cancellation of ~1e6-sized terms in either version
+    nbr = (torch.arange(N)[None, :, None] + torch.randint(1, N, (B, N, K), generator=g)) % N
+    rec = [torch.randn(B, N, 74, generator=g), torch.randn(B, N, 3, generator=g) * 4, nbr,
+           torch.randn(B, N, K, ns, generator=g),
+           torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3]
+    rec = [t.to(dev) for t in rec] + _weights(g, FLAGSHIP, FLAGSHIP, ns, dev)
+    dmask = ((torch.rand(B, N, K, 3 * ns, generator=g) > 0.1).float() / 0.9).to(dev)
+    idx = (0, 1, 3, 4, 6, 7, 8, 9)  # node_attr, pos, edge_emb, sig and the weights
+    leaves = [rec[i].clone().requires_grad_(True) for i in idx]
+    a = list(rec)
+    for i, t in zip(idx, leaves):
+        a[i] = t
+    out = tpconv_train.fused_tpconv_rec_train(*a, FLAGSHIP, SH1, FLAGSHIP, ns, dmask=dmask)
+    ref = tpconv_rec.tpconv_rec_plain(*a, FLAGSHIP, FLAGSHIP, ns, dmask)
+    cot = torch.randn(out.shape, generator=g).to(dev)
+    _close(out, ref)
+    for i, (x, y) in enumerate(zip(torch.autograd.grad((out * cot).sum(), leaves),
+                                   torch.autograd.grad((ref * cot).sum(), leaves))):
+        _close(x, y, REL if i < 2 else SUM_REL)
