@@ -38,9 +38,27 @@ Phases (each one fails the script when it fails):
      batch-statistics mode over 8 fixed draws before and after them, every
      call of one more step replayed through kernel and plain version (and the
      two autograd ops forward and backward), one step under torch.profiler.
+  8. the evaluator's path with a pinned cross cap (``cli/infer.py:355-571``
+     for one complex): the full-width score model with cross_cap=100 and
+     cross_cap_frac=0 (``infer --cross_cap 100``), so the cross lists' K=100
+     is off the 16-grid at every receptor bucket and the trunk composes
+     ligand <- receptor (row 4, ``tpconv_cross``) and receptor <- ligand
+     (row 6, ``tpconv_msgs``, then a scatter) instead of cross_rev; the
+     phase plan from ``derive_phase_plan``, the cross-cap telemetry, a warm
+     and a timed B=32 20-step sample (poses/s, launches against the config),
+     the rerank with phase 6's confidence model, symmetry RMSDs against the
+     crystal pose (card against CPU), centroid and self distances, the
+     metrics dictionary, one sample under torch.profiler;
+     8b. row 5 (``tpconv_nbr``): the ligand padded to its own 23 atoms, so
+     the pairs leave pb, in a 3-step ODE sample at B=8 and a B=2 forward
+     (card against CPU), then phase 8's B=32 20-step sample at this bucket on
+     the card (warm, then timed: poses/s, launches against the config);
+     then every row 4/5/6 call of one sample of each replayed through kernel
+     and plain version, and row 13's v1 API (rows 5 and 6 behind the v1
+     signatures, no kernel of its own) on a few of them, printed.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
-for phase 3's kernels, per confidence forward for phase 6's, per training
-step for phase 7's), and last the device line.
+for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
+6's, per training step for phase 7's), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -256,7 +274,7 @@ def kernel_phase(model, run) -> list:
     calls = record_calls(run)
     torch.cuda.synchronize()
     counts = {name: len(calls[name]) for name in KERNELS}
-    want = expected_launches(model, STEPS)
+    want = {name: n for name, n in expected_launches(model, STEPS).items() if name in KERNELS}
     print(f"recorded sample: calls {counts}, expected from the config {want}", flush=True)
     if counts != want:
         fail("the recorded sample did not run every TP-conv through its wrapper")
@@ -317,16 +335,17 @@ def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
 def host_complex(lm_dim: int, all_atoms: bool = False):
     """1a0q from the committed featurization cache, with random ESM-sized
     receptor features as bench.py makes them; with ``all_atoms``, seeded
-    receptor atoms too (``receptor_atoms``) in the all-atom bucket."""
-    from confidence_bootstrapping_tpu_torch.data.complex_graph import load_host_complex, pad_complex, pick_bucket
+    receptor atoms too (``receptor_atoms``) in the all-atom bucket. ->
+    (padded arrays, the complex, its molecule)."""
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import load_host_cache, pad_complex, pick_bucket
 
-    hc = load_host_complex(CACHE_PKL)
+    hc, mol = load_host_cache(CACHE_PKL)
     hc = hc._replace(rec_lm=np.random.RandomState(0).randn(len(hc.rec_f), lm_dim).astype(np.float32))
     if all_atoms:
         hc = hc._replace(**receptor_atoms(hc.rec_f, hc.rec_pos, N_ATOMS))
     bucket = pick_bucket(len(hc.lig_f), len(hc.lig_edge_src), len(hc.tor_src), len(hc.rec_f),
                          n_atoms=N_ATOMS if all_atoms else 0, all_atoms=all_atoms)
-    return pad_complex(hc, bucket, lm_dim=lm_dim), hc
+    return pad_complex(hc, bucket, lm_dim=lm_dim), hc, mol
 
 
 def receptor_atoms(rec_f, rec_pos, n_atoms: int, seed: int = 0, radius: float = 5.0, k: int = 8):
@@ -366,7 +385,7 @@ def model_phase(dev) -> None:
     from confidence_bootstrapping_tpu_torch.sampler.sampling import sample
 
     cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM)
-    padded, _ = host_complex(LM_DIM)
+    padded = host_complex(LM_DIM)[0]
     pos = padded["lig_pos"][None] + np.random.RandomState(1).randn(2, *padded["lig_pos"].shape).astype(np.float32) * 2
     ref_pos = None
     for device in (dev, torch.device("cpu")):  # the card first: it builds the score-norm tables
@@ -398,11 +417,35 @@ def model_phase(dev) -> None:
 def expected_launches(model, steps: int) -> dict:
     """Kernel launches of one shared-receptor sample: the receptor embedding
     once, then per step every ligand conv (embedding and trunk) on pb, every
-    trunk layer on cross_rev, and every trunk layer but the last on rec."""
+    trunk layer on cross_rev, and every trunk layer but the last on rec; the
+    composed route's kernels (rows 4-6) never."""
     n_emb, n_trunk = len(model.rec_emb_layers), len(model.conv_layers)
     return {"tpconv_rec": n_emb + (n_trunk - 1) * steps,
             "tpconv_pb": (len(model.lig_emb_layers) + n_trunk) * steps,
-            "tpconv_cross_rev": n_trunk * steps}
+            "tpconv_cross_rev": n_trunk * steps, "tpconv_cross": 0, "tpconv_nbr": 0, "tpconv_msgs": 0}
+
+
+def score_counters() -> dict:
+    """name -> the wrapper that counts the inference launches of a score-model
+    TP-conv kernel (rows 1-6)."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_lig, tpconv_rec, tpconv_v3
+
+    return {"tpconv_rec": tpconv_rec.fused_tpconv_rec, "tpconv_pb": tpconv_lig.fused_tpconv_pb,
+            "tpconv_cross_rev": tpconv_lig.fused_tpconv_cross_rev, "tpconv_cross": tpconv_rec.fused_tpconv_cross,
+            "tpconv_nbr": tpconv_v3.fused_tpconv_nbr, "tpconv_msgs": tpconv_v3.fused_tpconv_msgs}
+
+
+def counted(run) -> tuple:
+    """(run()'s result, the launches of every score-model kernel in it): the
+    counts are set to 0 just before and read just after, synchronised."""
+    import torch
+
+    counters = score_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in counters.items()}
 
 
 def sample_phase(model, b0, run):
@@ -415,17 +458,9 @@ def sample_phase(model, b0, run):
     torch.cuda.synchronize()
     print(f"sample warm-up: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_lig, tpconv_rec
-
-    counters = {"tpconv_rec": tpconv_rec.fused_tpconv_rec, "tpconv_pb": tpconv_lig.fused_tpconv_pb,
-                "tpconv_cross_rev": tpconv_lig.fused_tpconv_cross_rev}  # each counts its launches
-    for fn in counters.values():
-        fn.launches = 0
     t0 = time.perf_counter()
-    final, _ = run()
-    torch.cuda.synchronize()
+    (final, _), launches = counted(run)
     secs = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
 
     pos = final.lig_pos
     moved = (pos - b0.lig_pos)[b0.lig_mask].norm(dim=-1).mean().item()
@@ -499,7 +534,8 @@ def near_crystal_poses(padded: dict, n: int, seed: int = 2):
 
 def confidence_phase(dev, final_pos) -> tuple:
     """Phase 6: the confidence rerank (see the module docstring). Returns
-    (the replay's JSON rows, the launches of the timed forward)."""
+    (the replay's JSON rows, the launches of the timed forward, (the
+    confidence model, its B_POSES batch of 1a0q) for phase 8's rerank)."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.config import confidence_model_config
@@ -509,7 +545,7 @@ def confidence_phase(dev, final_pos) -> tuple:
     from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
 
     cfg = confidence_model_config(lm_embedding_dim=LM_DIM)
-    padded, hc = host_complex(LM_DIM, all_atoms=True)
+    padded, hc, _ = host_complex(LM_DIM, all_atoms=True)
     padded["lig_pos"][: len(hc.orig_lig_pos)] = hc.orig_lig_pos  # the crystal pose
     model = AllAtomScoreModel(cfg, device=dev, seed=0)
     batch = replicate_complex(padded, B_POSES, device=dev)
@@ -574,7 +610,7 @@ def confidence_phase(dev, final_pos) -> tuple:
     }
     rows = replay(calls, kernels)
     profile_run(run, secs * 1e3)
-    return rows, launches
+    return rows, launches, (model, batch)
 
 
 # ---------------------------------------------------------------------------- phase 7: training
@@ -792,7 +828,7 @@ def train_phase(dev) -> tuple:
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
     from confidence_bootstrapping_tpu_torch.train import diffusion, losses, train_loop
 
-    padded, _ = host_complex(LM_DIM)
+    padded = host_complex(LM_DIM)[0]
     tcfg = TrainConfig()
 
     # the card against the CPU: one step's loss, gradients and batch statistics at dropout 0
@@ -916,6 +952,249 @@ def train_phase(dev) -> tuple:
     return rows, per_step
 
 
+# ---------------------------------------------------------------------------- phase 8: the evaluator's path
+
+
+EVAL_CAP = 100  # infer --cross_cap 100: pinned, off the 16-grid, at every receptor bucket of the plan
+B_8B, STEPS_8B = 8, 3  # phase 8b's card-against-CPU sample: the ligand at its own 23 atoms
+RMSD_ATOL = 1e-5  # symmetry RMSD on the card against the same function on the CPU, in A
+EVAL_REPLACES = {
+    "tpconv_cross": "confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py:328",
+    "tpconv_nbr": "confidence_bootstrapping_tpu/ops/pallas/tpconv_v3.py:420",
+    "tpconv_msgs": "confidence_bootstrapping_tpu/ops/pallas/tpconv_v3.py:430",
+}
+V1_REPLACES = "confidence_bootstrapping_tpu/ops/pallas/tpconv.py:405"
+
+
+def expected_composed_launches(model, steps: int, pairs_composed: bool) -> dict:
+    """Kernel launches of one shared-receptor sample whose cross list's K is
+    not a multiple of 16: per step every trunk layer's ligand <- receptor
+    lists on row 4 (``tpconv_cross``) and every trunk layer but the last's
+    receptor <- ligand lists on row 6 (``tpconv_msgs``), none on cross_rev;
+    the ligand pairs on pb, or with ``pairs_composed`` (L % 8 != 0) on row 5
+    (``tpconv_nbr``); the receptor groups on rec as in phase 5."""
+    n_lig = (len(model.lig_emb_layers) + len(model.conv_layers)) * steps
+    want = expected_launches(model, steps)
+    want.update(tpconv_cross_rev=0, tpconv_cross=len(model.conv_layers) * steps,
+                tpconv_msgs=(len(model.conv_layers) - 1) * steps, tpconv_pb=0 if pairs_composed else n_lig,
+                tpconv_nbr=n_lig if pairs_composed else 0)
+    return want
+
+
+def edge_list_work(sum_k: bool):
+    """(flops, tag) of one row-5 (sum_k) or row-6 call (10 positional
+    arguments, the lmax=1 harmonics)."""
+    return lambda a: edge_work(tuple(a[:8]) + (a[8], SH1, a[9], None, sum_k))
+
+
+def eval_kernels() -> dict:
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_rec, tpconv_v3
+
+    return {
+        "tpconv_cross": (tpconv_rec.fused_tpconv_cross, tpconv_rec.tpconv_cross_plain,
+                         lambda a: cross_g_work(tuple(a[:12]) + (SH1,) + tuple(a[12:])), EVAL_REPLACES["tpconv_cross"]),
+        "tpconv_nbr": (tpconv_v3.fused_tpconv_nbr, tpconv_v3.tpconv_nbr_plain, edge_list_work(True),
+                       EVAL_REPLACES["tpconv_nbr"]),
+        "tpconv_msgs": (tpconv_v3.fused_tpconv_msgs, tpconv_v3.tpconv_msgs_plain, edge_list_work(False),
+                        EVAL_REPLACES["tpconv_msgs"]),
+    }
+
+
+def eval_phase(dev, rerank) -> tuple:
+    """Phase 8: the evaluator's per-complex path with a pinned cross cap
+    (``cli/infer.py:355-571`` for one complex): the full-width score model
+    with ``cross_cap=100, cross_cap_frac=0``, the phase plan from
+    ``derive_phase_plan``, the cap telemetry, a warm and a timed B=32 20-step
+    sample (launches against the config: rows 4 and 6 instead of cross_rev),
+    the rerank with phase 6's confidence model, symmetry RMSDs against the
+    crystal pose, centroid and self distances, and the metrics dictionary.
+    Returns (the launches of the timed sample, every row-4/6 call of one
+    more sample)."""
+    import dataclasses
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.eval import metrics, rmsd
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import (cross_overflow_stats, randomize_position, sample,
+                                                                     score_confidence, with_derived_plan)
+
+    cfg = dataclasses.replace(ScoreModelConfig(lm_embedding_dim=LM_DIM), cross_cap=EVAL_CAP, cross_cap_frac=0.0)
+    padded, hc, mol = host_complex(LM_DIM)
+    scfg = with_derived_plan(cfg, SamplerConfig(inference_steps=STEPS), padded["rec_pos"], padded["rec_mask"])
+    N = padded["rec_pos"].shape[0]
+    caps = {n: cfg.effective_cross_cap(n) for n in (N,) + scfg.rec_phase_caps}
+    print(f"evaluator path: cross_cap {cfg.cross_cap} pinned (frac {cfg.cross_cap_frac}); derived plan steps "
+          f"{scfg.rec_phase_steps} caps {scfg.rec_phase_caps}; cross K by receptor bucket {caps}", flush=True)
+    if not scfg.rec_phase_steps or any(k % 16 == 0 for k in caps.values()):
+        fail("the evaluator path needs a derived plan and a cross K off the 16-grid at every bucket")
+    stats = cross_overflow_stats(replicate_complex(padded, 1, device=dev), cfg)
+    print("cross-cap telemetry: " + ", ".join(f"{k} {v:.5f}" for k, v in stats.items()), flush=True)
+
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    batch = replicate_complex(padded, B_POSES, device=dev)
+    b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run = lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    t0 = time.perf_counter()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    print(f"evaluator sample warm-up: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    (final, _), launches = counted(run)
+    t_sample = time.perf_counter() - t0
+    want = expected_composed_launches(model, STEPS, pairs_composed=False)
+    print(f"evaluator sample: {t_sample:.4f} s, {B_POSES / t_sample:.3f} poses/s; launches {launches}; expected from "
+          f"the config {want}", flush=True)
+    if launches != want:
+        fail("the evaluator path did not run the composed cross route through rows 4 and 6")
+
+    conf_model, conf_batch = rerank
+    t0 = time.perf_counter()
+    conf = score_confidence(conf_model, conf_batch, lig_pos=final.lig_pos).cpu().numpy()
+    t_conf = time.perf_counter() - t0
+
+    n = len(hc.lig_f)
+    t0 = time.perf_counter()
+    poses = final.lig_pos[:, :n]
+    rmsds = rmsd.symmetry_rmsd(rmsd.ground_truth_poses(hc), poses, mol.atomic_nums, mol.bonds)
+    host = poses.cpu().numpy()
+    cent = np.linalg.norm(host.mean(axis=1) - hc.orig_lig_pos.mean(axis=0), axis=-1)
+    self_d = np.asarray([metrics.min_self_distance(p, mol.bonds) for p in host])
+    t_rmsd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = metrics.performance_metrics(rmsds[None], cent[None], conf[None], self_d[None],
+                                    np.asarray([t_sample + t_conf + t_rmsd]))
+    t_metrics = time.perf_counter() - t0
+    print(f"rerank {t_conf:.4f} s ({B_POSES / t_conf:.3f} poses/s), symmetry RMSD + centroid + self distances "
+          f"{t_rmsd:.4f} s, metrics {t_metrics * 1e3:.3f} ms", flush=True)
+    print(f"evaluator metrics (random weights: a measurement, not a gate): {json.dumps(m)}", flush=True)
+
+    # the RMSD against its own definition: the same function on the CPU, the
+    # crystal pose and one of its automorphic images at zero
+    ref_cpu = rmsd.symmetry_rmsd(rmsd.ground_truth_poses(hc), host, mol.atomic_nums, mol.bonds)
+    perm = next(p for p in rmsd.graph_automorphisms(mol.atomic_nums, mol.bonds) if (p != np.arange(n)).any())
+    crystal = torch.as_tensor(np.stack([hc.orig_lig_pos, hc.orig_lig_pos[perm]]).astype(np.float32), device=dev)
+    zero = rmsd.symmetry_rmsd(hc.orig_lig_pos, crystal, mol.atomic_nums, mol.bonds)
+    plain = np.array([rmsd.plain_rmsd(hc.orig_lig_pos, p) for p in host])
+    plain_image = rmsd.plain_rmsd(hc.orig_lig_pos, hc.orig_lig_pos[perm])
+    err = float(np.abs(rmsds - ref_cpu).max())
+    print(f"symmetry RMSD: {rmsds.min():.3f}-{rmsds.max():.3f} A over {len(rmsds)} poses (plain {plain.min():.3f}-"
+          f"{plain.max():.3f}); card vs CPU max_abs_err {err:.3g} A (tolerance {RMSD_ATOL}); crystal pose and an "
+          f"automorphic image {zero[0]:.3g}, {zero[1]:.3g} A (plain {plain_image:.3f})", flush=True)
+    finite = all(np.isfinite(v) for v in m.values())
+    if not (err <= RMSD_ATOL and np.all(rmsds <= plain + 1e-5) and zero.max() <= 1e-5 and conf.shape == (B_POSES,)
+            and np.isfinite(conf).all() and finite and "filtered_rmsds_below_2" in m):
+        fail("the evaluator's RMSDs, confidences or metrics are wrong")
+    profile_run(run, t_sample * 1e3)
+    calls = record_calls(run, ("tpconv_cross", "tpconv_msgs"))
+    torch.cuda.synchronize()
+    return launches, calls
+
+
+def composed_pairs_phase(dev) -> tuple:
+    """Phase 8b: row 5. The ligand padded to its own 23 atoms (L % 8 != 0:
+    the pairs leave pb for row 5) and the cap pinned at 100. Card against
+    CPU at a smaller depth: a 3-step probability-flow sample at B=8 with two
+    compaction boundaries and a B=2 forward (the receptor <- ligand scatter
+    sums with atomics on the card, in a run-dependent order: float32 ulps,
+    well inside MODEL_RTOL and SAMPLE_ATOL). Then on the card alone phase
+    8's sample at this bucket (B=32, 20 steps, the derived plan), warm, then
+    timed with its launches against the config. Returns (that sample's
+    launches, every row-5 call of one more)."""
+    import dataclasses
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import (load_host_complex, pad_complex, pick_bucket,
+                                                                       replicate_complex)
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, sample, with_derived_plan
+
+    cfg = dataclasses.replace(ScoreModelConfig(lm_embedding_dim=LM_DIM), cross_cap=EVAL_CAP, cross_cap_frac=0.0)
+    hc = load_host_complex(CACHE_PKL)
+    hc = hc._replace(rec_lm=np.random.RandomState(0).randn(len(hc.rec_f), LM_DIM).astype(np.float32))
+    bucket = pick_bucket(len(hc.lig_f), len(hc.lig_edge_src), len(hc.tor_src), len(hc.rec_f))._replace(L=len(hc.lig_f))
+    padded = pad_complex(hc, bucket, lm_dim=LM_DIM)
+    scfg = SamplerConfig(inference_steps=STEPS_8B, ode=True, rec_phase_steps=(1, 2), rec_phase_caps=(256, 128))
+    noise = np.random.RandomState(3).randn(B_8B, *padded["lig_pos"].shape).astype(np.float32)
+    pos = padded["lig_pos"][None] + noise * 2
+    print(f"phase 8b: bucket {bucket}, B={B_8B}, {STEPS_8B}-step ODE sample, plan 1:256,2:128, cross cap {EVAL_CAP}",
+          flush=True)
+    res = []
+    for device in (torch.device("cpu"), dev):  # the card's model last: the timed sample below runs it
+        model = TensorProductScoreModel(cfg, device=device, seed=0)
+        batch = replicate_complex(padded, B_8B, device=device).replace(lig_pos=torch.as_tensor(pos, device=device))
+        fwd = model(batch.map(lambda a: a[:2]).set_time(0.5, 0.5, 0.5))
+        final, _ = sample(model, batch, cfg, scfg, device=device)
+        res.append(([t.cpu() for t in fwd], final.lig_pos.cpu()))
+    (fc, pc), (fg, pg) = res
+    for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred"), fg, fc):
+        err, peak = (g - w).abs().max().item(), w.abs().max().item()
+        print(f"phase 8b forward {name}: max_abs_err {err:.3g} (max |cpu| {peak:.3g}, tolerance {MODEL_RTOL} x "
+              f"max(1, max |cpu|))", flush=True)
+        if not (err <= MODEL_RTOL * max(1.0, peak) and torch.isfinite(g).all()):
+            fail(f"phase 8b forward {name}: the card disagrees with the CPU")
+    err = (pg - pc).abs().max().item()
+    moved = (pg - torch.as_tensor(pos)).abs().max().item()
+    print(f"phase 8b sample: max_abs_err {err:.3g} A (tolerance {SAMPLE_ATOL} A), poses moved {moved:.3g} A",
+          flush=True)
+    if not (err <= SAMPLE_ATOL and moved > 0.1):
+        fail("the phase 8b sample on the card disagrees with the CPU")
+
+    scfg = with_derived_plan(cfg, SamplerConfig(inference_steps=STEPS), padded["rec_pos"], padded["rec_mask"])
+    b0 = randomize_position(replicate_complex(padded, B_POSES, device=dev), torch.Generator(device=dev).manual_seed(0),
+                            cfg.sigma.tr_sigma_max)
+    run = lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (final, _), launches = counted(run)
+    secs = time.perf_counter() - t0
+    want = expected_composed_launches(model, STEPS, pairs_composed=True)
+    print(f"phase 8b sample at L=23: B={B_POSES}, {STEPS} steps, plan steps {scfg.rec_phase_steps} caps "
+          f"{scfg.rec_phase_caps}: {secs:.4f} s, {B_POSES / secs:.3f} poses/s; launches {launches}; expected from the "
+          f"config {want}", flush=True)
+    if launches != want:
+        fail("phase 8b did not run the ligand pairs through row 5")
+    if not torch.isfinite(final.lig_pos).all():
+        fail("the phase 8b sample's poses are not finite")
+    calls = record_calls(run, ("tpconv_nbr",))
+    torch.cuda.synchronize()
+    return launches, calls
+
+
+def replay_v1(calls: dict) -> None:
+    """Row 13: the v1 API on the first three recorded calls of rows 5 and 6
+    against the plain versions, printed. It is an API over rows 5 and 6
+    with no kernel and no launch counter of its own, and no main path calls
+    it, so it has no row in the kernels line."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv, tpconv_v3
+
+    errs, ms, plain_ms, bounds = [], [], [], []
+    for name, v1, plain, sum_k in (("tpconv_nbr", tpconv.fused_tpconv_nbr, tpconv_v3.tpconv_nbr_plain, True),
+                                   ("tpconv_msgs", tpconv.fused_tpconv_msgs, tpconv_v3.tpconv_msgs_plain, False)):
+        for args, _ in calls[name][:3]:
+            got, want = v1(*args), plain(*args)
+            torch.cuda.synchronize()
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            if not err <= KERNEL_RTOL * max(1.0, scale):
+                fail(f"the v1 API ({name}) disagrees with the plain version")
+            flops = edge_list_work(sum_k)(args)[0]
+            errs.append(err)
+            ms.append(cuda_time(lambda: v1(*args), reps=5, warmup=1))
+            plain_ms.append(cuda_time(lambda: plain(*args), reps=2, warmup=0))
+            bounds.append(max(nbytes(*(a for a in args if torch.is_tensor(a)), got) / PEAK_BYTES,
+                              flops / PEAK_FP32_FLOPS) * 1e3)
+    print(f"row 13 (v1 API, {V1_REPLACES}) on {len(errs)} recorded calls: max_abs_err {max(errs):.3g} ok; mean "
+          f"{np.mean(ms):.4f} ms, plain {np.mean(plain_ms):.4f} ms, bound {np.mean(bounds):.4f} ms (operations)",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -945,14 +1224,25 @@ def main() -> None:
     torch.cuda.synchronize()
     launches, final_pos = sample_phase(model, b0, run)
     torch.cuda.synchronize()
-    conf_rows, conf_launches = confidence_phase(dev, final_pos)
+    conf_rows, conf_launches, rerank = confidence_phase(dev, final_pos)
     torch.cuda.synchronize()
     train_rows, train_launches = train_phase(dev)
+    torch.cuda.synchronize()
+    eval_launches, calls = eval_phase(dev, rerank)
+    torch.cuda.synchronize()
+    pairs_launches, calls_8b = composed_pairs_phase(dev)
+    calls.update(calls_8b)
+    eval_rows = replay(calls, eval_kernels())
+    for r in eval_rows[1:]:  # rows 5 and 6 launch the edge-list kernel's inference instance
+        r["source"] = "confidence_bootstrapping_tpu_torch/csrc/tpconv_edge.cu"
+    replay_v1(calls)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)
     launches.update(train_launches)
-    rows += conf_rows + train_rows
+    launches.update(tpconv_cross=eval_launches["tpconv_cross"], tpconv_msgs=eval_launches["tpconv_msgs"],
+                    tpconv_nbr=pairs_launches["tpconv_nbr"])
+    rows += conf_rows + train_rows + eval_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

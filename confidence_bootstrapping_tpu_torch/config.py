@@ -123,6 +123,9 @@ class SamplerConfig:
     rec_phase_steps: Tuple[int, ...] = ()
     rec_phase_caps: Tuple[int, ...] = ()
     rec_phase_margin: float = 5.0
+    # derive the plan above per receptor when it is empty
+    # (``sampler.sampling.derive_phase_plan``), as the JAX package's CLIs do
+    rec_phase_auto: bool = True
 
 
 @dataclass(frozen=True)

@@ -160,13 +160,20 @@ class _CacheUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def load_host_complex(path: str) -> HostComplex:
+def load_host_cache(path: str) -> tuple:
     """Read a featurization cache file (``(HostComplex, Molecule)`` pickled by
-    the JAX package) without importing the JAX package. Returns the complex.
-    Only open cache files this repository wrote: unpickling runs code."""
+    the JAX package) without importing the JAX package -> (complex, molecule
+    or None): the molecule's ``atomic_nums`` and ``bonds`` are what the
+    symmetry RMSD reads. Only open cache files this repository wrote:
+    unpickling runs code."""
     with open(path, "rb") as f:
         obj = _CacheUnpickler(f).load()
-    return obj[0] if isinstance(obj, tuple) else obj
+    return obj if isinstance(obj, tuple) else (obj, None)
+
+
+def load_host_complex(path: str) -> HostComplex:
+    """The complex of a featurization cache file (``load_host_cache``)."""
+    return load_host_cache(path)[0]
 
 
 def pad_complex(hc: HostComplex, bucket: Bucket, lm_dim: int = 1280) -> dict:

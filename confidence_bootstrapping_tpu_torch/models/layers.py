@@ -2,13 +2,21 @@
 
 Port of ``confidence_bootstrapping_tpu/models/layers.py``: ``FCBlock``,
 ``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps`` and ``TPConv``.
-``TPConv``'s receptor, ligand-pair and cross convolutions go through the CUDA
-kernels of ``ops/cuda`` for CUDA tensors and through their plain PyTorch
-versions for CPU tensors: the lmax=1 kernels for the score model's
-``1x0e + 1x1o`` harmonics, the lmax=2 ones (``rec_g``, ``cross_g``) for the
-confidence model's ``1x0e + 1x1o + 1x2e``. The Mosaic-only restrictions of the
-JAX package (N % 32 or N % 8, N <= 2048, L % 8, K % 16, K chunks) have no
-counterpart: the kernels take any N, L and K and sum every edge.
+``TPConv``'s convolutions go through the CUDA kernels of ``ops/cuda`` for
+CUDA tensors and through their plain PyTorch versions for CPU tensors: the
+lmax=1 kernels for the score model's ``1x0e + 1x1o`` harmonics, the lmax=2
+ones (``rec_g``, ``cross_g``) for the confidence model's
+``1x0e + 1x1o + 1x2e``.
+
+At inference with lmax=1 harmonics the JAX package's routing of its ladder
+path is kept: ``conv_pb`` (the ligand pairs and bonds in one kernel) applies
+only when L % 8 == 0, ``conv_cross_rev`` (both cross directions) only when
+the cross list's K % 16 == 0, and ``conv_rec``'s kernel only when
+N % 32 == 0. ``conv_pb`` and ``conv_cross_rev`` return None otherwise and the
+caller composes the same function from ``conv_nbr`` (the edge-list sums),
+``conv_cross`` (ligand <- receptor sums), ``msgs_nbr`` (per-edge messages)
+and a scatter; ``conv_rec`` gathers its senders and calls ``conv_nbr``
+itself. The kernels themselves take any N, L and K.
 
 Training (``deterministic=False``) follows the JAX package's training
 routing: every TP-conv goes through the differentiable ops of
@@ -26,11 +34,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda.tpconv_common import SH2_IRREPS, PackedWeights, pack_weights
+from ..ops.cuda.tpconv_common import SH2_IRREPS, SH_IRREPS, PackedWeights, pack_weights
 from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
 from ..ops.cuda.tpconv_lig import fused_tpconv_cross_rev, fused_tpconv_pb
-from ..ops.cuda.tpconv_rec import fused_tpconv_rec
+from ..ops.cuda.tpconv_rec import fused_tpconv_cross, fused_tpconv_rec
 from ..ops.cuda.tpconv_train import fused_tpconv_rec_train, fused_tpconv_train
+from ..ops.cuda.tpconv_v3 import fused_tpconv_msgs, fused_tpconv_nbr
 from ..ops.graph_builders import gather_nodes, scatter_count_to_nodes
 from ..ops.irreps import Irreps, WeightedTensorProduct, spherical_harmonics
 
@@ -162,7 +171,7 @@ class BatchNormIrreps(nn.Module):
         return torch.cat(out, dim=-1)
 
 
-_SH2 = str(Irreps(SH2_IRREPS))
+_SH1, _SH2 = str(Irreps(SH_IRREPS)), str(Irreps(SH2_IRREPS))
 
 
 def pad_residual(x, out_dim: int):
@@ -190,7 +199,8 @@ class TPConv(nn.Module):
         self.residual = residual
         self.out_dim = Irreps(out_irreps).dim
         self._packed = {}  # (group, harmonics) -> (key of its parameters, PackedWeights, the parameters)
-        self.lmax2 = self.sh_irreps == _SH2  # conv_rec takes the lmax=2 kernel
+        self.lmax1 = self.sh_irreps == _SH1  # the score model's ladder path: rows 1-6 of the kernel table
+        self.lmax2 = self.sh_irreps == _SH2  # conv_rec and conv_cross take the lmax=2 kernels
 
     def mlp_weights(self, group: int):
         """(w1 [in, H], b1, w2 [H, W], b2) of an edge group, in the [in, out]
@@ -219,17 +229,26 @@ class TPConv(nn.Module):
         None without dropout."""
         return dropout_mask(tuple(lead) + (self.hidden,), self.dropout, generator, device) if self.dropout > 0 else None
 
-    def _train_op(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k: bool):
-        """The differentiable edge-list op over [..., K, *] edge tensors
-        (broadcast to one shape): [..., out_dim] (sum_k) or [..., K, out_dim]."""
+    def _edge_list(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, sum_k: bool, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """An edge-list op over [..., K, *] edge tensors, broadcast to one
+        shape and flattened to contiguous [M, K, *]: in training the
+        differentiable op (dropout drawn from ``generator``), at inference
+        the lmax=1 kernel (``fused_tpconv_nbr`` for sums,
+        ``fused_tpconv_msgs`` per edge). -> [..., out_dim] (sum_k) or
+        [..., K, out_dim]."""
         lead = torch.broadcast_shapes(sender_attr.shape[:-1], edge_sh.shape[:-1], edge_attr.shape[:-1], edge_mask.shape)
         K = lead[-1]
-        flat = lambda a: a.expand(lead + a.shape[-1:]).reshape(-1, K, a.shape[-1])
-        mask = edge_mask.expand(lead).reshape(-1, K)
-        out = fused_tpconv_train(flat(edge_attr), flat(sender_attr), flat(edge_sh), mask, *self.mlp_weights(group),
-                                 self.in_irreps, self.sh_irreps, self.out_irreps,
-                                 dmask=self._dmask(mask.shape, generator, mask.device), sum_k=sum_k,
-                                 packed=self.packed_weights(group, edge_attr))
+        flat = lambda a: a.expand(lead + a.shape[-1:]).reshape(-1, K, a.shape[-1]).contiguous()
+        mask = edge_mask.expand(lead).reshape(-1, K).contiguous()
+        args = (flat(edge_attr), flat(sender_attr), flat(edge_sh), mask, *self.mlp_weights(group))
+        packed = self.packed_weights(group, edge_attr)
+        if train:
+            out = fused_tpconv_train(*args, self.in_irreps, self.sh_irreps, self.out_irreps,
+                                     dmask=self._dmask(mask.shape, generator, mask.device), sum_k=sum_k, packed=packed)
+        else:
+            out = (fused_tpconv_nbr if sum_k else fused_tpconv_msgs)(*args, self.in_irreps, self.out_irreps,
+                                                                      packed=packed)
         return out.reshape((lead[:-1] if sum_k else lead) + (out.shape[-1],))
 
     def messages(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
@@ -237,26 +256,50 @@ class TPConv(nn.Module):
         """Per-edge messages [..., out_dim]; masked edges are zero. In
         training, the differentiable edge-list op (per-edge messages)."""
         if not deterministic:
-            return self._train_op(group, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k=False)
+            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False, True, generator)
         msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr))
         return torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
 
     def conv_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):
         """Messages summed over the trailing neighbour axis: [..., K, *] ->
-        (sums [..., out_dim], counts [...])."""
+        (sums [..., out_dim], counts [...]). At inference with lmax=1
+        harmonics the edge-list kernel ``fused_tpconv_nbr``; in training the
+        differentiable edge-list op."""
         counts = edge_mask.sum(-1).to(torch.float32)
         if not deterministic:
-            return self._train_op(group, sender_attr, edge_sh, edge_attr, edge_mask, generator, sum_k=True), counts
+            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, True, True, generator), counts
+        if self.lmax1:
+            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, True), counts
         return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask).sum(dim=-2), counts
+
+    def msgs_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        """Per-edge messages over a neighbour list [..., K, *] -> [..., K,
+        out_dim], masked edges exactly zero, for groups that scatter to other
+        nodes afterwards (the receptor <- ligand cross lists). At inference
+        with lmax=1 harmonics the edge-list kernel ``fused_tpconv_msgs``;
+        otherwise ``messages``."""
+        if deterministic and self.lmax1:
+            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False)
+        return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask, deterministic, generator)
 
     def conv_rec(self, group: int, node_attr, pos, nbr, edge_emb, sig, nbr_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):
         """kNN messages of one node set (receptor <- receptor, atom <- atom):
-        (sums [B, N, out], counts [B, N]); the rec kernel at lmax=1, rec_g
-        at lmax=2; in training the differentiable ``fused_tpconv_rec_train``
-        with the hidden-layer dropout mask."""
+        (sums [B, N, out], counts [B, N]); the rec kernel at lmax=1 when
+        N % 32 == 0 (otherwise the senders gathered, then ``conv_nbr``, as
+        the JAX package routes it), rec_g at lmax=2; in training the
+        differentiable ``fused_tpconv_rec_train`` with the hidden-layer
+        dropout mask."""
         counts = nbr_mask.sum(-1).to(torch.float32)
+        if deterministic and self.lmax1 and node_attr.shape[1] % 32:
+            ns = edge_emb.shape[-1]
+            sender = gather_nodes(node_attr, nbr)
+            sh = spherical_harmonics(1, gather_nodes(pos, nbr) - pos[:, :, None, :])
+            recv_scal = node_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,))
+            eattr = torch.cat([edge_emb + sig[:, None, None, :], recv_scal, sender[..., :ns]], dim=-1)
+            return self.conv_nbr(group, sender, sh, eattr, nbr_mask)[0], counts
         args = (node_attr.contiguous(), pos.contiguous(), nbr.contiguous(), edge_emb.contiguous(), sig.contiguous(),
                 nbr_mask.contiguous(), *self.mlp_weights(group))
         packed = self.packed_weights(group, node_attr)
@@ -274,23 +317,31 @@ class TPConv(nn.Module):
                    deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """Messages of receivers over a capped list of senders from another
         node set (ligand <- receptor, ligand <- atom): (sums [B, L, out],
-        counts [B, L]). At inference the cross_g kernel (lmax=2 only on the
-        card); in training the JAX package's fallback: the senders gathered,
-        then ``conv_nbr``."""
+        counts [B, L]). At inference the cross kernel of the harmonics
+        (``fused_tpconv_cross`` at lmax=1, ``fused_tpconv_cross_g`` at
+        lmax=2); in training the JAX package's fallback: the senders
+        gathered, then ``conv_nbr``."""
         if not deterministic:
             sender = gather_nodes(src_attr, idx)
             sh = spherical_harmonics(2 if self.lmax2 else 1, gather_nodes(src_pos, idx) - recv_pos[:, :, None, :])
             eattr = torch.cat([edge_emb, recv_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,)),
                                sender[..., :ns]], dim=-1)
             return self.conv_nbr(group, sender, sh, eattr, idx_mask, deterministic, generator)
-        out = fused_tpconv_cross_g(recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(),
-                                   src_pos.contiguous(), idx.contiguous(), edge_emb.contiguous(), idx_mask.contiguous(),
-                                   *self.mlp_weights(group), self.in_irreps, self.sh_irreps, self.out_irreps, ns,
-                                   packed=self.packed_weights(group, recv_attr))
+        args = (recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(), src_pos.contiguous(),
+                idx.contiguous(), edge_emb.contiguous(), idx_mask.contiguous(), *self.mlp_weights(group))
+        packed = self.packed_weights(group, recv_attr)
+        if self.lmax1:
+            out = fused_tpconv_cross(*args, self.in_irreps, self.out_irreps, ns, packed=packed)
+        else:
+            out = fused_tpconv_cross_g(*args, self.in_irreps, self.sh_irreps, self.out_irreps, ns, packed=packed)
         return out, idx_mask.sum(-1).to(torch.float32)
 
     def conv_pb(self, group: int, lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_emb, bond_mask, ns: int):
-        """Ligand <- ligand messages over dense pairs + bonds: (sums, counts)."""
+        """Ligand <- ligand messages over dense pairs + bonds: (sums, counts),
+        or None when L % 8 != 0 (the caller composes the pairs through
+        ``conv_nbr`` and the bonds through ``messages``)."""
+        if lig_attr.shape[1] % 8:
+            return None
         out = fused_tpconv_pb(lig_attr.contiguous(), lig_pos.contiguous(), pair_emb.contiguous(), pair_mask.contiguous(),
                               bond_src.contiguous(), bond_dst.contiguous(), bond_emb.contiguous(), bond_mask.contiguous(),
                               *self.mlp_weights(group), self.in_irreps, self.out_irreps, ns,
@@ -301,7 +352,11 @@ class TPConv(nn.Module):
     def conv_cross_rev(self, group_fwd: int, group_rev: Optional[int], recv_attr, recv_pos, src_attr, src_pos,
                        idx, edge_emb, idx_mask, ns: int):
         """Both directions of the cross edge list: (lig_sum, lig_counts,
-        rec_sum, rec_counts); the receptor pair is None when group_rev is."""
+        rec_sum, rec_counts); the receptor pair is None when group_rev is.
+        None when the list's K % 16 != 0 (the caller composes ``conv_cross``,
+        ``msgs_nbr`` and a scatter)."""
+        if idx.shape[-1] % 16:
+            return None
         rw = self.mlp_weights(group_rev) if group_rev is not None else (None,) * 4
         lig_sum, rec_sum = fused_tpconv_cross_rev(
             recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(), src_pos.contiguous(),

@@ -9,15 +9,19 @@ pairs are a dense masked [L, L] adjacency, cross edges are the nearest
 receptor kNN lists come with the batch. The t-independent receptor embedding
 is separate (``embed_receptor``) so the sampler computes it once.
 
-Training (``deterministic=False``, ``use_running_average=False``) follows the
-JAX package's training composition (``score_model.py:326-350``, ``:447-477``,
-``:504-584``): the receptor embedding inside the forward, the ligand pairs
-through ``conv_nbr`` and the bonds through ``messages``, the ligand <-
-receptor lists through ``conv_cross`` and the receptor <- ligand ones through
-``messages`` and a scatter, dropout in the edge embeddings, the edge MLPs and
-the heads. The inference kernels ``pb`` and ``cross_rev`` are inference only,
-as in the JAX package. Parameters are frozen at construction (inference);
-``train.train_loop.init_train_state`` unfreezes them.
+At inference the ligand pairs and bonds take the pb kernel (``conv_pb``) and
+both cross directions the cross_rev kernel (``conv_cross_rev``) when their
+gates hold (L % 8 == 0, the cross list's K % 16 == 0, as in the JAX
+package). Otherwise, and in training (``deterministic=False``,
+``use_running_average=False``), the JAX package's composition
+(``score_model.py:326-350``, ``:447-477``) runs: the ligand pairs through
+``conv_nbr`` and the bonds through ``messages``, the ligand <- receptor lists
+through ``conv_cross`` and the receptor <- ligand ones through ``msgs_nbr``
+and a scatter (``scatter_add_``: on the card its sums run in a
+run-dependent order, as cross_rev's ``atomicAdd`` does). Training also embeds the receptor inside the forward and
+applies dropout in the edge embeddings, the edge MLPs and the heads
+(``score_model.py:504-584``). Parameters are frozen at construction
+(inference); ``train.train_loop.init_train_state`` unfreezes them.
 
 ``ConfidenceHead`` and ``MaskedBatchNorm1d`` (running statistics) serve the
 all-atom confidence model (``models/all_atom_model.py``). Confidence mode of
@@ -167,9 +171,9 @@ class TensorProductScoreModel(nn.Module):
     # ------------------------------------------------------------------ #
 
     def _lig_graph(self, batch: ComplexBatch, sigma_emb, deterministic: bool = True, generator=None) -> dict:
-        """Embedded dense radius pairs (receiver i, sender j) and bond edges;
-        in training also their harmonics (the explicit composition needs
-        them)."""
+        """Embedded dense radius pairs (receiver i, sender j) and bond edges.
+        Their harmonics, which only the composed route reads, are made by
+        ``_lig_conv`` when it first needs them."""
         c = self.cfg
         det, gen = deterministic, generator
         pos = batch.lig_pos
@@ -183,31 +187,36 @@ class TensorProductScoreModel(nn.Module):
         se_b = sigma_emb[:, None, :].expand(bd.shape + (sigma_emb.shape[-1],))
         bond_emb = self.lig_edge_embedding(torch.cat([batch.lig_edge_attr, se_b, self.lig_distance_expansion(bd)],
                                                      dim=-1), det, gen)
-        g = dict(pair_mask=pair_mask, pair_emb=pair_emb, bond_emb=bond_emb)
-        if not det:
-            g["pair_sh"] = spherical_harmonics(c.sh_lmax, pos[:, None, :, :] - pos[:, :, None, :])
-            g["bond_sh"] = spherical_harmonics(c.sh_lmax, bvec)
-        return g
+        return dict(pair_mask=pair_mask, pair_emb=pair_emb, bond_emb=bond_emb)
 
     def _lig_conv(self, layer: TPConv, group: int, lig_attr, g: dict, batch: ComplexBatch, deterministic: bool = True,
                   generator=None):
         """Messages into ligand nodes from the ligand pairs and bonds (one
-        edge MLP): (sums, counts). The pb kernel at inference; in training
-        the pairs through ``conv_nbr`` and the bonds through ``messages``."""
+        edge MLP): (sums, counts). The pb kernel at inference when
+        ``conv_pb`` applies; otherwise the pairs through ``conv_nbr`` and the
+        bonds through ``messages``."""
         ns = self.cfg.ns
         if deterministic:
-            return layer.conv_pb(group, lig_attr, batch.lig_pos, g["pair_emb"], g["pair_mask"], batch.lig_edge_src,
-                                 batch.lig_edge_dst, g["bond_emb"], batch.lig_edge_mask, ns)
+            fused = layer.conv_pb(group, lig_attr, batch.lig_pos, g["pair_emb"], g["pair_mask"], batch.lig_edge_src,
+                                  batch.lig_edge_dst, g["bond_emb"], batch.lig_edge_mask, ns)
+            if fused is not None:
+                return fused
+        if "pair_sh" not in g:
+            pos = batch.lig_pos
+            g["pair_sh"] = spherical_harmonics(self.cfg.sh_lmax, pos[:, None, :, :] - pos[:, :, None, :])
+            g["bond_sh"] = spherical_harmonics(self.cfg.sh_lmax, gather_nodes(pos, batch.lig_edge_dst)
+                                               - gather_nodes(pos, batch.lig_edge_src))
         scal = lig_attr[..., :ns]
         pe = g["pair_emb"]
         eattr = torch.cat([pe, scal[:, :, None, :].expand(pe.shape[:-1] + (ns,)),
                            scal[:, None, :, :].expand(pe.shape[:-1] + (ns,))], dim=-1)
         sender_pair = lig_attr[:, None, :, :].expand(eattr.shape[:-1] + (lig_attr.shape[-1],))
-        sum_pair, cnt_pair = layer.conv_nbr(group, sender_pair, g["pair_sh"], eattr, g["pair_mask"], False, generator)
+        sum_pair, cnt_pair = layer.conv_nbr(group, sender_pair, g["pair_sh"], eattr, g["pair_mask"], deterministic,
+                                            generator)
         src, dst = batch.lig_edge_src, batch.lig_edge_dst
         eattr_b = torch.cat([g["bond_emb"], gather_nodes(scal, src), gather_nodes(scal, dst)], dim=-1)
-        msg_b = layer.messages(group, gather_nodes(lig_attr, dst), g["bond_sh"], eattr_b, batch.lig_edge_mask, False,
-                               generator)
+        msg_b = layer.messages(group, gather_nodes(lig_attr, dst), g["bond_sh"], eattr_b, batch.lig_edge_mask,
+                               deterministic, generator)
         sum_b, cnt_b = scatter_mean_to_nodes(msg_b, src, batch.lig_edge_mask, lig_attr.shape[1])
         return sum_pair + sum_b, cnt_pair + cnt_b
 
@@ -246,8 +255,7 @@ class TensorProductScoreModel(nn.Module):
                                                c.effective_cross_cap(N))
         se_c = sigma_emb[:, None, None, :].expand(cr_d.shape + (sigma_emb.shape[-1],))
         cr_emb = self.cross_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(cr_d)], dim=-1), det, gen)
-        if not det:
-            cr_sh_rev = spherical_harmonics(c.sh_lmax, batch.lig_pos[:, :, None, :] - gather_nodes(batch.rec_pos, cr_idx))
+        cr_sh_rev = None  # the composed receptor <- ligand route's harmonics, made when it first runs
 
         n_layers = len(self.conv_layers)
         for li, layer in enumerate(self.conv_layers):
@@ -258,22 +266,27 @@ class TensorProductScoreModel(nn.Module):
                 g_lig = g_lr = g_rec = 0
                 g_rl = None if last else 0
             lig_sum, lig_cnt = self._lig_conv(layer, g_lig, lig_attr, graph, batch, det, gen)
-            if det:
-                s_lr, c_lr, s_rl, c_rl = layer.conv_cross_rev(g_lr, g_rl, lig_attr, batch.lig_pos, rec_attr,
-                                                              batch.rec_pos, cr_idx, cr_emb, cr_mask, ns)
+            fused = layer.conv_cross_rev(g_lr, g_rl, lig_attr, batch.lig_pos, rec_attr, batch.rec_pos, cr_idx, cr_emb,
+                                         cr_mask, ns) if det else None
+            if fused is not None:
+                s_lr, c_lr, s_rl, c_rl = fused
             else:
                 s_lr, c_lr = layer.conv_cross(g_lr, lig_attr, batch.lig_pos, rec_attr, batch.rec_pos, cr_idx, cr_emb,
-                                              cr_mask, ns, False, gen)
+                                              cr_mask, ns, det, gen)
+                s_rl = c_rl = None
             lig_sum, lig_cnt = lig_sum + s_lr, lig_cnt + c_lr
             if not last:
                 rec_sum, rec_cnt = layer.conv_rec(g_rec, rec_attr, batch.rec_pos, batch.rec_nbr,
                                                   rec_cache.rec_edge_emb, rec_sig, rec_cache.rec_edge_mask, det, gen)
-                if not det:  # receptor <- ligand over the reversed cross lists
+                if s_rl is None:  # receptor <- ligand over the reversed cross lists
+                    if cr_sh_rev is None:
+                        cr_sh_rev = spherical_harmonics(c.sh_lmax, batch.lig_pos[:, :, None, :]
+                                                        - gather_nodes(batch.rec_pos, cr_idx))
                     D = lig_attr.shape[-1]
                     eattr_rl = torch.cat([cr_emb, gather_nodes(rec_attr, cr_idx)[..., :ns],
                                           lig_attr[:, :, None, :ns].expand(cr_emb.shape[:-1] + (ns,))], dim=-1)
-                    msg_rl = layer.messages(g_rl, lig_attr[:, :, None, :].expand(cr_emb.shape[:-1] + (D,)), cr_sh_rev,
-                                            eattr_rl, cr_mask, False, gen)
+                    msg_rl = layer.msgs_nbr(g_rl, lig_attr[:, :, None, :].expand(cr_emb.shape[:-1] + (D,)), cr_sh_rev,
+                                            eattr_rl, cr_mask, det, gen)
                     s_rl, c_rl = scatter_mean_to_nodes(msg_rl.reshape(B, -1, msg_rl.shape[-1]), cr_idx.reshape(B, -1),
                                                        cr_mask.reshape(B, -1), N)
                 new_lig = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura)

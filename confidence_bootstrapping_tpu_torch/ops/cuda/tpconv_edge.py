@@ -46,12 +46,15 @@ def fused_tpconv_edge(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in: st
     if edge_attr.device.type == "cpu":
         return tpconv_edge_plain(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
                                  dmask, sum_k)
-    out = _launch(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask, sum_k, packed)
+    out = launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask, sum_k,
+                       packed)
     fused_tpconv_edge.launches += 1
     return out
 
 
-def _launch(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask, sum_k, packed):
+def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask, sum_k, packed):
+    """Check the inputs and launch the edge-list kernel; counts nothing (the
+    callers count their own launches)."""
     dev = edge_attr.device
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     M, K, F = edge_attr.shape

@@ -155,9 +155,19 @@ def fused_tpconv_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, 
 
 def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                     irreps_in, irreps_sh, irreps_out, ns, packed):
-    dev = recv_attr.device
     if sh_dim(irreps_sh) != 9:
-        raise ValueError(f"fused_tpconv_cross_g runs lmax=2 harmonics; use fused_tpconv_cross_rev for {irreps_sh}")
+        raise ValueError(f"fused_tpconv_cross_g runs lmax=2 harmonics; tpconv_rec.fused_tpconv_cross runs {irreps_sh}")
+    return launch_cross("tpconv_cross_g", recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                        irreps_in, irreps_sh, irreps_out, ns, packed)
+
+
+def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                 irreps_in, irreps_sh, irreps_out, ns, packed):
+    """Launch ``csrc/<kernel>.cu``, a one-direction cross kernel of the
+    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2, ``tpconv_cross``:
+    lmax=1; both ``cross_tile`` of the engine), after checking its inputs.
+    Returns the sums [B, L, Dout]."""
+    dev = recv_attr.device
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     B, L, D = recv_attr.shape
     N, K, Fe, H = src_attr.shape[1], idx.shape[2], edge_emb.shape[-1], w2.shape[0]
@@ -165,12 +175,12 @@ def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask,
     if (D != lay.din or src_attr.shape != (B, N, D) or recv_pos.shape != (B, L, 3) or src_pos.shape != (B, N, 3)
             or idx.shape != (B, L, K) or edge_emb.shape[:3] != (B, L, K) or mask.shape != (B, L, K)
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
-        raise ValueError("fused_tpconv_cross_g: inconsistent shapes")
+        raise ValueError(f"{kernel}: inconsistent shapes")
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
     w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
-    lib = build.load("tpconv_cross_g")
-    fn = lib.cbt_tpconv_cross_g
+    lib = build.load(kernel)
+    fn = getattr(lib, "cbt_" + kernel)
     fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
     code = fn(
         ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask), ptr(w1c),
@@ -178,7 +188,7 @@ def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask,
         B, L, N, K, Fe, ns, H, D, lay.dout, cross_rows_per_block(K), ptr(out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, code, "tpconv_cross_g")
+    build.check(lib, code, kernel)
     return out
 
 

@@ -1,11 +1,19 @@
-"""Receptor <- receptor kNN TP-conv (kernel ``csrc/tpconv_rec.cu``).
+"""Receptor <- receptor kNN TP-conv (kernel ``csrc/tpconv_rec.cu``) and the
+one-direction cross TP-conv at lmax=1 (kernel ``csrc/tpconv_cross.cu``).
 
-Replaces ``confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py:
-fused_tpconv_rec``: message sums [B, N, Dout] of a kNN node group whose
-senders and receivers are the same node set, with the neighbour gather, the
-lmax=1 harmonics, the [emb + sig | recv scalars | send scalars] edge MLP, the
-weighted TP and the masked K-sum in one kernel. What bounds it and how the
-kernel is laid out: ``csrc/tpconv_engine.cuh``.
+Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py``:
+
+* ``fused_tpconv_rec``: message sums [B, N, Dout] of a kNN node group whose
+  senders and receivers are the same node set, with the neighbour gather, the
+  lmax=1 harmonics, the [emb + sig | recv scalars | send scalars] edge MLP,
+  the weighted TP and the masked K-sum in one kernel.
+* ``fused_tpconv_cross``: message sums [B, L, Dout] of ligand receivers over
+  a capped list of receptor senders (the edge embedding already holds the
+  sigma embedding); the score model's ligand <- receptor group when the cross
+  list's K is not a multiple of 16 and ``fused_tpconv_cross_rev`` does not
+  take it. Launches are counted in ``fused_tpconv_cross.launches``.
+
+What bounds them and how the kernels are laid out: ``csrc/tpconv_engine.cuh``.
 
 ``fused_tpconv_rec`` launches the kernel for CUDA tensors and calls
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts
@@ -23,7 +31,9 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
+from .tpconv_common import (SH_IRREPS, check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1,
+                            tp_layout)
+from .tpconv_g import launch_cross, tpconv_cross_g_plain
 
 RT = 8  # receivers per block: 8 * K=24 neighbours fill three 64-edge chunks
 
@@ -99,3 +109,34 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
 
 fused_tpconv_rec.launches = 0
 fused_tpconv_rec.dm_launches = 0
+
+
+def tpconv_cross_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2, irreps_in,
+                       irreps_out, ns):
+    """The same function in plain PyTorch: gather, lmax=1 harmonics, edge
+    MLP, weighted TP, masked sum over K."""
+    return tpconv_cross_g_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                                irreps_in, SH_IRREPS, irreps_out, ns)
+
+
+def fused_tpconv_cross(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                       irreps_in: str, irreps_out: str, ns: int, interpret: bool = False, use_bf16: bool = True,
+                       packed=None):
+    """Message sums [B, L, Dout] of the receivers over their capped senders.
+
+    recv_attr [B, L, D] receivers, recv_pos [B, L, 3], src_attr [B, N, D]
+    sender table, src_pos [B, N, 3], idx [B, L, K] int64, edge_emb
+    [B, L, K, Fe] (sigma included), mask [B, L, K] bool; w1 [Fe + 2 ns, H]
+    (rows [Fe | ns receiver | ns sender]), b1, w2 [H, W], b2 in Flax's
+    [in, out] layout; ``packed``: the same weights from ``pack_weights``.
+    ``interpret`` and ``use_bf16`` are the Pallas kernel's and are ignored."""
+    if recv_attr.device.type == "cpu":
+        return tpconv_cross_plain(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                                  irreps_in, irreps_out, ns)
+    out = launch_cross("tpconv_cross", recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
+                       irreps_in, SH_IRREPS, irreps_out, ns, packed)
+    fused_tpconv_cross.launches += 1
+    return out
+
+
+fused_tpconv_cross.launches = 0

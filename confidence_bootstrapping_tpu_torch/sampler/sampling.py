@@ -9,14 +9,19 @@ explicit ``torch.Generator``; a step can instead take the noise tensors
 (``tr_z``, ``rot_z``, ``tor_z``), so a test can feed the exact noise that
 JAX's threefry drew. ``score_confidence`` scores poses with the all-atom
 confidence model (crop and compaction per pose, or a shared receptor
-embedding). SVGD, ``derive_phase_plan`` and ``score_confidence``'s
+embedding). The evaluator's per-complex host steps are here too:
+``derive_phase_plan`` (host numpy, the same tuples as the JAX package's),
+``with_derived_plan`` (the CLIs' ``rec_phase_auto`` default) and the cross
+cap telemetry ``cross_overflow_stats``. SVGD and ``score_confidence``'s
 ``embed_full_receptor`` option are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +30,7 @@ from ..config import SamplerConfig, ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
 from ..models.all_atom_model import compact_crop
 from ..ops.geometry import quaternion_to_matrix
-from ..ops.graph_builders import pairwise_dist
+from ..ops.graph_builders import pairwise_dist, radius_mask
 from ..ops.poses import modify_conformer
 from ..ops.schedules import get_t_schedule, t_to_sigma
 from ..ops.torsion import apply_torsion_updates
@@ -199,6 +204,105 @@ def _phase_plan(cfg: SamplerConfig, n: int):
     if list(caps) != sorted(set(caps), reverse=True):
         raise ValueError("rec_phase_caps must be strictly decreasing")
     return tuple(zip(steps, caps))
+
+
+def derive_phase_plan(model_cfg: ScoreModelConfig, cfg: SamplerConfig, rec_pos, rec_mask
+                      ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Host-side phased-compaction plan of one receptor: (steps, caps), as
+    the JAX package derives it (``sampler/sampling.py:446-544``).
+
+    For each candidate cap (the bucket halved until 128) the earliest step,
+    on a grid of 4, where the median count of residues within the keep
+    radius 3 sigma_tr(s) + 20 + rec_phase_margin of a residue is at most the
+    cap; then the one or two boundaries that minimize the receptor
+    node-steps plus a per-segment penalty. ((), ()) without a dynamic cross
+    cutoff, for all-atom models, under 8 steps or at N <= 128.
+    ``rec_pos`` [N, 3] / ``rec_mask`` [N]: numpy arrays or tensors of the
+    padded receptor."""
+    n = num_steps(cfg)
+    N = int(rec_pos.shape[-2])
+    if not model_cfg.dynamic_max_cross or model_cfg.all_atoms or n < 8 or N <= 128:
+        return (), ()
+    pos = np.asarray(rec_pos, dtype=np.float32).reshape(-1, 3)[:N]
+    pos = pos[np.asarray(rec_mask, dtype=bool).reshape(-1)[:N]]
+    if pos.shape[0] == 0:
+        return (), ()
+    d2 = np.sum((pos[:, None, :] - pos[None, :, :]) ** 2, axis=-1)
+    sp = model_cfg.sigma
+    sigmas = np.asarray([float(t_to_sigma(t, t, t, sp)[0]) for t in make_schedules(cfg).t_tr])
+
+    def med_count(s: int) -> int:
+        R = 3.0 * sigmas[s] + 20.0 + cfg.rec_phase_margin
+        return int(np.median(np.sum(d2 < R * R, axis=1)))
+
+    caps, c = [], N // 2
+    while c >= 128:
+        caps.append(c)
+        c //= 2
+    cands, prev_step = [], 0  # the earliest viable step of each cap, in cap order
+    for cap in caps:
+        s_found = next((s for s in range(prev_step, n - 3, 4) if med_count(s) <= cap), None)
+        if s_found is None:
+            break
+        cands.append((s_found, cap))
+        prev_step = s_found + 4
+
+    def node_steps(plan):
+        total, n_cur, prev = 0, N, 0
+        for s, cap in plan:
+            total += (s - prev) * n_cur
+            n_cur, prev = cap, s
+        return total + (n - prev) * n_cur
+
+    best, best_cost = (), node_steps(())
+    for r in (1, 2):
+        for combo in itertools.combinations(cands, r):
+            cost = node_steps(combo) + r * 0.005 * n * N  # per-segment penalty
+            if len({s for s, _ in combo}) == r and cost < best_cost:
+                best, best_cost = combo, cost
+    return tuple(s for s, _ in best), tuple(c for _, c in best)
+
+
+def with_derived_plan(model_cfg: ScoreModelConfig, cfg: SamplerConfig, rec_pos, rec_mask) -> SamplerConfig:
+    """``cfg`` with the plan ``derive_phase_plan`` gives this receptor, when
+    ``rec_phase_auto`` is on and no plan is set (the JAX CLIs' per-complex
+    default, ``cli/infer.py:390-412``); otherwise ``cfg`` as it is."""
+    if not cfg.rec_phase_auto or cfg.rec_phase_steps:
+        return cfg
+    steps, caps = derive_phase_plan(model_cfg, cfg, rec_pos, rec_mask)
+    return dataclasses.replace(cfg, rec_phase_steps=steps, rec_phase_caps=caps) if steps else cfg
+
+
+@torch.no_grad()
+def cross_overflow_stats(batch: ComplexBatch, model_cfg: ScoreModelConfig) -> dict:
+    """Cross-edge cap telemetry of a batch (the JAX package's
+    ``sampler/sampling.py:301-349``): per real ligand atom, the receptor
+    residues within the cross cutoff against the cap
+    ``effective_cross_cap(N)``, at the widest cutoff (sigma_tr max) and at
+    the final step's (sigma_tr min). -> {overflow_atom_frac,
+    dropped_edge_frac, overflow_atom_frac_final, dropped_edge_frac_final}:
+    the share of atoms that lose edges to the cap and of in-radius edges
+    dropped (always the farthest: the model keeps the nearest), as floats."""
+    sp = model_cfg.sigma
+    cap = model_cfg.effective_cross_cap(batch.rec_pos.shape[1])
+    real = batch.lig_mask
+    n_atoms = torch.clamp(real.sum(), min=1)
+
+    def stats_at(cutoff: float):
+        m, _ = radius_mask(batch.lig_pos, batch.rec_pos, cutoff, batch.lig_mask, batch.rec_mask)
+        counts = m.sum(-1)  # [B, L] in-radius residues
+        overflow = ((counts > cap) & real).sum() / n_atoms
+        dropped = (torch.clamp(counts - cap, min=0) * real).sum()
+        return float(overflow), float(dropped / torch.clamp((counts * real).sum(), min=1))
+
+    if model_cfg.dynamic_max_cross:
+        worst, final = sp.tr_sigma_max * 3 + 20, sp.tr_sigma_min * 3 + 20
+    else:
+        worst = final = model_cfg.cross_max_distance
+    oa_w, de_w = stats_at(worst)
+    oa_f, de_f = stats_at(final)
+    return dict(overflow_atom_frac=oa_w, dropped_edge_frac=de_w, overflow_atom_frac_final=oa_f,
+                dropped_edge_frac_final=de_f)
 
 
 def _receptors_identical(batch: ComplexBatch) -> bool:

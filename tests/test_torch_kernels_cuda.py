@@ -7,7 +7,10 @@ receiver tiles, a K that spans several 64-edge chunks or is not a multiple of
 that differ (the embedding layers), lmax=2 harmonics (the confidence model's
 rec_g and cross_g kernels), the training kernels (the edge-list forward with
 and without a dropout mask, rec and rec_g with one, the edge backward) and
-the autograd ops over them, and the wrappers' input checks. Tolerance:
+the autograd ops over them, the composed route's kernels (the one-direction
+cross kernel at K off the 16-grid, the edge-list kernel's inference instance
+for sums and per-edge messages, the v1 API over it, and TPConv's routing to
+them), and the wrappers' input checks. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
 than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
@@ -23,8 +26,8 @@ which the card's machine does not have, hence --noconftest):
 import pytest
 import torch
 
-from confidence_bootstrapping_tpu_torch.ops.cuda import (tpconv_bwd, tpconv_common, tpconv_edge, tpconv_g, tpconv_lig,
-                                                          tpconv_rec, tpconv_train)
+from confidence_bootstrapping_tpu_torch.ops.cuda import (tpconv, tpconv_bwd, tpconv_common, tpconv_edge, tpconv_g,
+                                                          tpconv_lig, tpconv_rec, tpconv_train, tpconv_v3)
 from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
 
 pytestmark = pytest.mark.cuda
@@ -423,3 +426,111 @@ def test_train_ops_match_autograd_of_plain(dev):
     for i, (x, y) in enumerate(zip(torch.autograd.grad((out * cot).sum(), leaves),
                                    torch.autograd.grad((ref * cot).sum(), leaves))):
         _close(x, y, REL if i < 2 else SUM_REL)
+
+
+@pytest.mark.parametrize("irreps,B,L,N,K", [
+    (FLAGSHIP, 2, 13, 150, 40),
+    (FLAGSHIP, 2, 24, 512, 100),  # the evaluator's pinned cap: a full 64-edge chunk and a partial one per receiver
+    ("16x0e + 4x1o + 4x1e + 4x0o", 2, 9, 300, 205),  # four chunks per receiver, K above 128
+])
+def test_cross_kernel_matches_plain(dev, irreps, B, L, N, K):
+    g = _gen(11)
+    ns = _ns(irreps)
+    D = WeightedTensorProduct(irreps, SH1, irreps).irreps_in.dim
+    recv = torch.randn(B, L, D, generator=g)
+    rpos = torch.randn(B, L, 3, generator=g) * 2
+    src = torch.randn(B, N, D, generator=g)
+    spos = torch.randn(B, N, 3, generator=g) * 4
+    idx = torch.randint(0, N, (B, L, K), generator=g)
+    emb = torch.randn(B, L, K, ns, generator=g)
+    mask = torch.rand(B, L, K, generator=g) > 0.3
+    mask[0, 3] = False  # a receiver whose whole list is masked
+    mask[-1, -1, -1] = True
+    args = [t.to(dev) for t in (recv, rpos, src, spos, idx, emb, mask)] + _weights(g, irreps, irreps, ns, dev)
+    before = tpconv_rec.fused_tpconv_cross.launches
+    got = tpconv_rec.fused_tpconv_cross(*args, irreps, irreps, ns)
+    torch.cuda.synchronize()
+    assert tpconv_rec.fused_tpconv_cross.launches == before + 1
+    _close(got, tpconv_rec.tpconv_cross_plain(*args, irreps, irreps, ns))
+    assert float(got[0, 3].abs().max()) == 0.0
+    with pytest.raises(ValueError):  # lmax=2 weights do not fit the lmax=1 kernel's tables
+        tpconv_rec.fused_tpconv_cross(*args[:7], *_weights(g, irreps, irreps, ns, dev, SH2), irreps, irreps, ns)
+
+
+@pytest.mark.parametrize("irreps_in,irreps_out,M,K", [
+    (FLAGSHIP, FLAGSHIP, 48, 100),  # the receptor <- ligand lists at the pinned cap
+    ("32x0e", "32x0e + 6x1o", 46, 23),  # the ligand pairs at L=23, the first embedding layer
+    (FLAGSHIP, FLAGSHIP, 70, 24),  # receptor kNN lists at N % 32 != 0
+])
+def test_v3_edge_list_kernels_match_plain(dev, irreps_in, irreps_out, M, K):
+    g = _gen(12)
+    tp = WeightedTensorProduct(irreps_in, SH1, irreps_out)
+    F = 96
+    attr, send = torch.randn(M, K, F, generator=g), torch.randn(M, K, tp.irreps_in.dim, generator=g)
+    sh = tpconv_common.sh1(torch.randn(M, K, 3, generator=g))
+    mask = torch.rand(M, K, generator=g) > 0.3
+    mask[:3] = False
+    weights = [torch.randn(s, generator=g) * 0.2 for s in ((F, F), (F,), (F, tp.weight_numel), (tp.weight_numel,))]
+    args = [t.to(dev) for t in (attr, send, sh, mask, *weights)]
+    before = (tpconv_v3.fused_tpconv_nbr.launches, tpconv_v3.fused_tpconv_msgs.launches,
+              tpconv_edge.fused_tpconv_edge.launches)
+    got_sum = tpconv_v3.fused_tpconv_nbr(*args, irreps_in, irreps_out, tile_m=8, interpret=True, use_bf16=False)
+    got_msg = tpconv_v3.fused_tpconv_msgs(*args, irreps_in, irreps_out)
+    torch.cuda.synchronize()
+    assert (tpconv_v3.fused_tpconv_nbr.launches, tpconv_v3.fused_tpconv_msgs.launches,
+            tpconv_edge.fused_tpconv_edge.launches) == (before[0] + 1, before[1] + 1, before[2])
+    _close(got_sum, tpconv_v3.tpconv_nbr_plain(*args, irreps_in, irreps_out))
+    _close(got_msg, tpconv_v3.tpconv_msgs_plain(*args, irreps_in, irreps_out))
+    assert float(got_msg[~args[3]].abs().max()) == 0.0 and float(got_sum[:3].abs().max()) == 0.0
+    with pytest.raises(ValueError):  # the v3 wrappers take lmax=1 harmonics only
+        tpconv_v3.fused_tpconv_nbr(args[0], args[1], torch.zeros(M, K, 9, device=dev), *args[3:], irreps_in,
+                                   irreps_out)
+    v1_sum = tpconv.fused_tpconv_nbr(*args, irreps_in, irreps_out, tile_m=8, debug_stage=0)
+    v1_msg = tpconv.fused_tpconv_msgs(*args, irreps_in, irreps_out)
+    torch.cuda.synchronize()
+    _close(v1_sum, got_sum)
+    _close(v1_msg, got_msg)
+
+
+def test_tpconv_composed_routes_on_the_card(dev):
+    """TPConv at lmax=1 in inference: conv_cross launches row 4, conv_nbr row
+    5, msgs_nbr row 6, conv_rec at N % 32 != 0 row 5 (not rec); each agrees
+    with the plain version of the same function."""
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    g = _gen(13)
+    ns, B, N, L, K = 32, 2, 40, 9, 20
+    conv = TPConv(FLAGSHIP, SH1, FLAGSHIP, 3 * ns, num_groups=2).to(dev)
+    D = conv.tp.irreps_in.dim
+    node = torch.randn(B, N, D, generator=g).to(dev)
+    pos = (torch.randn(B, N, 3, generator=g) * 4).to(dev)
+    nbr = torch.randint(0, N, (B, N, 24), generator=g).to(dev)
+    emb = torch.randn(B, N, 24, ns, generator=g).to(dev)
+    sig = torch.randn(B, ns, generator=g).to(dev)
+    mask = (torch.rand(B, N, 24, generator=g) > 0.3).to(dev)
+    lig = torch.randn(B, L, D, generator=g).to(dev)
+    lpos = (torch.randn(B, L, 3, generator=g) * 2).to(dev)
+    idx = torch.randint(0, N, (B, L, K), generator=g).to(dev)
+    cemb = torch.randn(B, L, K, ns, generator=g).to(dev)
+    cmask = (torch.rand(B, L, K, generator=g) > 0.3).to(dev)
+    counters = (tpconv_rec.fused_tpconv_cross, tpconv_v3.fused_tpconv_nbr, tpconv_v3.fused_tpconv_msgs,
+                tpconv_rec.fused_tpconv_rec, tpconv_lig.fused_tpconv_cross_rev)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        assert conv.conv_cross_rev(1, 0, lig, lpos, node, pos, idx, cemb, cmask, ns) is None
+        got_c, _ = conv.conv_cross(1, lig, lpos, node, pos, idx, cemb, cmask, ns)
+        got_r, _ = conv.conv_rec(0, node, pos, nbr, emb, sig, mask)
+        eattr = torch.randn(B, L, K, 3 * ns, generator=g).to(dev)
+        sh = tpconv_common.sh1(torch.randn(B, L, K, 3, generator=g).to(dev))
+        sender = node[:, None, :K].expand(B, L, K, D)
+        got_m = conv.msgs_nbr(0, sender, sh, eattr, cmask)
+        plain_c = tpconv_rec.tpconv_cross_plain(lig, lpos, node, pos, idx, cemb, cmask, *conv.mlp_weights(1),
+                                                FLAGSHIP, FLAGSHIP, ns)
+        plain_r = tpconv_rec.tpconv_rec_plain(node, pos, nbr, emb, sig, mask, *conv.mlp_weights(0), FLAGSHIP,
+                                              FLAGSHIP, ns)
+        plain_m = tpconv_v3.tpconv_msgs_plain(eattr, sender, sh, cmask, *conv.mlp_weights(0), FLAGSHIP, FLAGSHIP)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+    _close(got_c, plain_c)
+    _close(got_r, plain_r)
+    _close(got_m, plain_m)
