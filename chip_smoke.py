@@ -7,11 +7,15 @@ toolkit:
 
 Phases (each one fails the script when it fails):
   1. the card's name and power limit (nvidia-smi);
-  2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed);
+  2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed), with
+     each kernel's ptxas line and each library's count of HGMMA (wgmma)
+     instructions from cuobjdump -sass: rec and cross_rev, whose H -> W
+     product runs on the tensor cores, must have some;
   3. per kernel, on every call of one sample of phase 5's path (recorded,
      then replayed): the kernel against its plain PyTorch version on the same
-     inputs (stated tolerance), both timed, and its bound; by shape and as
-     means over the sample's launches;
+     inputs (stated tolerance), both timed, and its two bounds (``bounds``:
+     the tensor-core bound and the float32 one); by shape and as means over
+     the sample's launches;
   4. the full-width score model on 1a0q at B=2: CUDA with the kernels against
      the same model and weights on the CPU with the plain versions;
   5. bench.py's path on the port: 1a0q, random ESM-sized receptor features,
@@ -58,7 +62,8 @@ Phases (each one fails the script when it fails):
      signatures, no kernel of its own) on a few of them, printed.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
-6's, per training step for phase 7's), and last the device line.
+6's, per training step for phase 7's; ``bound_ms`` the tensor-core bound,
+``bound_fp32_ms`` the float32 one), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -76,8 +81,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE_PKL = os.path.join(ROOT, "cache", "1a0q_44f574e0e5cb3bc5.pkl")
 B_POSES, STEPS, LM_DIM, PLAN = 32, 20, 1280, ((6, 256), (12, 128))
-# H100 SXM data-sheet peaks (dense): float32 on the CUDA cores and HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, TF32 on the tensor cores, and HBM3
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
+TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accuracy
+TC_KERNELS = ("tpconv_rec", "tpconv_cross_rev")  # the libraries whose H -> W product runs on wgmma
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
 MODEL_RTOL = 1e-3  # CUDA vs CPU forward, per output, relative to its max |value|
 SAMPLE_ATOL = 1e-2  # CUDA vs CPU ligand positions after a 3-step ODE sample, in A
@@ -137,6 +144,27 @@ def flops_per_edge(irreps_in: str, irreps_out: str, Fe: int, H: int, irreps_sh: 
     return 2 * (Fe * H + H * lay.weight_numel + contract + cg)
 
 
+def mm_flops_per_edge(irreps_in: str, irreps_out: str, Fe: int, H: int, irreps_sh: str = SH1) -> int:
+    """The part of ``flops_per_edge`` that tensor cores can carry: the MLP's
+    two matrix products (Fe -> H, H -> W)."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import tp_layout
+
+    return 2 * (Fe * H + H * tp_layout(irreps_in, irreps_out, irreps_sh).weight_numel)
+
+
+def bounds(nbytes_moved: int, flops: int, mm: int) -> dict:
+    """The least time of a call, in ms, two ways: ``fp32``, every flop at
+    the float32 CUDA-core peak; ``tc``, the matrix products (``mm`` of the
+    flops) at the 3xTF32 tensor-core rate (three TF32 products at 495
+    TFLOP/s) and the rest at the float32 peak. Each against the bytes (each
+    input read once, each output written once) at 3.35 TB/s; ``by``: what
+    sets the tensor-core bound."""
+    b = nbytes_moved / PEAK_BYTES * 1e3
+    ops_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    ops_tc = (TC_PRODUCTS * mm / PEAK_TF32_FLOPS + (flops - mm) / PEAK_FP32_FLOPS) * 1e3
+    return dict(bytes=b, fp32=max(b, ops_fp32), tc=max(b, ops_tc), by="operations" if ops_tc >= b else "bytes")
+
+
 def node_flops(ns: int, H: int) -> int:
     """One node row's ns scalars through its part of the MLP's first layer."""
     return 2 * ns * H
@@ -154,15 +182,18 @@ def used_rows(index, mask, n: int):
 
 
 def rec_work(args):
-    """(flops, tag) of one fused_tpconv_rec (13 arguments) or
-    fused_tpconv_rec_g (14, with the harmonics) call on this data."""
+    """(flops, matrix-product flops, tag) of one fused_tpconv_rec (13
+    arguments) or fused_tpconv_rec_g (14, with the harmonics) call on this
+    data."""
     node, _, nbr, emb, _, mask, _, _, w2, _ = args[:10]
     ir_in, ir_sh, ir_out, ns = (args[10], SH1, *args[11:]) if len(args) == 13 else args[10:]
     B, N, K = nbr.shape
     H = w2.shape[0]
     rows = int(mask.any(-1).sum()) + int(used_rows(nbr, mask, N).sum())
-    flops = int(mask.sum()) * flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + rows * node_flops(ns, H)
-    return flops, f"B={B} N={N} K={K} D {node.shape[-1]}->{tp_dout(ir_in, ir_out, ir_sh)}"
+    edges, nodes = int(mask.sum()), rows * node_flops(ns, H)
+    flops = edges * flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + nodes
+    mm = edges * mm_flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + nodes
+    return flops, mm, f"B={B} N={N} K={K} D {node.shape[-1]}->{tp_dout(ir_in, ir_out, ir_sh)}"
 
 
 def pb_work(args):
@@ -171,9 +202,10 @@ def pb_work(args):
     H = w2.shape[0]
     recv = pair_mask.any(-1).reshape(-1) | used_rows(bsrc, bmask, L)
     send = pair_mask.any(-2).reshape(-1) | used_rows(bdst, bmask, L)
-    edges = int(pair_mask.sum()) + int(bmask.sum())
-    flops = edges * flops_per_edge(ir_in, ir_out, pair_emb.shape[-1], H) + int(recv.sum() + send.sum()) * node_flops(ns, H)
-    return flops, f"B={B} L={L} E={bsrc.shape[1]} D {lig.shape[-1]}->{tp_dout(ir_in, ir_out)}"
+    edges, nodes = int(pair_mask.sum()) + int(bmask.sum()), int(recv.sum() + send.sum()) * node_flops(ns, H)
+    flops = edges * flops_per_edge(ir_in, ir_out, pair_emb.shape[-1], H) + nodes
+    mm = edges * mm_flops_per_edge(ir_in, ir_out, pair_emb.shape[-1], H) + nodes
+    return flops, mm, f"B={B} L={L} E={bsrc.shape[1]} D {lig.shape[-1]}->{tp_dout(ir_in, ir_out)}"
 
 
 def cross_work(args):
@@ -183,18 +215,24 @@ def cross_work(args):
     N, H = rec.shape[1], w2.shape[0]
     dirs = 1 if w1_r is None else 2  # the reverse direction has its own weights: all its work again
     rows = int(mask.any(-1).sum()) + int(used_rows(idx, mask, N).sum())
-    flops = dirs * (int(mask.sum()) * flops_per_edge(ir_in, ir_out, emb.shape[-1], H) + rows * node_flops(ns, H))
-    return flops, f"B={B} L={L} N={N} K={K} D {lig.shape[-1]}->{tp_dout(ir_in, ir_out)}{'' if dirs == 2 else ', no reverse'}"
+    edges, nodes = int(mask.sum()), rows * node_flops(ns, H)
+    flops = dirs * (edges * flops_per_edge(ir_in, ir_out, emb.shape[-1], H) + nodes)
+    mm = dirs * (edges * mm_flops_per_edge(ir_in, ir_out, emb.shape[-1], H) + nodes)
+    return flops, mm, (f"B={B} L={L} N={N} K={K} D {lig.shape[-1]}->{tp_dout(ir_in, ir_out)}"
+                       f"{'' if dirs == 2 else ', no reverse'}")
 
 
 def cross_g_work(args):
-    """(flops, tag) of one fused_tpconv_cross_g call: one direction."""
+    """(flops, matrix-product flops, tag) of one fused_tpconv_cross_g call:
+    one direction."""
     recv, _, src, _, idx, emb, mask, _, _, w2, _, ir_in, ir_sh, ir_out, ns = args
     B, L, K = idx.shape
     N, H = src.shape[1], w2.shape[0]
     rows = int(mask.any(-1).sum()) + int(used_rows(idx, mask, N).sum())
-    flops = int(mask.sum()) * flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + rows * node_flops(ns, H)
-    return flops, f"B={B} L={L} N={N} K={K} D {recv.shape[-1]}->{tp_dout(ir_in, ir_out, ir_sh)}"
+    edges, nodes = int(mask.sum()), rows * node_flops(ns, H)
+    flops = edges * flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + nodes
+    mm = edges * mm_flops_per_edge(ir_in, ir_out, emb.shape[-1], H, ir_sh) + nodes
+    return flops, mm, f"B={B} L={L} N={N} K={K} D {recv.shape[-1]}->{tp_dout(ir_in, ir_out, ir_sh)}"
 
 
 def tp_dout(ir_in: str, ir_out: str, ir_sh: str = SH1) -> int:
@@ -283,11 +321,11 @@ def kernel_phase(model, run) -> list:
 
 def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
     """Replay every recorded call through its kernel and its plain version:
-    error against the stated tolerance, both timed, the bound from the
-    call's own data. Prints per shape and as means over the calls; returns
-    one JSON row per kernel (without ``launches``). ``rtols``: per kernel, a
-    tolerance per output (default KERNEL_RTOL for each), each output held to
-    it times max(1, max |its plain value|)."""
+    error against the stated tolerance, both timed, both bounds (``bounds``)
+    from the call's own data. Prints per shape and as means over the calls;
+    returns one JSON row per kernel (without ``launches``). ``rtols``: per
+    kernel, a tolerance per output (default KERNEL_RTOL for each), each
+    output held to it times max(1, max |its plain value|)."""
     import torch
 
     def outputs(o):
@@ -303,31 +341,33 @@ def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
             scales = [w.abs().max().item() for w in ref]
             tols = (rtols or {}).get(name, (KERNEL_RTOL,) * len(ref))
             err, scale = max(errs), max(scales)
-            flops, tag = work(args)
-            bound_bytes = nbytes(*(a for a in args if torch.is_tensor(a)), *got) / PEAK_BYTES * 1e3
-            bound_ops = flops / PEAK_FP32_FLOPS * 1e3
+            flops, mm, tag = work(args)
+            b = bounds(nbytes(*(a for a in args if torch.is_tensor(a)), *got), flops, mm)
             shapes.setdefault(tag, []).append(dict(
                 err=err, rel=err / max(scale, 1e-30),
                 ok=all(e <= t * max(1.0, sc) for e, t, sc in zip(errs, tols, scales)),
                 ms=cuda_time(lambda: fn(*args, **kwargs), reps=5, warmup=1),
                 plain_ms=cuda_time(lambda: plain(*args), reps=2, warmup=0),
-                bound_bytes=bound_bytes, bound_ops=bound_ops, bound=max(bound_bytes, bound_ops), flops=flops))
+                bound=b["tc"], bound_fp32=b["fp32"], bound_bytes=b["bytes"], flops=flops, mm=mm))
         every = [m for ms in shapes.values() for m in ms]
         for tag, ms in list(shapes.items()) + [("all", every)]:
-            mean = {k: float(np.mean([m[k] for m in ms])) for k in ("ms", "plain_ms", "bound", "bound_ops", "bound_bytes", "flops")}
+            mean = {k: float(np.mean([m[k] for m in ms]))
+                    for k in ("ms", "plain_ms", "bound", "bound_fp32", "bound_bytes", "flops", "mm")}
             ok = all(m["ok"] for m in ms)
+            by = "operations" if mean["bound"] > mean["bound_bytes"] else "bytes"
             print(f"kernel {name} [{tag}], {len(ms)} calls: max_abs_err {max(m['err'] for m in ms):.3g} (max rel "
                   f"{max(m['rel'] for m in ms):.3g}; tolerance {(rtols or {}).get(name, KERNEL_RTOL)} x max(1, max |plain|)) "
                   f"{'ok' if ok else 'MISMATCH'}; mean kernel {mean['ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, "
-                  f"bound {mean['bound']:.4f} ms ({'operations' if mean['bound_ops'] >= mean['bound_bytes'] else 'bytes'}; "
-                  f"{mean['flops']:.4g} flops); per run {mean['ms'] * len(ms):.2f} ms", flush=True)
+                  f"bound {mean['bound']:.4f} ms tensor cores ({by}), {mean['bound_fp32']:.4f} ms float32 "
+                  f"({mean['flops']:.4g} flops, {mean['mm']:.4g} in the matrix products); per run "
+                  f"{mean['ms'] * len(ms):.2f} ms", flush=True)
             if not ok:
                 fail(f"kernel {name} [{tag}] disagrees with its plain version")
-        # ``mean`` now holds the means over every call ("all", the last tag)
+        # ``mean`` and ``by`` now hold the means over every call ("all", the last tag)
         rows.append(dict(name=name, route="cuda", source=f"confidence_bootstrapping_tpu_torch/csrc/{name}.cu",
                          replaces=replaces, max_abs_err=max(m["err"] for m in every), ms=mean["ms"],
-                         plain_ms=mean["plain_ms"], bound_ms=mean["bound"],
-                         bound_by="operations" if mean["bound_ops"] >= mean["bound_bytes"] else "bytes", library_ms=None))
+                         plain_ms=mean["plain_ms"], bound_ms=mean["bound"], bound_fp32_ms=mean["bound_fp32"],
+                         bound_by=by, library_ms=None))
         torch.cuda.synchronize()
     return rows
 
@@ -668,12 +708,22 @@ def bwd_flops_per_edge(irreps_in: str, irreps_out: str, F: int, H: int, irreps_s
     return 2 * (3 * F * H + 3 * H * lay.weight_numel + 2 * contract + 3 * cg)
 
 
+def bwd_mm_flops_per_edge(irreps_in: str, irreps_out: str, F: int, H: int, irreps_sh: str) -> int:
+    """The matrix products of ``bwd_flops_per_edge``: the MLP recompute, dh,
+    d_z and the edge's share of dW1 and dW2."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import tp_layout
+
+    return 2 * (3 * F * H + 3 * H * tp_layout(irreps_in, irreps_out, irreps_sh).weight_numel)
+
+
 def edge_work(args):
     attr, _, sh, mask, _, _, w2, _, ir_in, ir_sh, ir_out, dmask, sum_k = args
     M, K, F = attr.shape
-    flops = int(mask.sum()) * flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
-    return flops, (f"M={M} K={K} D {attr.shape[-1]}/{tp_dout(ir_in, ir_out, ir_sh)} sh {sh.shape[-1]} "
-                   f"{'K-sum' if sum_k else 'per edge'}{', dropout' if dmask is not None else ''}")
+    edges = int(mask.sum())
+    flops = edges * flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
+    mm = edges * mm_flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
+    return flops, mm, (f"M={M} K={K} D {attr.shape[-1]}/{tp_dout(ir_in, ir_out, ir_sh)} sh {sh.shape[-1]} "
+                       f"{'K-sum' if sum_k else 'per edge'}{', dropout' if dmask is not None else ''}")
 
 
 def bwd_work(args):
@@ -681,7 +731,8 @@ def bwd_work(args):
     T, F = attr.shape
     valid = int((g != 0).any(-1).sum())  # masked edges carry a zero cotangent: no work
     flops = valid * bwd_flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
-    return flops, f"T={T} valid={valid} F={F} sh {sh.shape[-1]} -> {g.shape[-1]}"
+    mm = valid * bwd_mm_flops_per_edge(ir_in, ir_out, F, w2.shape[0], ir_sh)
+    return flops, mm, f"T={T} valid={valid} F={F} sh {sh.shape[-1]} -> {g.shape[-1]}"
 
 
 def near_relu_boundary(z, w1, b1):
@@ -765,6 +816,8 @@ def replay_train_ops(calls: dict) -> list:
                 H, ir = args[6].shape[0], args[8:11]
                 fwd_flops = int(mask.sum()) * flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1])
                 bwd_flops = int(mask.sum()) * bwd_flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1])
+                mm = int(mask.sum()) * (mm_flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1])
+                                        + bwd_mm_flops_per_edge(ir[0], ir[2], attr.shape[-1], H, ir[1]))
             else:
                 node, nbr, emb, sig, ns = args[0], args[2], args[3], args[4], args[13]
                 z = torch.cat([emb + sig[:, None, None, :], node[:, :, None, :ns].expand(emb.shape[:-1] + (ns,)),
@@ -777,8 +830,9 @@ def replay_train_ops(calls: dict) -> list:
                 mask, H = args[5], args[8].shape[0]
                 ir = (args[10], args[11], args[12])
                 F = args[3].shape[-1] + 2 * args[13]
-                fwd_flops = rec_work(tuple(args[:10]) + (args[10], args[12], args[13]))[0]
+                fwd_flops, fwd_mm, _ = rec_work(tuple(args[:10]) + (args[10], args[12], args[13]))
                 bwd_flops = int(mask.sum()) * bwd_flops_per_edge(ir[0], ir[2], F, H, ir[1])
+                mm = fwd_mm + int(mask.sum()) * bwd_mm_flops_per_edge(ir[0], ir[2], F, H, ir[1])
             leaves = [args[i].detach().clone().requires_grad_(True) for i in grad_at]
             a = list(args)
             for i, t in zip(grad_at, leaves):
@@ -797,21 +851,23 @@ def replay_train_ops(calls: dict) -> list:
             n_edge = 1 + (2 if name == "fused_tpconv_rec_train" else 3)  # outputs held per edge/node at 2e-4
             ok = all(e <= (KERNEL_RTOL if i < n_edge else SUM_RTOL) * max(1.0, sc)
                      for i, (e, sc) in enumerate(zip(errs, scales)))
-            bound = max(nbytes(*(t for t in args if torch.is_tensor(t)), *got) / PEAK_BYTES,
-                        (fwd_flops + bwd_flops) / PEAK_FP32_FLOPS) * 1e3
-            ms.append(dict(err=max(errs), ok=ok, bound=bound, guarded=int((near & mask0).sum()), edges=int(mask0.sum()),
+            b = bounds(nbytes(*(t for t in args if torch.is_tensor(t)), *got), fwd_flops + bwd_flops, mm)
+            ms.append(dict(err=max(errs), ok=ok, bound=b["tc"], bound_fp32=b["fp32"], by=b["by"],
+                           guarded=int((near & mask0).sum()), edges=int(mask0.sum()),
                            ms=cuda_time(lambda: fwd_bwd(kernel, cot), reps=3, warmup=1),
                            plain_ms=cuda_time(lambda: fwd_bwd(plain, cot), reps=1, warmup=0)))
             if not ok:
                 fail(f"{name}: the autograd op through the kernels disagrees with autograd of the plain version "
                      f"(errors {errs})")
-        mean = {k: float(np.mean([m[k] for m in ms])) for k in ("ms", "plain_ms", "bound")}
+        mean = {k: float(np.mean([m[k] for m in ms])) for k in ("ms", "plain_ms", "bound", "bound_fp32")}
         print(f"op {name}, {len(ms)} calls (forward + backward): max_abs_err {max(m['err'] for m in ms):.3g} ok "
               f"({sum(m['guarded'] for m in ms)} of {sum(m['edges'] for m in ms)} edges at the ReLU left out); "
-              f"mean {mean['ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, bound {mean['bound']:.4f} ms", flush=True)
+              f"mean {mean['ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, bound {mean['bound']:.4f} ms tensor cores, "
+              f"{mean['bound_fp32']:.4f} ms float32", flush=True)
         rows.append(dict(name=name, route="cuda", source="confidence_bootstrapping_tpu_torch/ops/cuda/tpconv_train.py",
                          replaces=replaces, max_abs_err=max(m["err"] for m in ms), ms=mean["ms"],
-                         plain_ms=mean["plain_ms"], bound_ms=mean["bound"], bound_by="operations", library_ms=None))
+                         plain_ms=mean["plain_ms"], bound_ms=mean["bound"], bound_fp32_ms=mean["bound_fp32"],
+                         bound_by=ms[0]["by"], library_ms=None))
     return rows
 
 
@@ -982,8 +1038,8 @@ def expected_composed_launches(model, steps: int, pairs_composed: bool) -> dict:
 
 
 def edge_list_work(sum_k: bool):
-    """(flops, tag) of one row-5 (sum_k) or row-6 call (10 positional
-    arguments, the lmax=1 harmonics)."""
+    """(flops, matrix-product flops, tag) of one row-5 (sum_k) or row-6
+    call (10 positional arguments, the lmax=1 harmonics)."""
     return lambda a: edge_work(tuple(a[:8]) + (a[8], SH1, a[9], None, sum_k))
 
 
@@ -1175,7 +1231,7 @@ def replay_v1(calls: dict) -> None:
 
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv, tpconv_v3
 
-    errs, ms, plain_ms, bounds = [], [], [], []
+    errs, ms, plain_ms, tc, fp32 = [], [], [], [], []
     for name, v1, plain, sum_k in (("tpconv_nbr", tpconv.fused_tpconv_nbr, tpconv_v3.tpconv_nbr_plain, True),
                                    ("tpconv_msgs", tpconv.fused_tpconv_msgs, tpconv_v3.tpconv_msgs_plain, False)):
         for args, _ in calls[name][:3]:
@@ -1184,15 +1240,16 @@ def replay_v1(calls: dict) -> None:
             err, scale = (got - want).abs().max().item(), want.abs().max().item()
             if not err <= KERNEL_RTOL * max(1.0, scale):
                 fail(f"the v1 API ({name}) disagrees with the plain version")
-            flops = edge_list_work(sum_k)(args)[0]
+            flops, mm, _ = edge_list_work(sum_k)(args)
+            b = bounds(nbytes(*(a for a in args if torch.is_tensor(a)), got), flops, mm)
             errs.append(err)
             ms.append(cuda_time(lambda: v1(*args), reps=5, warmup=1))
             plain_ms.append(cuda_time(lambda: plain(*args), reps=2, warmup=0))
-            bounds.append(max(nbytes(*(a for a in args if torch.is_tensor(a)), got) / PEAK_BYTES,
-                              flops / PEAK_FP32_FLOPS) * 1e3)
+            tc.append(b["tc"])
+            fp32.append(b["fp32"])
     print(f"row 13 (v1 API, {V1_REPLACES}) on {len(errs)} recorded calls: max_abs_err {max(errs):.3g} ok; mean "
-          f"{np.mean(ms):.4f} ms, plain {np.mean(plain_ms):.4f} ms, bound {np.mean(bounds):.4f} ms (operations)",
-          flush=True)
+          f"{np.mean(ms):.4f} ms, plain {np.mean(plain_ms):.4f} ms, bound {np.mean(tc):.4f} ms tensor cores, "
+          f"{np.mean(fp32):.4f} ms float32", flush=True)
 
 
 def main() -> None:
@@ -1216,6 +1273,10 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "bytes stack" in line:
                 print(f"  {name}: {line.strip()}")
+    hgmma = build.hgmma_counts()
+    print(f"HGMMA instructions (cuobjdump -sass) per library: {hgmma}", flush=True)
+    if any(hgmma[name] == 0 for name in TC_KERNELS):
+        fail(f"{', '.join(TC_KERNELS)} must run the H -> W product on the tensor cores")
 
     model, b0, run = main_path(dev)
     rows = kernel_phase(model, run)

@@ -1,4 +1,4 @@
-// Shared edge engine of the TP-conv kernels (float32, sm_90a).
+// Shared edge engine of the TP-conv kernels (float32 and 3xTF32, sm_90a).
 //
 // Every TP-conv message on the score and confidence models' paths is
 //   h   = relu([edge_emb | recv[:ns] | send[:ns]] @ w1 + b1)        (F -> H)
@@ -30,17 +30,68 @@
 //      The epilogue is a fixed list of (segment, component) items per tile,
 //      so the sum order is fixed and the result deterministic.
 //
-// What bounds it on the card: the H x W product, 2*H*W flops per edge
-// (about 0.32 MFLOP at H=96, W=1660; 0.28 MFLOP at the confidence model's
-// H=72, W=1944), at the 67 TFLOP/s float32 rate of the CUDA cores; bytes are
-// small beside it (an edge reads ~1 KB). The design
-// keeps w2 tiles in shared memory for TM edges at a time and never writes w
-// or the per-edge messages to device memory. Tensor cores (wgmma, bf16 or
-// TF32) are later work.
+// What bounds the float32 stage on the card: the H x W product, 2*H*W flops
+// per edge (0.57 MFLOP at the score model's 100 -> 100 layer, H=96, W=2960;
+// 0.28 MFLOP at the confidence model's H=72, W=1944), at the 67 TFLOP/s
+// float32 rate of the CUDA cores; bytes are small beside it (an edge reads
+// ~1 KB). It keeps w2 tiles in shared memory for TM edges at a time and
+// never writes w or the per-edge messages to device memory.
+//
+// The tensor-core stage (TC = true: the rec and cross_rev inference kernels;
+// every other instance keeps the float32 stage) runs steps 3 and 4 so:
+//
+//   * 3xTF32: w2 is split once on the host (ops/cuda/tpconv_common.py:
+//     pack_weights) into w2_hi = tf32(w2) and w2_lo = tf32(w2 - w2_hi), and
+//     h in the block the same way (cvt.rna.tf32.f32); one float32
+//     accumulator takes h_lo w_hi + h_hi w_lo + h_hi w_hi, which keeps the
+//     product within float32 rounding of the float32 stage's (one TF32
+//     product is off by ~3e-4 of the largest value at K=96, over the
+//     kernels' 2e-4 bar). H is padded with zeros to
+//     Hp, a multiple of 8, and may be at most KMAX = 96;
+//   * both warpgroups hold the chunk's 64 x Hp hidden layer as wgmma A
+//     fragments in registers (hi and lo, loaded once per chunk) and each
+//     multiplies it by its 24-column half of a TNC = 48-column w2 tile read
+//     from shared memory (wgmma m64n24k8, B K-major, no swizzle);
+//   * the host stores each w2 tile in the layout wgmma reads (core matrices
+//     of 8 columns x 4 k, tiles [TNC/8][Hp/4][8][4]), so a tile is one bulk
+//     copy per part (cp.async.bulk, completion on an mbarrier, no tensor
+//     map); a ring of two stages keeps the next tile in flight while the
+//     current one multiplies;
+//   * tile t+1's wgmma is issued before tile t's epilogue, so that the
+//     tensor cores can run while the CUDA cores sum tile t's columns (the
+//     same itemised epilogue, b2 added on the way out of the accumulators,
+//     fixed order: rec stays deterministic). Every k-step is issued, with no
+//     branch between the wgmma instructions: a branch there makes ptxas wait
+//     for each one;
+//   * what the float32 stage reads through L1 comes from shared memory
+//     here (beside this much shared memory L1 is too small to keep it): w1,
+//     copied per chunk into the X region until the contributions write X, for
+//     a register-tiled hidden layer stored [edges][Hp]; the X table's rows
+//     and cg, copied into the msg region until step 4 zeroes msg, for
+//     contributions with fixed-trip loops; the epilogue items, copied once
+//     per block; b2 of a tile is read while the tile multiplies;
+//   * cross_rev runs both directions through one call site: two inlined
+//     copies of the stage hold too many registers at once and spill;
+//   * room: the transients of a chunk (z, the sender features, the
+//     harmonics and h, until the fragments are loaded) share one region with
+//     the ring and the GEMM tile. Bytes at the score model's ladder layers
+//     (Hp=96, RT=8 receivers): 206,448 dynamic (ring 73,728, GEMM tile
+//     12,544, X 87,296, msg 25,856, out tile 3,200, epilogue items 3,824) at
+//     100 -> 100 (S=340); 172,928 at 68 -> 100 (S=212); 152,160 at 50 -> 68;
+//     139,248 at 32 -> 50; plus 3,104 static, under the 227 KB a block may
+//     take.
+//
+// What bounds the tensor-core stage: the 3 TF32 products, 6*Hp*W flops per
+// edge at 495 TFLOP/s (chip_smoke.py's tensor-core bound). It also streams
+// w2 (hi and lo, 2*4*Hp*W bytes, 2.3 MB at 100 -> 100) from L2 once per
+// 64-edge chunk, about 36 KB an edge. scripts/engine_ablation.py measures
+// what each stage costs.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cbt {
 
@@ -63,6 +114,7 @@ struct TPTables {
   const int* epi;        // [items, EROW]: col_lo, col_hi, x_base, x_step, out_col
   const int* epi_start;  // [n_tiles + 1]
   int S, n_tiles, Wpad;
+  int n_epi, n_cg;  // items in epi, floats in cg (read by the tensor-core stage only)
 };
 
 struct Dims {
@@ -347,18 +399,390 @@ __device__ void reduce_to_tile(float* sm, const Layout& L, const Dims& d, const 
 
 inline size_t smem_bytes(const Layout& L) { return (size_t)L.total * sizeof(float); }
 
+// ---------------------------------------------------------------------------
+// The tensor-core stage (3xTF32 wgmma; see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int TNC = 48;         // w2 columns per tensor-core tile (ops/cuda/tpconv_common.py: TNC)
+constexpr int KMAX = 96;        // largest hidden width H the stage takes
+constexpr int KSTEPS = KMAX / 8;
+
+struct TPWeightsTC {
+  const float* w1;    // [F, H] row-major
+  const float* b1;    // [H]
+  const float* w2hi;  // [n_tiles][TNC/8][Hp/4][8][4]: tf32(w2), columns as TPWeights::w2
+  const float* w2lo;  // the same layout: tf32(w2 - w2hi)
+  const float* b2;    // [n_tiles * TNC]
+};
+
+// Layout plus the stage's fields: Hp, the hidden layer's row stride, the
+// epilogue tables' copy (epi, then epi_start) and the ring (two stages of hi
+// and lo tiles, at L.w); L.c is the GEMM tile.
+struct LayoutTC : Layout {
+  int hp, ldh, epi;
+};
+
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
+
+template <int SHD>
+__host__ __device__ inline LayoutTC make_layout_tc(const Dims& d, const TPTables& T, int RT) {
+  const int S = T.S;
+  LayoutTC L;
+  L.hp = round8(d.H);
+  L.ldz = d.F | 1;
+  L.ldx = d.Din | 1;
+  L.ldsh = SHD | 1;
+  L.ldxs = S | 1;
+  L.ldc = TNC + 1;
+  L.ldm = d.Dout | 1;
+  L.ldh = L.hp + 4;  // fragment loads: rows g, g+8 at columns t, t+4 hit distinct banks
+  const int ring = 4 * TNC * L.hp, csz = round4(TM * L.ldc);
+  const int zsz = round4(TM * L.ldz), xssz = round4(TM * L.ldx), shsz = round4(TM * L.ldsh);
+  const int hsz = round4(TM * L.ldh);
+  L.w = 0;
+  L.c = ring;
+  L.z = 0;
+  L.xs = zsz;
+  L.sh = zsz + xssz;
+  L.h = zsz + xssz + shsz;
+  int o = (ring + csz > L.h + hsz) ? ring + csz : L.h + hsz;
+  L.X = o;  // also holds w1 [F, H] while the hidden layer is built
+  o += round4(TM * L.ldxs > d.F * d.H ? TM * L.ldxs : d.F * d.H);
+  L.msg = o;  // also holds the X table's rows [S, XROW] and cg until step 4 zeroes msg
+  o += round4(TM * L.ldm > S * XROW + T.n_cg ? TM * L.ldm : S * XROW + T.n_cg);
+  L.out = o;
+  o += round4(RT * d.Dout);
+  L.epi = o;
+  o += round4(T.n_epi * EROW + T.n_tiles + 1);
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// Round to TF32, nearest with ties away from zero; the low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Order this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (bulk copies into memory the threads have used).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// Copy `bytes` (a multiple of 16) from device to shared memory; completion
+// counts against the barrier's expected transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keep the accumulators in their registers across the asynchronous wgmma.
+__device__ __forceinline__ void pin(float (&acc)[12]) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// Materialise the A fragments where they are loaded, so that the compiler
+// does not sink their loads between the wgmma instructions that read them.
+__device__ __forceinline__ void pin(uint32_t (&a)[KSTEPS][4]) {
+#pragma unroll
+  for (int s = 0; s < KSTEPS; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand with no swizzle:
+// core matrices of 8 rows x 16 bytes, lbo bytes apart along K and sbo bytes
+// apart along the rows.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// acc (+)= A [64 x 8] (registers) * B [8 x 24] (shared memory), TF32 in, float32 sum.
+__device__ __forceinline__ void wgmma_n24(float (&d)[12], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// This thread's A fragments of the [64][ldh] hidden layer, split hi/lo.
+// Warp w of a warpgroup owns rows 16w..16w+15; lane (g = lane/4, q = lane%4)
+// holds rows g, g+8 at columns q, q+4 of each 8-wide k-step. Columns past hp
+// read as zero.
+__device__ __forceinline__ void load_fragments(const float* h, int ldh, int hp, uint32_t (&hi)[KSTEPS][4],
+                                               uint32_t (&lo)[KSTEPS][4]) {
+  const int lane = threadIdx.x & 31, r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2), c0 = lane & 3;
+#pragma unroll
+  for (int s = 0; s < KSTEPS; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = s * 8 + c0 + (j >> 1) * 4;
+      const float x = c < hp ? h[(r0 + (j & 1) * 8) * ldh + c] : 0.f;
+      hi[s][j] = tf32_rna(x);
+      lo[s][j] = tf32_rna(x - __uint_as_float(hi[s][j]));
+    }
+  pin(hi);
+  pin(lo);
+}
+
+// One stage of the ring: tile t's hi and lo parts, TNC * hp floats each.
+__device__ __forceinline__ void load_tile(float* stage, const TPWeightsTC& W, int hp, int t, uint64_t* bar) {
+  const uint32_t part = TNC * hp * sizeof(float);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(2 * part)
+               : "memory");
+  bulk_load(stage, W.w2hi + (size_t)t * TNC * hp, part, bar);
+  bulk_load(stage + TNC * hp, W.w2lo + (size_t)t * TNC * hp, part, bar);
+}
+
+// Issue this warpgroup's 24 columns of one tile: for each k-step
+// h_lo w_hi + h_hi w_lo + h_hi w_hi into acc (zeroed by the first). All
+// KSTEPS steps are issued, with no branch between the wgmma instructions (a
+// branch there makes ptxas wait for each one): past hp the A fragments are
+// zero and B is the tile's last k-step, so those steps add exact zeros.
+__device__ __forceinline__ void mma_tile(float (&acc)[12], const uint32_t (&hi)[KSTEPS][4],
+                                         const uint32_t (&lo)[KSTEPS][4], const float* stage, int hp) {
+  const uint32_t sbo = hp * 32;  // 8 columns x hp k x 4 bytes
+  const uint32_t bhi = smem_addr(stage) + (threadIdx.x >> 7) * (TNC / 16) * sbo;
+  const uint32_t blo = bhi + TNC * hp * sizeof(float);
+  const int last = hp / 8 - 1;
+  pin(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KSTEPS; ++s) {
+    const uint32_t k = (s < last ? s : last) * 256;
+    wgmma_n24(acc, lo[s], kmajor_desc(bhi + k, 128, sbo), s > 0);
+    wgmma_n24(acc, hi[s], kmajor_desc(blo + k, 128, sbo), 1);
+    wgmma_n24(acc, hi[s], kmajor_desc(bhi + k, 128, sbo), 1);
+  }
+  wgmma_commit();
+}
+
+// w1 [F, H] into the X region, free until contributions_tc() writes X, and
+// the X table's rows and cg into the msg region, free until step 4 zeroes
+// msg: the hidden layer and the contributions then read them from shared
+// memory (L1 is too small beside the block's shared memory to keep them).
+__device__ void stage_tables(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T) {
+  float* w1 = sm + L.X;
+  int* xtab = reinterpret_cast<int*>(sm + L.msg);
+  float* cg = sm + L.msg + T.S * XROW;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < d.F * d.H; i += NT) w1[i] = W.w1[i];
+#pragma unroll 4
+  for (int i = threadIdx.x; i < T.S * XROW; i += NT) xtab[i] = T.xtab[i];
+  for (int i = threadIdx.x; i < T.n_cg; i += NT) cg[i] = T.cg[i];
+}
+
+// contributions() from stage_tables' copies, its loops unrolled to the
+// stage's irreps (l <= 1 inputs, lmax=1 harmonics: di, ds <= 3); the same
+// terms in the same order, so X is the same bit for bit.
+__device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T) {
+  const float* xs = sm + L.xs;
+  const float* sh = sm + L.sh;
+  const int* xtab = reinterpret_cast<const int*>(sm + L.msg);
+  const float* cgs = sm + L.msg + T.S * XROW;
+  float* X = sm + L.X;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < TM * T.S; i += NT) {
+    const int m = i % TM, e = i / TM;
+    const int* r = xtab + e * XROW;
+    const int di = r[1], ds = r[3], dout = r[4];
+    const float* x = xs + m * L.ldx + r[0];
+    const float* s = sh + m * L.ldsh + r[2];
+    const float* cg = cgs + r[6] + r[5];
+    float acc = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        if (a < di && b < ds) acc = fmaf(x[a] * s[b], cg[(a * ds + b) * dout], acc);
+    X[m * L.ldxs + e] = acc;
+  }
+}
+
+// h[m][k] = relu(b1[k] + sum_f z[m][f] w1[f][k]) ([edges][Hp], zero past H),
+// summed in the float32 stage's order. Each thread holds rows ty + 16i and
+// columns tx + 16j, 4 x KMAX/16 sums, from the w1 stage_tables put in X.
+__device__ void hidden_layer_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W) {
+  constexpr int KJ = KMAX / 16;
+  const float* z = sm + L.z;
+  const float* w1 = sm + L.X;
+  float* h = sm + L.h;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = tx + 16 * j;
+    const float b = k < d.H ? W.b1[k] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][j] = b;
+  }
+#pragma unroll 4
+  for (int f = 0; f < d.F; ++f) {
+    float zv[4], wv[KJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zv[i] = z[(ty + 16 * i) * L.ldz + f];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = tx + 16 * j;
+      wv[j] = k < d.H ? w1[f * d.H + k] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) acc[i][j] = fmaf(zv[i], wv[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = tx + 16 * j;
+    if (k < L.hp)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[(ty + 16 * i) * L.ldh + k] = k < d.H ? fmaxf(acc[i][j], 0.f) : 0.f;
+  }
+}
+
+// Step 4 on the tensor cores (T's tables are those of TNC-column tiles).
+// bar: the ring's two barriers; tiles: the block's running count of tiles
+// loaded, which gives each stage's barrier parity.
+__device__ void weighted_tp_tc(float* sm, const LayoutTC& L, const TPWeightsTC& W, const TPTables& T, uint64_t* bar,
+                               uint32_t& tiles) {
+  uint32_t hi[KSTEPS][4], lo[KSTEPS][4];
+  load_fragments(sm + L.h, L.ldh, L.hp, hi, lo);
+  float* msg = sm + L.msg;
+  for (int i = threadIdx.x; i < TM * L.ldm; i += NT) msg[i] = 0.f;
+  fence_proxy_async();  // the ring overwrites the transients
+  __syncthreads();
+  float* ring = sm + L.w;
+  float* cs = sm + L.c;
+  const float* X = sm + L.X;
+  const int nt = T.n_tiles, stage_sz = 2 * TNC * L.hp;
+  if (threadIdx.x == 0)
+    for (int t = 0; t < 2 && t < nt; ++t) load_tile(ring + ((tiles + t) & 1) * stage_sz, W, L.hp, t, bar + ((tiles + t) & 1));
+  float acc[12];
+  mbar_wait(bar + (tiles & 1), (tiles >> 1) & 1);
+  mma_tile(acc, hi, lo, ring + (tiles & 1) * stage_sz, L.hp);
+  const int lane = threadIdx.x & 31;
+  const int row = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2), col = (threadIdx.x >> 7) * (TNC / 2) + (lane & 3) * 2;
+  const int* epi = reinterpret_cast<const int*>(sm + L.epi);  // init_tc's copy
+  const int* epi_start = epi + T.n_epi * EROW;
+  float b2[6];  // b2 at this thread's accumulator columns of the tile in flight, read while it multiplies
+#pragma unroll
+  for (int q = 0; q < 6; ++q) b2[q] = W.b2[col + (q >> 1) * 8 + (q & 1)];
+  for (int t = 0; t < nt; ++t) {
+    const uint32_t cur = tiles + t;
+    wgmma_wait_all();
+    pin(acc);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        cs[(row + (r >> 1) * 8) * L.ldc + col + j * 8 + (r & 1)] = acc[j * 4 + r] + b2[j * 2 + (r & 1)];
+    __syncthreads();  // the tile is in cs; both warpgroups are done with stage cur
+    if (threadIdx.x == 0 && t + 2 < nt) load_tile(ring + (cur & 1) * stage_sz, W, L.hp, t + 2, bar + (cur & 1));
+    if (t + 1 < nt) {
+      mbar_wait(bar + ((cur + 1) & 1), ((cur + 1) >> 1) & 1);
+      mma_tile(acc, hi, lo, ring + ((cur + 1) & 1) * stage_sz, L.hp);
+#pragma unroll
+      for (int q = 0; q < 6; ++q) b2[q] = W.b2[(t + 1) * TNC + col + (q >> 1) * 8 + (q & 1)];
+    }
+    const int e0 = epi_start[t], ne = epi_start[t + 1] - e0;
+    for (int i = threadIdx.x; i < ne * TM; i += NT) {
+      const int m = i % TM;
+      const int* it = epi + (e0 + i / TM) * EROW;
+      const int lo_n = it[0], hi_n = it[1], step = it[3];
+      const float* cr = cs + m * L.ldc;
+      const float* xr = X + m * L.ldxs + it[2];
+      float s = 0.f;
+      for (int n = lo_n; n < hi_n; ++n) s = fmaf(cr[n], xr[(n - lo_n) * step], s);
+      msg[m * L.ldm + it[4]] += s;
+    }
+    __syncthreads();
+  }
+  tiles += nt;
+}
+
+// Steps 2-4 of one chunk on the tensor-core stage; leaves msg in shared memory.
+template <int SHD>
+__device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T,
+                              const EdgeSlots& s, const float* const* recv, const float* const* send, const float* sig,
+                              float sign, uint64_t* bar, uint32_t& tiles) {
+  fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
+  stage_tables(sm, L, d, W, T);
+  __syncthreads();
+  hidden_layer_tc(sm, L, d, W);
+  __syncthreads();  // contributions_tc() overwrites the staged w1
+  contributions_tc(sm, L, T);
+  __syncthreads();
+  weighted_tp_tc(sm, L, W, T, bar, tiles);
+}
+
+// The layout and weights of the float32 (TC = false) or tensor-core stage.
+template <bool TC>
+using WeightsOf = std::conditional_t<TC, TPWeightsTC, TPWeights>;
+
+template <int SHD, bool TC>
+__host__ __device__ inline auto engine_layout(const Dims& d, const TPTables& T, int RT) {
+  if constexpr (TC)
+    return make_layout_tc<SHD>(d, T, RT);
+  else
+    return make_layout<SHD>(d, T.S, RT);
+}
+
+// The block's setup for the tensor-core stage: the ring's barriers, one
+// arrival (the loading thread's) per phase, and a copy of the epilogue
+// tables, read once per tile in the tile loop.
+__device__ void init_tc(float* sm, const LayoutTC& L, const TPTables& T, uint64_t* bar) {
+  int* epi = reinterpret_cast<int*>(sm + L.epi);
+  for (int i = threadIdx.x; i < T.n_epi * EROW; i += NT) epi[i] = T.epi[i];
+  for (int i = threadIdx.x; i <= T.n_tiles; i += NT) epi[T.n_epi * EROW + i] = T.epi_start[i];
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
 // One block's tile of RT receivers of a kNN group whose senders and
 // receivers are one node table [B, N, Din] (the rec and rec_g kernels).
 // Candidates are the RT*K neighbour slots in (receiver, k) order; sig [B, Fe]
 // is added to the cached edge embedding in the fill. With DM (training), dm
 // [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot.
-template <int SHD, bool DM = false>
+template <int SHD, bool DM = false, bool TC = false>
 __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node, const float* __restrict__ pos,
                          const int64_t* __restrict__ nbr, const float* __restrict__ emb,
-                         const float* __restrict__ sig, const uint8_t* __restrict__ mask, const TPWeights& W,
+                         const float* __restrict__ sig, const uint8_t* __restrict__ mask, const WeightsOf<TC>& W,
                          const TPTables& T, const Dims& d, int N, int K, int RT, float* __restrict__ out,
-                         const float* __restrict__ dm = nullptr, int hd = 0) {
-  const Layout L = make_layout<SHD>(d, T.S, RT);
+                         const float* __restrict__ dm = nullptr, int hd = 0, uint64_t* bar = nullptr) {
+  const auto L = engine_layout<SHD, TC>(d, T, RT);
+  uint32_t tiles = 0;
+  if constexpr (TC) init_tc(sm, L, T, bar);
   const int b = blockIdx.y, i0 = blockIdx.x * RT;
   const int nrecv = min(RT, N - i0);
   const size_t row0 = (size_t)b * N;
@@ -381,7 +805,9 @@ __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node
       for (int q = 0; q < 3; ++q) s.vec[m][q] = pos[(row0 + j) * 3 + q] - pos[(row0 + i) * 3 + q];
     }
     __syncthreads();
-    if constexpr (DM)
+    if constexpr (TC)
+      run_engine_tc<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles);
+    else if constexpr (DM)
       run_engine<SHD, true>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
                             dm + (row0 + i0) * K * hd, hd);
     else
@@ -399,14 +825,16 @@ __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node
 // then, when with_rev is set, sender <- receiver with the roles swapped and
 // the harmonics negated, added into out_rec [B, N, Dout] with atomicAdd:
 // those sums' order varies from run to run (a few float32 ulps).
-template <int SHD>
+template <int SHD, bool TC = false>
 __device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ lig, const float* __restrict__ lpos,
                            const float* __restrict__ rec, const float* __restrict__ rpos,
                            const int64_t* __restrict__ idx, const float* __restrict__ emb,
-                           const uint8_t* __restrict__ mask, const TPWeights& Wf, const TPWeights& Wr, int with_rev,
-                           const TPTables& T, const Dims& d, int L, int N, int K, int RT,
-                           float* __restrict__ out_lig, float* __restrict__ out_rec) {
-  const Layout Ly = make_layout<SHD>(d, T.S, RT);
+                           const uint8_t* __restrict__ mask, const WeightsOf<TC>& Wf, const WeightsOf<TC>& Wr,
+                           int with_rev, const TPTables& T, const Dims& d, int L, int N, int K, int RT,
+                           float* __restrict__ out_lig, float* __restrict__ out_rec, uint64_t* bar = nullptr) {
+  const auto Ly = engine_layout<SHD, TC>(d, T, RT);
+  uint32_t tiles = 0;
+  if constexpr (TC) init_tc(sm, Ly, T, bar);
   const int b = blockIdx.y, l0 = blockIdx.x * RT;
   const int nrecv = min(RT, L - l0);
   const size_t lrow0 = (size_t)b * L, rrow0 = (size_t)b * N;
@@ -430,17 +858,37 @@ __device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ li
       for (int q = 0; q < 3; ++q) s.vec[m][q] = rpos[(rrow0 + j) * 3 + q] - lpos[(lrow0 + l) * 3 + q];
     }
     __syncthreads();
-    run_engine<SHD>(sm, Ly, d, Wf, T, s, s.recv, s.send, nullptr, 1.f);
-    reduce_to_tile(sm, Ly, d, s);
-    __syncthreads();
-    if (with_rev) {
-      run_engine<SHD>(sm, Ly, d, Wr, T, s, s.send, s.recv, nullptr, -1.f);
-      const float* msg = sm + Ly.msg;
-      for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
-        const int m = i / d.Dout, o = i % d.Dout;
-        atomicAdd(out_rec + (rrow0 + s.dst[m]) * d.Dout + o, msg[m * Ly.ldm + o]);
+    if constexpr (TC) {
+      // One call site for both directions: two inlined copies of the stage
+      // hold too many registers at once and spill.
+      for (int rev = 0; rev <= (with_rev != 0); ++rev) {
+        const TPWeightsTC W = rev ? Wr : Wf;
+        run_engine_tc<SHD>(sm, Ly, d, W, T, s, rev ? s.send : s.recv, rev ? s.recv : s.send, nullptr,
+                           rev ? -1.f : 1.f, bar, tiles);
+        if (!rev) {
+          reduce_to_tile(sm, Ly, d, s);
+        } else {
+          const float* msg = sm + Ly.msg;
+          for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
+            const int m = i / d.Dout, o = i % d.Dout;
+            atomicAdd(out_rec + (rrow0 + s.dst[m]) * d.Dout + o, msg[m * Ly.ldm + o]);
+          }
+        }
+        __syncthreads();
       }
+    } else {
+      run_engine<SHD>(sm, Ly, d, Wf, T, s, s.recv, s.send, nullptr, 1.f);
+      reduce_to_tile(sm, Ly, d, s);
       __syncthreads();
+      if (with_rev) {
+        run_engine<SHD>(sm, Ly, d, Wr, T, s, s.send, s.recv, nullptr, -1.f);
+        const float* msg = sm + Ly.msg;
+        for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
+          const int m = i / d.Dout, o = i % d.Dout;
+          atomicAdd(out_rec + (rrow0 + s.dst[m]) * d.Dout + o, msg[m * Ly.ldm + o]);
+        }
+        __syncthreads();
+      }
     }
   }
   for (int i = threadIdx.x; i < nrecv * d.Dout; i += NT) out_lig[(lrow0 + l0) * d.Dout + i] = outs[i];

@@ -90,6 +90,18 @@ def timed_build() -> tuple:
         return time.perf_counter() - t0, logs
 
 
+def hgmma_counts(names=KERNEL_SOURCES) -> dict:
+    """{name: HGMMA (wgmma) instructions in the built library's SASS}, by
+    ``cuobjdump -sass``: above zero where a kernel runs on the tensor cores."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    counts = {}
+    for name in names:
+        sass = subprocess.run([cuobjdump, "-sass", os.path.join(BUILD_DIR, f"lib{name}.so")], capture_output=True,
+                              text=True, check=True).stdout
+        counts[name] = sum(" HGMMA." in line for line in sass.splitlines())
+    return counts
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({lib.cbt_error_string(code).decode()})")

@@ -16,6 +16,14 @@ layout directly:
 * the epilogue items of each column tile: (col_lo, col_hi, x_base, x_step,
   out_col), one per (g, v) segment in the tile and output component c.
 
+The tensor-core stage of the rec and cross_rev kernels (3xTF32 ``wgmma``)
+reads w2 split into TF32 parts, ``w2_hi = tf32(w2)`` and
+``w2_lo = tf32(w2 - w2_hi)`` (round to nearest, ties away from zero, as
+``cvt.rna.tf32.f32``), each cut into TNC-column tiles stored in the layout
+``wgmma`` reads: per tile [TNC/8][Hp/4][8][4], core matrices of 8 columns x 4
+k (16 bytes a row), H padded with zero rows to Hp, a multiple of 8
+(``tile_w2``). Its epilogue tables are ``tp_layout``'s for TNC-column tiles.
+
 The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model),
 ``1x0e + 1x1o + 1x2e`` (lmax=2, the all-atom confidence model) or, for the
 edge-list kernel that takes them as input, the score model's torsion-head
@@ -41,6 +49,8 @@ SH_IRREPS = "1x0e + 1x1o"  # lmax=1
 SH2_IRREPS = "1x0e + 1x1o + 1x2e"  # lmax=2
 TOR_SH_IRREPS = str(FullTensorProduct(SH_IRREPS, "1x2e").irreps_out)  # the torsion head's, 1x2e + 1x1o + 1x2o + 1x3o
 TN = 64  # column tile of the kernels (csrc/tpconv_engine.cuh: TN, csrc/tpconv_bwd.cu: BN)
+TNC = 48  # column tile of the tensor-core stage (csrc/tpconv_engine.cuh: TNC)
+KMAX = 96  # the largest hidden width H the tensor-core stage takes (csrc/tpconv_engine.cuh: KMAX)
 XROW = 8
 EROW = 5
 
@@ -71,7 +81,9 @@ def sh_dim(irreps_sh: str) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TPLayout:
+def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS, tn: int = TN) -> TPLayout:
+    """The kernels' tables for ``tn``-column tiles of w2 (TN: the float32
+    stage, TNC: the tensor-core stage)."""
     sh_dim(irreps_sh)
     tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
     for _, ir in tuple(tp.irreps_in) + tuple(tp.irreps_out):
@@ -100,10 +112,10 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TP
             segs.append((n0, n0 + fan, x_off, do, out_sl[g.out_index].start + v * do))
         x_off += fan * do
         w_off += fan * mul_out
-    n_tiles = -(-w_off // TN)
+    n_tiles = -(-w_off // tn)
     epi, epi_start = [], [0]
     for t in range(n_tiles):
-        t0, t1 = t * TN, (t + 1) * TN
+        t0, t1 = t * tn, (t + 1) * tn
         for n0, n1, xg, do, oc in segs:
             lo, hi = max(n0, t0), min(n1, t1)
             if lo >= hi:
@@ -115,7 +127,7 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TP
         din=tp.irreps_in.dim,
         dout=tp.irreps_out.dim,
         weight_numel=w_off,
-        wpad=n_tiles * TN,
+        wpad=n_tiles * tn,
         n_tiles=n_tiles,
         n_x=x_off,
         perm=np.asarray(perm, np.int64),
@@ -128,9 +140,9 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> TP
 
 
 @functools.lru_cache(maxsize=None)
-def device_tables(irreps_in: str, irreps_out: str, device: torch.device, irreps_sh: str = SH_IRREPS):
+def device_tables(irreps_in: str, irreps_out: str, device: torch.device, irreps_sh: str = SH_IRREPS, tn: int = TN):
     """(xtab, cg, epi, epi_start, perm, scale) of tp_layout on ``device``."""
-    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh, tn)
     return tuple(
         torch.as_tensor(a, device=device) for a in (lay.xtab, lay.cg, lay.epi, lay.epi_start, lay.perm, lay.scale)
     )
@@ -143,21 +155,57 @@ class PackedWeights(NamedTuple):
     b1: torch.Tensor  # [H]
     w2: torch.Tensor  # [H, Wpad]: columns permuted, scaled by 1/sqrt(fan), zero-padded
     b2: torch.Tensor  # [Wpad]
+    w2_hi: torch.Tensor  # tile_w2 of tf32(w2), TNC-column tiles: [n_tiles, TNC/8, Hp/4, 8, 4]
+    w2_lo: torch.Tensor  # tile_w2 of tf32(w2 - tf32(w2))
+    b2_tc: torch.Tensor  # [n_tiles * TNC]: b2 padded to TNC-column tiles
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds it: to nearest, ties away from zero; the low 13 bits are zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi); hi + lo is x to about
+    2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tile_w2(w: torch.Tensor, tn: int = TNC) -> torch.Tensor:
+    """[H, Wpad] (Wpad a multiple of tn) -> [Wpad / tn, tn / 8, Hp / 4, 8, 4]:
+    each tile's columns in core matrices of 8 columns x 4 k, the k-major
+    shared-memory layout wgmma reads, H padded with zero rows to Hp."""
+    H, wpad = w.shape
+    hp = -(-H // 8) * 8
+    wk = torch.zeros(wpad, hp, dtype=w.dtype, device=w.device)
+    wk[:, :H] = w.t()
+    return wk.reshape(wpad // tn, tn // 8, 8, hp // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
 
 
 @torch.no_grad()
 def pack_weights(w1, b1, w2, b2, irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS) -> PackedWeights:
-    """Edge-MLP weights (Flax's [in, out] layout) in the kernels' layout.
-    Constant at inference: ``TPConv.packed_weights`` makes them once per
-    edge group; a wrapper called without them makes them per launch."""
-    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    """Edge-MLP weights (Flax's [in, out] layout) in the kernels' layout,
+    for the float32 stage (w2, b2) and the tensor-core stage (w2_hi, w2_lo,
+    b2_tc). Constant at inference: ``TPConv.packed_weights`` makes them once
+    per edge group; a wrapper called without them makes them per launch."""
     perm, scale = device_tables(irreps_in, irreps_out, w2.device, irreps_sh)[4:]
     H = w2.shape[0]
-    w2p = torch.zeros(H, lay.wpad, dtype=torch.float32, device=w2.device)
-    w2p[:, : lay.weight_numel] = w2.index_select(1, perm) * scale
-    b2p = torch.zeros(lay.wpad, dtype=torch.float32, device=b2.device)
-    b2p[: lay.weight_numel] = b2.index_select(0, perm) * scale
-    return PackedWeights(w1.float().contiguous(), b1.float().contiguous(), w2p, b2p)
+    w2c = w2.index_select(1, perm) * scale
+    b2c = b2.index_select(0, perm) * scale
+    padded = []
+    for tn in (TN, TNC):
+        lay = tp_layout(irreps_in, irreps_out, irreps_sh, tn)
+        w2p = torch.zeros(H, lay.wpad, dtype=torch.float32, device=w2.device)
+        w2p[:, : lay.weight_numel] = w2c
+        b2p = torch.zeros(lay.wpad, dtype=torch.float32, device=b2.device)
+        b2p[: lay.weight_numel] = b2c
+        padded.append((w2p, b2p))
+    (w2p, b2p), (w2t, b2t) = padded
+    hi, lo = split_tf32(w2t)
+    return PackedWeights(w1.float().contiguous(), b1.float().contiguous(), w2p, b2p, tile_w2(hi), tile_w2(lo), b2t)
 
 
 def launch_weights(w1, b1, w2, b2, irreps_in: str, irreps_out: str, packed, device,
@@ -167,8 +215,12 @@ def launch_weights(w1, b1, w2, b2, irreps_in: str, irreps_out: str, packed, devi
     if packed is None:
         packed = pack_weights(w1, b1, w2, b2, irreps_in, irreps_out, irreps_sh)
     H, wpad = w2.shape[0], tp_layout(irreps_in, irreps_out, irreps_sh).wpad
+    wpad_tc = tp_layout(irreps_in, irreps_out, irreps_sh, TNC).wpad
+    tiles = (wpad_tc // TNC, TNC // 8, -(-H // 8) * 2, 8, 4)
     if (tuple(packed.w1.shape) != tuple(w1.shape) or tuple(packed.b1.shape) != (H,)
-            or tuple(packed.w2.shape) != (H, wpad) or tuple(packed.b2.shape) != (wpad,)):
+            or tuple(packed.w2.shape) != (H, wpad) or tuple(packed.b2.shape) != (wpad,)
+            or tuple(packed.w2_hi.shape) != tiles or tuple(packed.w2_lo.shape) != tiles
+            or tuple(packed.b2_tc.shape) != (wpad_tc,)):
         raise ValueError("packed weights do not match the edge MLP's shapes")
     check_inputs(device, floats=tuple(packed))
     return packed

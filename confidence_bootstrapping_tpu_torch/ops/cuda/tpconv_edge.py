@@ -66,7 +66,7 @@ def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_
             or (dmask is not None and (dmask.shape[:2] != (M, K) or hd not in (1, H)))):
         raise ValueError("fused_tpconv_edge: inconsistent shapes")
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
     shape = (M, lay.dout) if sum_k else (M, K, lay.dout)
     out = (torch.empty if sum_k else torch.zeros)(shape, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_edge")

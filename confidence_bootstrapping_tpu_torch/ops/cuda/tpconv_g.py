@@ -113,7 +113,7 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
         raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec_g")
     tables = (ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
@@ -177,7 +177,7 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError(f"{kernel}: inconsistent shapes")
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load(kernel)
     fn = getattr(lib, "cbt_" + kernel)

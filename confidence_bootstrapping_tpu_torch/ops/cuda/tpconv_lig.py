@@ -12,7 +12,10 @@ Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_lig.py``:
   nodes. The kernel adds the reverse messages with atomicAdd, so their sum
   order varies between runs (a few float32 ulps per receptor row).
 
-What bounds them and how they are laid out: ``csrc/tpconv_engine.cuh``. Each
+What bounds them and how they are laid out: ``csrc/tpconv_engine.cuh``;
+cross_rev runs the H -> W product on the tensor cores (3xTF32 ``wgmma``,
+H <= KMAX = 96) from the split, tiled w2 fields of ``pack_weights``, pb keeps
+the float32 stage. Each
 wrapper launches its kernel for CUDA tensors, calls its ``*_plain`` version
 for CPU tensors, and counts launches in ``<wrapper>.launches``.
 """
@@ -25,14 +28,14 @@ import torch
 
 from ..graph_builders import gather_nodes, scatter_mean_to_nodes
 from . import build
-from .tpconv_common import check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
+from .tpconv_common import KMAX, TNC, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
 
 RT_PB = 4  # ligand receivers per pb block
 RT_CROSS = 1  # ligand receivers per cross_rev block (K up to 128 edges each)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PB_ARGTYPES = [_P] * 16 + [_I] * 12 + [_P, _P]
-_CROSS_ARGTYPES = [_P] * 15 + [_I] + [_P] * 4 + [_I] * 13 + [_P] * 3
+_CROSS_ARGTYPES = [_P] * 17 + [_I] + [_P] * 4 + [_I] * 15 + [_P] * 3
 
 
 def tpconv_pb_plain(lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_emb, bond_mask,
@@ -83,7 +86,7 @@ def _launch_pb(lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_pb: inconsistent shapes")
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
+    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)[:4]
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_pb")
     fn = lib.cbt_tpconv_pb
@@ -153,9 +156,14 @@ def _launch_cross_rev(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mas
             or tuple(w1_f.shape) != (Fe + 2 * ns, H) or tuple(w2_f.shape) != (H, lay.weight_numel)
             or (with_rev and (w1_r.shape != w1_f.shape or w2_r.shape != w2_f.shape))):
         raise ValueError("fused_tpconv_cross_rev: inconsistent shapes")
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
-    fwd = launch_weights(w1_f, b1_f, w2_f, b2_f, irreps_in, irreps_out, packed_f, dev)
-    rev = launch_weights(w1_r, b1_r, w2_r, b2_r, irreps_in, irreps_out, packed_r, dev) if with_rev else (None,) * 4
+    if H > KMAX:
+        raise ValueError(f"fused_tpconv_cross_rev: the tensor-core stage takes H <= {KMAX}, got {H}")
+    tc = tp_layout(irreps_in, irreps_out, tn=TNC)
+    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
+    tc_fields = lambda p: (p.w1, p.b1, p.w2_hi, p.w2_lo, p.b2_tc)
+    fwd = tc_fields(launch_weights(w1_f, b1_f, w2_f, b2_f, irreps_in, irreps_out, packed_f, dev))
+    rev = (tc_fields(launch_weights(w1_r, b1_r, w2_r, b2_r, irreps_in, irreps_out, packed_r, dev)) if with_rev
+           else (None,) * 5)
     out_lig = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     out_rec = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev) if with_rev else None
     lib = build.load("tpconv_cross_rev")
@@ -164,8 +172,8 @@ def _launch_cross_rev(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mas
     code = fn(
         ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask),
         *map(ptr, fwd), *map(ptr, rev), int(with_rev), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),
-        lay.n_x, lay.n_tiles, lay.wpad, B, L, N, K, Fe, ns, H, D, lay.dout, RT_CROSS, ptr(out_lig), ptr(out_rec),
-        torch.cuda.current_stream(dev).cuda_stream,
+        tc.n_x, tc.n_tiles, tc.wpad, len(tc.epi), len(tc.cg), B, L, N, K, Fe, ns, H, D, lay.dout, RT_CROSS,
+        ptr(out_lig), ptr(out_rec), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, "tpconv_cross_rev")
     return out_lig, out_rec

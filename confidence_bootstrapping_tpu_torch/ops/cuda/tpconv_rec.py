@@ -14,6 +14,10 @@ Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py``:
   take it. Launches are counted in ``fused_tpconv_cross.launches``.
 
 What bounds them and how the kernels are laid out: ``csrc/tpconv_engine.cuh``.
+``fused_tpconv_rec``'s inference kernel runs the H -> W product on the tensor
+cores (3xTF32 ``wgmma``, H <= KMAX = 96), reading the split, tiled w2 fields
+of ``pack_weights`` and the tables of TNC-column tiles; its training variant
+and ``fused_tpconv_cross`` keep the float32 stage.
 
 ``fused_tpconv_rec`` launches the kernel for CUDA tensors and calls
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts
@@ -31,14 +35,14 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import (SH_IRREPS, check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1,
-                            tp_layout)
+from .tpconv_common import (KMAX, SH_IRREPS, TNC, check_dmask, check_inputs, device_tables, edge_messages,
+                            launch_weights, ptr, sh1, tp_layout)
 from .tpconv_g import launch_cross, tpconv_cross_g_plain
 
 RT = 8  # receivers per block: 8 * K=24 neighbours fill three 64-edge chunks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 _DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
 
 
@@ -87,22 +91,28 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
+    if dm is None and H > KMAX:
+        raise ValueError(f"fused_tpconv_rec: the tensor-core stage takes H <= {KMAX}, got {H}")
+    pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec")
-    tables = (ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
-              lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT, ptr(out),
-              torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
     if dm is None:
+        tc = tp_layout(irreps_in, irreps_out, tn=TNC)
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
         fn = lib.cbt_tpconv_rec
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        code = fn(*inputs, *tables)
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), tc.n_x, tc.n_tiles, tc.wpad, len(tc.epi), len(tc.cg), B, N, K, Fe, ns,
+                  H, Din, lay.dout, RT, ptr(out), stream)
     else:
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
         fn = lib.cbt_tpconv_rec_dm
         fn.argtypes, fn.restype = _DM_ARGTYPES, ctypes.c_int
-        code = fn(*inputs, ptr(dm), dm.shape[-1], *tables)
+        code = fn(*inputs, ptr(dm), dm.shape[-1], ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT,
+                  ptr(out), stream)
     build.check(lib, code, "tpconv_rec")
     return out
 

@@ -10,7 +10,10 @@ and without a dropout mask, rec and rec_g with one, the edge backward) and
 the autograd ops over them, the composed route's kernels (the one-direction
 cross kernel at K off the 16-grid, the edge-list kernel's inference instance
 for sums and per-edge messages, the v1 API over it, and TPConv's routing to
-them), and the wrappers' input checks. Tolerance:
+them), and the wrappers' input checks. The rec and cross_rev kernels run the
+H -> W product on the tensor cores (3xTF32): their cases include the
+full-width 100 -> 100 layer, H not a multiple of 8, and rec's output bit for
+bit across two launches. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
 than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
@@ -33,6 +36,8 @@ from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
 pytestmark = pytest.mark.cuda
 
 FLAGSHIP = "32x0e + 6x1o + 6x1e + 6x0o"
+FULL = "32x0e + 6x1o + 6x1e + 32x0o"  # the score model's 100 -> 100 trunk layer (W=2960, 62 tensor-core tiles)
+ODD_H = "10x0e + 2x1o + 2x1e + 2x0o"  # ns=10: H=30, not a multiple of 8
 CONF_TRUNK = "24x0e + 6x1o + 6x1e + 24x0o"
 SH1, SH2 = "1x0e + 1x1o", "1x0e + 1x1o + 1x2e"
 REL = 2e-4
@@ -71,6 +76,8 @@ def _ns(irreps):
     ("32x0e", "32x0e + 6x1o", 1, 37, 24, False),  # the first embedding layer, a ragged last tile
     (FLAGSHIP, FLAGSHIP, 2, 19, 7, True),  # K not a multiple of 16, a wholly masked tile
     ("16x0e + 4x1o + 4x1e", "16x0e + 4x1o + 4x1e + 4x0o", 3, 24, 40, False),  # chunks straddle receivers
+    (FULL, FULL, 2, 512, 24, False),  # the sample's full-width layer
+    (ODD_H, ODD_H, 2, 21, 13, True),  # H=30 padded to 32; 104 candidates a tile, a partial chunk
 ])
 def test_rec_kernel_matches_plain(dev, irreps_in, irreps_out, B, N, K, masked):
     g = _gen(0)
@@ -93,6 +100,9 @@ def test_rec_kernel_matches_plain(dev, irreps_in, irreps_out, B, N, K, masked):
     _close(got, tpconv_rec.tpconv_rec_plain(*args, irreps_in, irreps_out, ns))
     if masked:
         assert float(got[:, 8:16].abs().max()) == 0.0 and float(got[-1].abs().max()) == 0.0
+    again = tpconv_rec.fused_tpconv_rec(*args, irreps_in, irreps_out, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # the same sums in the same order: bit for bit
 
 
 @pytest.mark.parametrize("irreps_in,irreps_out,B,L,E", [
@@ -124,6 +134,10 @@ def test_pb_kernel_matches_plain(dev, irreps_in, irreps_out, B, L, E):
     (FLAGSHIP, 2, 13, 19, 5, True),
     (FLAGSHIP, 2, 7, 150, 130, True),  # one receiver's edges span several 64-edge chunks
     ("16x0e + 4x1o + 4x1e + 4x0o", 3, 24, 64, 48, False),
+    (FULL, 2, 24, 512, 128, True),  # the sample's full-width layer at its three cross caps
+    (FULL, 2, 24, 256, 64, True),
+    (FULL, 2, 24, 128, 48, True),
+    (ODD_H, 2, 9, 40, 70, True),  # H=30 padded to 32; a full and a partial chunk per receiver
 ])
 def test_cross_rev_kernel_matches_plain(dev, irreps, B, L, N, K, with_rev):
     g = _gen(2)
@@ -167,6 +181,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         kw = dict(node=node, pos=pos, nbr=nbr, emb=emb, sig=sig, mask=mask) | bad
         with pytest.raises(ValueError):
             tpconv_rec.fused_tpconv_rec(*kw.values(), *w, "32x0e", "32x0e", ns)
+    wide = [w[0].new_zeros(96, 120), w[1].new_zeros(120), w[2].new_zeros(120, w[2].shape[1]), w[3]]
+    with pytest.raises(ValueError):  # the tensor-core stage takes H <= 96
+        tpconv_rec.fused_tpconv_rec(node, pos, nbr, emb, sig, mask, *wide, "32x0e", "32x0e", ns)
     assert tpconv_rec.fused_tpconv_rec.launches == before
 
 
