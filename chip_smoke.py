@@ -9,13 +9,15 @@ Phases (each one fails the script when it fails):
   1. the card's name and power limit (nvidia-smi);
   2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed), with
      each kernel's ptxas line and each library's count of HGMMA (wgmma)
-     instructions from cuobjdump -sass: rec and cross_rev, whose H -> W
-     product runs on the tensor cores, must have some;
+     instructions from cuobjdump -sass: rec, pb, cross_rev and rec_g, whose
+     H -> W product runs on the tensor cores, must have some, and their
+     tensor-core kernels no spill;
   3. per kernel, on every call of one sample of phase 5's path (recorded,
      then replayed): the kernel against its plain PyTorch version on the same
      inputs (stated tolerance), both timed, and its two bounds (``bounds``:
      the tensor-core bound and the float32 one); by shape and as means over
-     the sample's launches;
+     the sample's launches; rec's and pb's output bit for bit across two
+     launches;
   4. the full-width score model on 1a0q at B=2: CUDA with the kernels against
      the same model and weights on the CPU with the plain versions;
   5. bench.py's path on the port: 1a0q, random ESM-sized receptor features,
@@ -31,7 +33,8 @@ Phases (each one fails the script when it fails):
      the crop's kept residues and atoms, launches of rec_g and cross_g against
      the config), the card against the CPU on 2 of them, every rec_g and
      cross_g call of the timed forward replayed through kernel and plain
-     version as in phase 3, and one forward under torch.profiler;
+     version as in phase 3 (rec_g bit for bit across two launches), and one
+     forward under torch.profiler;
   7. training: one step of the full-width score model at B=2 and dropout 0,
      the card against the CPU (loss, every parameter's gradient, the batch
      statistics after it); then TrainConfig() steps at B=16 (1a0q replicated)
@@ -60,6 +63,18 @@ Phases (each one fails the script when it fails):
      then every row 4/5/6 call of one sample of each replayed through kernel
      and plain version, and row 13's v1 API (rows 5 and 6 behind the v1
      signatures, no kernel of its own) on a few of them, printed.
+  9. the wide ladder: the score model at ns=48/nv=10 (H=144, above the
+     tensor-core stage's 96; DiffDock's published width), otherwise phase 5's
+     model with seeded random weights: the host mirror of the kernels'
+     shared-memory layouts against every library's exported bytes; one
+     B=2 training step's calls (the edge backward at H=144, the edge-list
+     forward and rec with the dropout mask) replayed through kernel and
+     plain version; a 3-step ODE sample at B=8, card against CPU; then the
+     B=32 20-step 1a0q sample: one run recorded and every rec, pb and
+     cross_rev call of it (each layer pair, each phase's N, with and
+     without reverse weights; the float32 builds at 32 edges a chunk)
+     replayed through kernel and plain version as in phase 3, then one
+     timed with its launch counts and one more under torch.profiler.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's; ``bound_ms`` the tensor-core bound,
@@ -84,7 +99,7 @@ B_POSES, STEPS, LM_DIM, PLAN = 32, 20, 1280, ((6, 256), (12, 128))
 # H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, TF32 on the tensor cores, and HBM3
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accuracy
-TC_KERNELS = ("tpconv_rec", "tpconv_cross_rev")  # the libraries whose H -> W product runs on wgmma
+TC_KERNELS = ("tpconv_rec", "tpconv_pb", "tpconv_cross_rev", "tpconv_rec_g")  # H -> W on wgmma
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
 MODEL_RTOL = 1e-3  # CUDA vs CPU forward, per output, relative to its max |value|
 SAMPLE_ATOL = 1e-2  # CUDA vs CPU ligand positions after a 3-step ODE sample, in A
@@ -290,18 +305,12 @@ def record_calls(run, names=KERNELS) -> dict:
     return calls
 
 
-def kernel_phase(model, run) -> list:
-    """Phase 3: every kernel against its plain version on what the main path
-    gives it. One sample runs with the wrappers recorded; every call is
-    replayed through the kernel and its plain version, both timed, with its
-    bound from its own data. Printed per shape (receptor embedding at B=1,
-    each phase's N and cross K, with and without reverse weights) and per
-    kernel as means over the sample's launches."""
-    import torch
-
+def sample_kernels() -> dict:
+    """The score model's kernels with their plain versions, work and the
+    TPU kernels they replace, as ``replay`` takes them."""
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_lig, tpconv_rec
 
-    kernels = {
+    return {
         "tpconv_rec": (tpconv_rec.fused_tpconv_rec, tpconv_rec.tpconv_rec_plain, rec_work,
                        "confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py:154"),
         "tpconv_pb": (tpconv_lig.fused_tpconv_pb, tpconv_lig.tpconv_pb_plain, pb_work,
@@ -309,23 +318,46 @@ def kernel_phase(model, run) -> list:
         "tpconv_cross_rev": (tpconv_lig.fused_tpconv_cross_rev, tpconv_lig.tpconv_cross_rev_plain, cross_work,
                              "confidence_bootstrapping_tpu/ops/pallas/tpconv_lig.py:389"),
     }
+
+
+def replay_sample(model, run, what: str) -> list:
+    """One sample run with the wrappers recorded, its calls checked against
+    the launches the config implies, then every call replayed through the
+    kernel and its plain version (``replay``; rec and pb bit for bit across
+    two launches). Returns ``replay``'s rows."""
+    import torch
+
     calls = record_calls(run)
     torch.cuda.synchronize()
     counts = {name: len(calls[name]) for name in KERNELS}
     want = {name: n for name, n in expected_launches(model, STEPS).items() if name in KERNELS}
-    print(f"recorded sample: calls {counts}, expected from the config {want}", flush=True)
+    print(f"recorded {what}: calls {counts}, expected from the config {want}", flush=True)
     if counts != want:
-        fail("the recorded sample did not run every TP-conv through its wrapper")
-    return replay(calls, kernels)
+        fail(f"the recorded {what} did not run every TP-conv through its wrapper")
+    rows = replay(calls, sample_kernels(), bitwise=("tpconv_rec", "tpconv_pb"))
+    del calls
+    torch.cuda.empty_cache()
+    return rows
 
 
-def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
+def kernel_phase(model, run) -> list:
+    """Phase 3: every kernel against its plain version on what the main path
+    gives it. One sample runs with the wrappers recorded; every call is
+    replayed through the kernel and its plain version, both timed, with its
+    bound from its own data. Printed per shape (receptor embedding at B=1,
+    each phase's N and cross K, with and without reverse weights) and per
+    kernel as means over the sample's launches."""
+    return replay_sample(model, run, "sample")
+
+
+def replay(calls: dict, kernels: dict, rtols: dict = None, bitwise=()) -> list:
     """Replay every recorded call through its kernel and its plain version:
     error against the stated tolerance, both timed, both bounds (``bounds``)
     from the call's own data. Prints per shape and as means over the calls;
     returns one JSON row per kernel (without ``launches``). ``rtols``: per
     kernel, a tolerance per output (default KERNEL_RTOL for each), each
-    output held to it times max(1, max |its plain value|)."""
+    output held to it times max(1, max |its plain value|). The kernels named
+    in ``bitwise`` must give the same bits on a second launch."""
     import torch
 
     def outputs(o):
@@ -337,6 +369,8 @@ def replay(calls: dict, kernels: dict, rtols: dict = None) -> list:
         for args, kwargs in calls[name]:
             got, ref = outputs(fn(*args, **kwargs)), outputs(plain(*args))
             torch.cuda.synchronize()
+            if name in bitwise and not all(torch.equal(a, b) for a, b in zip(got, outputs(fn(*args, **kwargs)))):
+                fail(f"kernel {name} is not bit for bit across two launches on the same inputs")
             errs = [(g - w).abs().max().item() for g, w in zip(got, ref)]
             scales = [w.abs().max().item() for w in ref]
             tols = (rtols or {}).get(name, (KERNEL_RTOL,) * len(ref))
@@ -648,7 +682,7 @@ def confidence_phase(dev, final_pos) -> tuple:
         "tpconv_cross_g": (tpconv_g.fused_tpconv_cross_g, tpconv_g.tpconv_cross_g_plain, cross_g_work,
                            "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:547"),
     }
-    rows = replay(calls, kernels)
+    rows = replay(calls, kernels, bitwise=("tpconv_rec_g",))
     profile_run(run, secs * 1e3)
     return rows, launches, (model, batch)
 
@@ -871,6 +905,35 @@ def replay_train_ops(calls: dict) -> list:
     return rows
 
 
+def replay_train_kernels(calls: dict) -> list:
+    """The training kernels' recorded calls (``record_train_calls``) replayed
+    through kernel and plain version; the edges at the ReLU
+    (``near_relu_boundary``) get no cotangent in the backward's replay.
+    Returns their JSON rows."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
+
+    guarded = 0
+    for i, (a, kw) in enumerate(calls["tpconv_bwd"]):
+        near = near_relu_boundary(a[0], a[5], a[6])
+        guarded += int((near & (a[3] != 0).any(-1)).sum())
+        calls["tpconv_bwd"][i] = (a[:3] + (a[3] * ~near[:, None],) + a[4:], kw)
+    print(f"edge backward replay: {guarded} edges at the ReLU left out", flush=True)
+    kernels = {
+        "tpconv_edge": (lambda *a: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12]),
+                        tpconv_edge.tpconv_edge_plain, edge_work, TRAIN_KERNELS["tpconv_edge"][1]),
+        "tpconv_rec_dm": (lambda *a: tpconv_rec.fused_tpconv_rec(*a[:13], dmask=a[13]), tpconv_rec.tpconv_rec_plain,
+                          lambda a: rec_work(a[:13]), TRAIN_KERNELS["tpconv_rec_dm"][1]),
+        "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_work, TRAIN_KERNELS["tpconv_bwd"][1]),
+    }
+    with torch.no_grad():
+        rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4})
+    for r in rows:
+        r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
+    return rows
+
+
 def train_phase(dev) -> tuple:
     """Phase 7: training steps of the full-width score model (see the module
     docstring). Returns (JSON rows, launches per step by kernel)."""
@@ -881,7 +944,6 @@ def train_phase(dev) -> tuple:
     from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, TrainConfig
     from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
     from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
     from confidence_bootstrapping_tpu_torch.train import diffusion, losses, train_loop
 
     padded = host_complex(LM_DIM)[0]
@@ -983,23 +1045,7 @@ def train_phase(dev) -> tuple:
     # one step's calls, replayed through kernel and plain version
     calls = record_train_calls(lambda: step(state, batch, gen))
     torch.cuda.synchronize()
-    guarded = 0
-    for i, (a, kw) in enumerate(calls["tpconv_bwd"]):  # no cotangent on edges at the ReLU (near_relu_boundary)
-        near = near_relu_boundary(a[0], a[5], a[6])
-        guarded += int((near & (a[3] != 0).any(-1)).sum())
-        calls["tpconv_bwd"][i] = (a[:3] + (a[3] * ~near[:, None],) + a[4:], kw)
-    print(f"edge backward replay: {guarded} edges at the ReLU left out", flush=True)
-    kernels = {
-        "tpconv_edge": (lambda *a: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12]),
-                        tpconv_edge.tpconv_edge_plain, edge_work, TRAIN_KERNELS["tpconv_edge"][1]),
-        "tpconv_rec_dm": (lambda *a: tpconv_rec.fused_tpconv_rec(*a[:13], dmask=a[13]), tpconv_rec.tpconv_rec_plain,
-                          lambda a: rec_work(a[:13]), TRAIN_KERNELS["tpconv_rec_dm"][1]),
-        "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_work, TRAIN_KERNELS["tpconv_bwd"][1]),
-    }
-    with torch.no_grad():
-        rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4})
-    for r in rows:
-        r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
+    rows = replay_train_kernels(calls)
     rows += replay_train_ops(calls)
     profile_run(lambda: step(state, batch, gen), med)
     per_step = dict(launches[-1])
@@ -1252,6 +1298,172 @@ def replay_v1(calls: dict) -> None:
           f"{np.mean(fp32):.4f} ms float32", flush=True)
 
 
+# ---------------------------------------------------------------------------- phase 9: the wide ladder
+
+
+WIDE_NS, WIDE_NV = 48, 10  # DiffDock's published score-model width: H = 3 ns = 144, above the tensor-core stage's 96
+B_WIDE_CHECK, STEPS_WIDE_CHECK = 8, 3  # the card-against-CPU sample at the wide ladder
+
+
+def ladder_pairs(ns: int, nv: int, reduce_pseudoscalars: bool = False) -> list:
+    """The score model's (irreps_in, irreps_out) pairs: each embedding step,
+    then the trunk's irreps to themselves (``ScoreModelConfig`` reduces the
+    pseudoscalars to nv by default; the confidence model keeps ns)."""
+    from confidence_bootstrapping_tpu_torch.models.score_model import get_irrep_seq
+
+    seq = get_irrep_seq(ns, nv, reduce_pseudoscalars)
+    return [(seq[min(i, 3)], seq[min(i + 1, 3)]) for i in range(4)]
+
+
+def layout_check() -> int:
+    """The host mirror of the engine's shared-memory layouts
+    (``tpconv_common.engine_smem_bytes``, ``tpconv_bwd.bwd_smem_bytes``)
+    against the bytes every kernel library exports, at the ns=32 and ns=48
+    ladders and the confidence trunk, both stages and both chunk sizes; and
+    ``engine_static_bytes`` against each library's kernels of every build it
+    has (``cbt_static_smem_bytes``). Returns the number of comparisons."""
+    import ctypes
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import build, tpconv_bwd, tpconv_common as tc
+
+    engine_libraries = [name for name in build.KERNEL_SOURCES if name != "tpconv_bwd"]
+    cases = [(a, b, SH1, ns) for ns, nv in ((32, 6), (WIDE_NS, WIDE_NV)) for reduce in (False, True)
+             for a, b in ladder_pairs(ns, nv, reduce)]
+    cases += [(a, b, SH2, 24) for a, b in ladder_pairs(24, 6)]
+    cases += [(ladder_pairs(ns, nv)[3][0], f"{ns}x0o + {ns}x0e", tc.TOR_SH_IRREPS, ns) for ns, nv in ((32, 6), (WIDE_NS, WIDE_NV))]
+    n = 0
+    for name in engine_libraries:
+        static = build.load(name).cbt_static_smem_bytes
+        static.argtypes, static.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        builds = 0
+        for on_tc, cm in ((True, tc.TM), (False, tc.TM), (False, tc.TM_WIDE)):
+            got = static(int(on_tc), cm)
+            if got == -1:  # a build this library does not have
+                continue
+            if got != tc.engine_static_bytes(cm, on_tc):
+                fail(f"{name}: {got} bytes of static shared memory (tensor cores {on_tc}, {cm} edges a chunk; -2: "
+                     f"its kernels differ), the host mirror says {tc.engine_static_bytes(cm, on_tc)}")
+            builds += 1
+            n += 1
+        if not builds:
+            fail(f"{name}: no build reports its static shared memory")
+        fn = build.load(name).cbt_smem_bytes
+        fn.argtypes, fn.restype = [ctypes.c_int] * 14, ctypes.c_longlong
+        for a, b, sh, ns in cases:
+            shd = tc.sh_dim(sh)
+            for on_tc, cm, rt in ((True, tc.TM, 8), (False, tc.TM, 4), (False, tc.TM_WIDE, 1)):
+                lay = tc.tp_layout(a, b, sh, tc.TNC if on_tc else tc.TN)
+                d = tc.Dims(ns, ns, 3 * ns, 3 * ns, lay.din, lay.dout)
+                want = tc.engine_smem_bytes(shd, cm, d, lay.n_x, rt, on_tc, len(lay.cg), len(lay.epi), lay.n_tiles)
+                got = fn(int(on_tc), cm, shd, *d, lay.n_x, lay.n_tiles, len(lay.epi), len(lay.cg), rt)
+                if got != want:
+                    fail(f"{name}: {got} bytes of shared memory at {a} -> {b} ({sh}, tensor cores {on_tc}, {cm} "
+                         f"edges a chunk), the host mirror says {want}")
+                n += 1
+    fn = build.load("tpconv_bwd").cbt_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    for a, b, sh, ns in cases:
+        lay = tc.tp_layout(a, b, sh)
+        for bt, _ in tpconv_bwd.BUILDS:
+            args = (bt, 3 * ns, 3 * ns, lay.din, tc.sh_dim(sh), lay.dout, lay.n_x)
+            if fn(*args) != tpconv_bwd.bwd_smem_bytes(*args):
+                fail(f"tpconv_bwd: {fn(*args)} bytes of shared memory at {a} -> {b}, the host mirror says "
+                     f"{tpconv_bwd.bwd_smem_bytes(*args)}")
+            n += 1
+    return n
+
+
+def wide_phase(dev) -> None:
+    """Phase 9: the ns=48/nv=10 ladder (see the module docstring)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, sample
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    n = layout_check()
+    print(f"layout mirror: {n} shared-memory sizes of every kernel library equal the host's", flush=True)
+    cfg = ScoreModelConfig(ns=WIDE_NS, nv=WIDE_NV, lm_embedding_dim=LM_DIM)
+    print(f"wide ladder: ns={cfg.ns} nv={cfg.nv} (H={3 * cfg.ns}), layers "
+          f"{ladder_pairs(cfg.ns, cfg.nv, cfg.reduce_pseudoscalars)}", flush=True)
+
+    # one training step's kernels at H=144, replayed (dropout on: the mask variants too)
+    tcfg = TrainConfig()
+    padded = host_complex(LM_DIM)[0]
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    state = train_loop.init_train_state(model, tcfg)
+    batch = replicate_complex(padded, 2, device=dev)
+    step = train_loop.make_train_step(cfg, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    step(state, batch, gen)  # warm-up
+    calls = record_train_calls(lambda: step(state, batch, gen))
+    torch.cuda.synchronize()
+    replay_train_kernels(calls)
+    del model, state, calls
+    torch.cuda.empty_cache()
+
+    # card against CPU: a 3-step probability-flow sample at B=8 with two compaction boundaries
+    scfg = SamplerConfig(inference_steps=STEPS_WIDE_CHECK, ode=True, rec_phase_steps=(1, 2), rec_phase_caps=(256, 128))
+    pos = padded["lig_pos"][None] + np.random.RandomState(4).randn(B_WIDE_CHECK, *padded["lig_pos"].shape).astype(
+        np.float32) * 2
+    res = []
+    for device in (dev, torch.device("cpu")):
+        model = TensorProductScoreModel(cfg, device=device, seed=0)
+        b8 = replicate_complex(padded, B_WIDE_CHECK, device=device).replace(lig_pos=torch.as_tensor(pos, device=device))
+        t0 = time.perf_counter()
+        res.append(sample(model, b8, cfg, scfg, device=device)[0].lig_pos.cpu())
+        print(f"wide {STEPS_WIDE_CHECK}-step B={B_WIDE_CHECK} sample on {device.type}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    err = (res[0] - res[1]).abs().max().item()
+    moved = (res[0] - torch.as_tensor(pos)).abs().max().item()
+    print(f"wide sample card vs CPU: max_abs_err {err:.3g} A (tolerance {SAMPLE_ATOL} A), poses moved {moved:.3g} A",
+          flush=True)
+    if not (err <= SAMPLE_ATOL and moved > 0.1):
+        fail("the wide-ladder sample on the card disagrees with the CPU")
+
+    # the timed B=32 20-step sample, phase 5's path at this width
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    batch = replicate_complex(padded, B_POSES, device=dev)
+    N = batch.rec_pos.shape[1]
+    plan = [(s, c) for s, c in PLAN if c < N]
+    scfg = SamplerConfig(inference_steps=STEPS, rec_phase_steps=tuple(s for s, _ in plan),
+                         rec_phase_caps=tuple(c for _, c in plan))
+    b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run = lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    t0 = time.perf_counter()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    print(f"wide sample warm-up: {time.perf_counter() - t0:.3f} s", flush=True)
+    # every call of this sample (the same noise as the timed run) through kernel and plain version
+    replay_sample(model, run, "wide sample")
+    t0 = time.perf_counter()
+    (final, _), launches = counted(run)
+    secs = time.perf_counter() - t0
+    want = expected_launches(model, STEPS)
+    print(f"wide sample (ns={cfg.ns}, nv={cfg.nv}): B={B_POSES}, {STEPS} steps, plan {plan}: {secs:.4f} s, "
+          f"{B_POSES / secs:.3f} poses/s; launches {launches}; expected from the config {want}", flush=True)
+    if launches != want:
+        fail("the wide-ladder sample did not run every TP-conv through its kernel")
+    if not torch.isfinite(final.lig_pos).all():
+        fail("the wide-ladder sample's poses are not finite")
+    profile_run(run, secs * 1e3)
+
+
+def tc_spills(logs: dict) -> dict:
+    """{kernel: bytes of spill stores} from the ptxas logs, for the kernels
+    that run the tensor-core stage (their weights argument is TPWeightsTC)."""
+    out, name = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            if "Function properties for " in line:
+                name = line.split("Function properties for ")[-1].strip()
+            elif name and "TPWeightsTC" in name and "bytes spill stores" in line:
+                out[name.split("PK")[0].lstrip("_Z0123456789")] = int(line.split("bytes spill stores")[0].split(",")[-1])
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1277,7 +1489,10 @@ def main() -> None:
     print(f"HGMMA instructions (cuobjdump -sass) per library: {hgmma}", flush=True)
     if any(hgmma[name] == 0 for name in TC_KERNELS):
         fail(f"{', '.join(TC_KERNELS)} must run the H -> W product on the tensor cores")
-
+    spills = tc_spills(logs)
+    print(f"tensor-core kernels' spill stores (ptxas): {spills}", flush=True)
+    if len(spills) != len(TC_KERNELS) or any(spills.values()):
+        fail("every tensor-core kernel must build, with no spill")
     model, b0, run = main_path(dev)
     rows = kernel_phase(model, run)
     torch.cuda.synchronize()
@@ -1297,6 +1512,8 @@ def main() -> None:
     for r in eval_rows[1:]:  # rows 5 and 6 launch the edge-list kernel's inference instance
         r["source"] = "confidence_bootstrapping_tpu_torch/csrc/tpconv_edge.cu"
     replay_v1(calls)
+    torch.cuda.synchronize()
+    wide_phase(dev)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)

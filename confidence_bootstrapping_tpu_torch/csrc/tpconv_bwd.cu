@@ -30,15 +30,20 @@
 // atomics. Bound: the three H x W products per edge (recompute w, dh, the
 // reduction) on the CUDA cores, about 1 MFLOP an edge at H=96, W=1664, and
 // the d_w scratch (8 * Wpad bytes an edge, written and read once).
+//
+// Two builds of the per-edge kernel: BT = 32 edges a block with dh's register
+// tile for H <= 16 * 8 = 128 (tpconv_bwd_edge_kernel), and BT = 16 with room
+// for H <= 16 * 12 = 192 (tpconv_bwd_edge_wide_kernel) for wider layers and
+// for layouts that do not fit a block's shared memory at 32 edges (the ns=48
+// ladder: 248,320 bytes at 156 -> 156, 143,168 at 16 edges). The host picks
+// one (ops/cuda/tpconv_bwd.py: bwd_build).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BT = 32;     // edges per block of the per-edge kernel
 constexpr int BN = 64;     // w2c columns per tile (ops/cuda/tpconv_common.py: TN)
 constexpr int NTB = 256;   // threads per block
-constexpr int HJ = 8;      // dh columns per thread: H <= 16 * HJ = 128
 constexpr int XROW = 8;    // ints per X-table row (as the forward's)
 constexpr int BROW = 5;    // ints per backward epilogue item / vector-gradient row
 constexpr int RT_T = 32;   // rows of T per reduction step
@@ -79,8 +84,8 @@ __host__ __device__ inline int odd(int x) { return x | 1; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Region A holds z while the hidden layer is built, then the w2c tile and the
-// two [BT, BN] tiles, then dh for the MLP backward.
-__host__ __device__ inline BLayout bwd_layout(int F, int H, int Din, int Dsh, int Dout, int S) {
+// two [BT, BN] tiles, then dh for the MLP backward. BT: edges per block.
+__host__ __device__ inline BLayout bwd_layout(int BT, int F, int H, int Din, int Dsh, int Dout, int S) {
   BLayout L;
   L.ldz = odd(F);
   L.ldx = odd(Din);
@@ -115,9 +120,13 @@ __host__ __device__ inline BLayout bwd_layout(int F, int H, int Din, int Dsh, in
   return L;
 }
 
-__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  const BLayout L = bwd_layout(a.F, a.H, a.Din, a.Dsh, a.Dout, a.S);
+// The per-edge backward of BT edges a block; each thread holds BT/16 rows
+// and HJ columns of dh (H <= 16 * HJ).
+template <int BT, int HJ>
+__device__ __forceinline__ void bwd_edges(float* sm, BwdArgs a) {
+  constexpr int RB = BT / 16;
+  static_assert(RB == 1 || RB == 2, "16 or 32 edges a block");
+  const BLayout L = bwd_layout(BT, a.F, a.H, a.Din, a.Dsh, a.Dout, a.S);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t t0 = (size_t)blockIdx.x * BT;
   const int nrow = (int)min((size_t)BT, (size_t)a.T - t0);
@@ -174,9 +183,9 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
   }
 
   // 3. per column tile: w, d_w (to scratch), d_X and dh
-  float dh[2][HJ];
+  float dh[RB][HJ];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < RB; ++i)
 #pragma unroll
     for (int j = 0; j < HJ; ++j) dh[i][j] = 0.f;
   for (int t = 0; t < a.n_tiles; ++t) {
@@ -187,24 +196,24 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
     }
     __syncthreads();
     {
-      float acc[2][4];
+      float acc[RB][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RB; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
       for (int k = 0; k < a.H; ++k) {
-        const float h0 = h[k * L.ldh + ty * 2], h1 = h[k * L.ldh + ty * 2 + 1];
+        const float h0 = h[k * L.ldh + ty * RB], h1 = h[k * L.ldh + ty * RB + 1];  // h1: the second row at RB=2
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float wv = ws[k * L.ldw + tx + 16 * j];
           acc[0][j] = fmaf(h0, wv, acc[0][j]);
-          acc[1][j] = fmaf(h1, wv, acc[1][j]);
+          if constexpr (RB == 2) acc[1][j] = fmaf(h1, wv, acc[1][j]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < RB; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) cs[(ty * 2 + i) * L.ldc + tx + 16 * j] = acc[i][j] + a.b2[c0 + tx + 16 * j];
+        for (int j = 0; j < 4; ++j) cs[(ty * RB + i) * L.ldc + tx + 16 * j] = acc[i][j] + a.b2[c0 + tx + 16 * j];
     }
     for (int i = tid; i < BT * BN; i += NTB) {
       const int m = i / BN, n = i % BN;
@@ -229,14 +238,14 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
       dX[m * L.ldX + it[4]] += s;
     }
     for (int n = 0; n < BN; ++n) {
-      const float d0 = dws[(ty * 2) * L.ldc + n], d1 = dws[(ty * 2 + 1) * L.ldc + n];
+      const float d0 = dws[(ty * RB) * L.ldc + n], d1 = dws[(ty * RB + 1) * L.ldc + n];  // d1: as h1
 #pragma unroll
       for (int j = 0; j < HJ; ++j) {
         const int k = tx + 16 * j;
         if (k < a.H) {
           const float wv = ws[k * L.ldw + n];
           dh[0][j] = fmaf(d0, wv, dh[0][j]);
-          dh[1][j] = fmaf(d1, wv, dh[1][j]);
+          if constexpr (RB == 2) dh[1][j] = fmaf(d1, wv, dh[1][j]);
         }
       }
     }
@@ -263,8 +272,8 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
 
   // 5. MLP backward: dh through the dropout mask and the ReLU, then d_z
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = ty * 2 + i;
+  for (int i = 0; i < RB; ++i) {
+    const int m = ty * RB + i;
 #pragma unroll
     for (int j = 0; j < HJ; ++j) {
       const int k = tx + 16 * j;
@@ -289,6 +298,16 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
     for (int k = 0; k < a.H; ++k) acc = fmaf(dr[k], wr[k], acc);
     a.d_attr[(t0 + m) * a.F + f] = acc;
   }
+}
+
+__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  bwd_edges<32, 8>(sm, a);
+}
+
+__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_wide_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  bwd_edges<16, 12>(sm, a);
 }
 
 // part[split][p][q] = sum over the split's rows t of A1[t][p] * B[t][q], where
@@ -364,22 +383,24 @@ int reduce(const float* A, const float* B, int T, int P, int Q, int splits, floa
 // The whole backward of T edges: the per-edge kernel, then the two weight
 // reductions. dw2 [H + 1, Wpad] (row H: db2), dw1 [F + 1, H] (row F: db1),
 // in the canonical column order with 1/sqrt(fan) still folded in; part holds
-// splits * max((H + 1) * Wpad, (F + 1) * H) floats. Returns a CUDA error code.
+// splits * max((H + 1) * Wpad, (F + 1) * H) floats; bt: edges per block of the
+// per-edge kernel, 32 (H <= 128) or 16 (H <= 192). Returns a CUDA error code.
 extern "C" int cbt_tpconv_bwd(const float* attr, const float* x, const float* sh, const float* g, const float* dm,
                               int hd, const float* w1, const float* b1, const float* w2, const float* b2,
                               const int* xtab, const float* cg, const int* bcol, const int* bepi,
                               const int* bepi_start, const int* vtab, const int* vtab_start, int T, int F, int H,
                               int Din, int Dsh, int Dout, int S, int n_tiles, int Wpad, float* d_attr, float* d_x,
                               float* d_sh, float* hbuf, float* dhbuf, float* dwbuf, int splits_w2, int splits_w1,
-                              float* part, float* dw2, float* dw1, void* stream) {
-  if (H > 16 * HJ || T <= 0) return (int)cudaErrorInvalidValue;
+                              float* part, float* dw2, float* dw1, int bt, void* stream) {
+  if ((bt != 32 && bt != 16) || H > (bt == 32 ? 128 : 192) || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const BwdArgs a{attr, x, sh, g, dm, hd, w1, b1, w2, b2, xtab, cg, bcol, bepi, bepi_start, vtab, vtab_start,
                   T, F, H, Din, Dsh, Dout, S, n_tiles, Wpad, d_attr, d_x, d_sh, hbuf, dhbuf, dwbuf};
-  const size_t smem = (size_t)bwd_layout(F, H, Din, Dsh, Dout, S).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tpconv_bwd_edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = (size_t)bwd_layout(bt, F, H, Din, Dsh, Dout, S).total * sizeof(float);
+  auto kernel = bt == 32 ? tpconv_bwd_edge_kernel : tpconv_bwd_edge_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tpconv_bwd_edge_kernel<<<(T + BT - 1) / BT, NTB, smem, st>>>(a);
+  kernel<<<(T + bt - 1) / bt, NTB, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int code = reduce(hbuf, dwbuf, T, H, Wpad, splits_w2, part, dw2, st);
@@ -388,3 +409,9 @@ extern "C" int cbt_tpconv_bwd(const float* attr, const float* x, const float* sh
 }
 
 extern "C" const char* cbt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// The per-edge kernel's dynamic shared memory, in bytes, at bt edges a block
+// (host mirror: ops/cuda/tpconv_bwd.py: bwd_smem_bytes).
+extern "C" long long cbt_bwd_smem_bytes(int bt, int F, int H, int Din, int Dsh, int Dout, int S) {
+  return (long long)bwd_layout(bt, F, H, Din, Dsh, Dout, S).total * (long long)sizeof(float);
+}

@@ -12,9 +12,11 @@
 // or 1) applied after the ReLU. One block per RT rows (RT*K >= 64 edges when
 // K allows): edge_tile in tpconv_engine.cuh compacts the valid edges, runs
 // the engine on them and sums each row's messages in slot order, or writes
-// each edge's message. Bound: the H x W edge-MLP product on the CUDA cores,
-// as for the other engine kernels; the per-edge inputs (~0.5 KB an edge) are
-// read once.
+// each edge's message. A layer whose TM-edge layout does not fit a block's
+// shared memory (the ns=48 ladder's wider layers) runs the build at TM_WIDE
+// edges a chunk (tpconv_edge_wide_kernel). Bound: the H x W edge-MLP product
+// on the CUDA cores, as for the other engine kernels; the per-edge inputs
+// (~0.5 KB an edge) are read once.
 #include "tpconv_engine.cuh"
 
 using namespace cbt;
@@ -26,45 +28,69 @@ __global__ void __launch_bounds__(NT) tpconv_edge_kernel(const float* __restrict
                                                          Dims d, int M, int K, int RT, int sum_k,
                                                          float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ EdgeSlots s;
+  __shared__ EdgeSlots<> s;
   edge_tile<SHD, DM>(sm, s, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
 }
 
 template <int SHD, bool DM>
-static int launch(const float* attr, const float* send, const float* sh, const uint8_t* mask, const float* dm, int hd,
-                  const TPWeights& W, const TPTables& T, const Dims& d, int M, int K, int RT, int sum_k, float* out,
-                  cudaStream_t stream) {
-  const size_t smem = smem_bytes(make_layout<SHD>(d, T.S, RT));
-  cudaError_t err =
-      cudaFuncSetAttribute(tpconv_edge_kernel<SHD, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + RT - 1) / RT);
-  tpconv_edge_kernel<SHD, DM><<<grid, NT, smem, stream>>>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(NT) tpconv_edge_wide_kernel(
+    const float* __restrict__ attr, const float* __restrict__ send, const float* __restrict__ sh,
+    const uint8_t* __restrict__ mask, const float* __restrict__ dm, int hd, TPWeights W, TPTables T, Dims d, int M,
+    int K, int RT, int sum_k, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ EdgeSlots<TM_WIDE> s;
+  edge_tile<SHD, DM, TM_WIDE>(sm, s, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
 }
 
-// dm == nullptr: no dropout. Returns a CUDA error code (0 on success).
+template <int SHD, bool DM>
+static int launch_edges(const float* attr, const float* send, const float* sh, const uint8_t* mask, const float* dm,
+                        int hd, const TPWeights& W, const TPTables& T, const Dims& d, int M, int K, int RT, int sum_k,
+                        int cm, float* out, void* stream) {
+  const dim3 grid((M + RT - 1) / RT);
+  if (cm == TM_WIDE)
+    return launch(tpconv_edge_wide_kernel<SHD, DM>, grid, smem_bytes(make_layout<SHD, TM_WIDE>(d, T.S, RT)), stream,
+                  attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
+  return launch(tpconv_edge_kernel<SHD, DM>, grid, smem_bytes(make_layout<SHD>(d, T.S, RT)), stream, attr, send, sh,
+                mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
+}
+
+// dm == nullptr: no dropout; cm: edges a chunk, TM or TM_WIDE. Returns a CUDA
+// error code (0 on success).
 extern "C" int cbt_tpconv_edge(const float* attr, const float* send, const float* sh, const uint8_t* mask,
                                const float* dm, int hd, const float* w1, const float* b1, const float* w2,
                                const float* b2, const int* xtab, const float* cg, const int* epi, const int* epi_start,
                                int S, int n_tiles, int Wpad, int M, int K, int F, int H, int Din, int Dout, int Dsh,
-                               int RT, int sum_k, float* out, void* stream) {
+                               int RT, int sum_k, int cm, float* out, void* stream) {
   const Dims d{F, 0, F, H, Din, Dout};
   const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad};
   const TPWeights W{w1, b1, w2, b2};
-  cudaStream_t st = (cudaStream_t)stream;
   const bool has_dm = dm != nullptr;
   switch (Dsh) {
     case 4:
-      return has_dm ? launch<4, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st)
-                    : launch<4, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st);
+      return has_dm ? launch_edges<4, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
+                    : launch_edges<4, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
     case 9:
-      return has_dm ? launch<9, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st)
-                    : launch<9, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st);
+      return has_dm ? launch_edges<9, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
+                    : launch_edges<9, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
     case 20:
-      return has_dm ? launch<20, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st)
-                    : launch<20, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, st);
+      return has_dm ? launch_edges<20, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
+                    : launch_edges<20, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Static shared memory of this library's kernels of one build: the
+// tensor-core stage (tc) or the float32 stage at cm edges a chunk
+// (cbt::static_bytes).
+extern "C" long long cbt_static_smem_bytes(int tc, int cm) {
+  if (tc) return -1;
+  if (cm == TM)
+    return static_bytes(tpconv_edge_kernel<4, false>, tpconv_edge_kernel<4, true>, tpconv_edge_kernel<9, false>,
+                        tpconv_edge_kernel<9, true>, tpconv_edge_kernel<20, false>, tpconv_edge_kernel<20, true>);
+  if (cm == TM_WIDE)
+    return static_bytes(tpconv_edge_wide_kernel<4, false>, tpconv_edge_wide_kernel<4, true>,
+                        tpconv_edge_wide_kernel<9, false>, tpconv_edge_wide_kernel<9, true>,
+                        tpconv_edge_wide_kernel<20, false>, tpconv_edge_wide_kernel<20, true>);
+  return -1;
 }

@@ -13,8 +13,10 @@
 // and runs the product directly:
 //
 //   1. compact: warp 0 ballots the candidate edges of the block's receivers
-//      and keeps the valid ones in order, TM per chunk, so masked edges cost
-//      nothing and contribute exactly zero;
+//      and keeps the valid ones in order, TM (64) per chunk, so masked edges
+//      cost nothing and contribute exactly zero; the float32 stage also has
+//      builds at TM_WIDE = 32 edges a chunk (template parameter CM) for
+//      layers whose 64-edge layout does not fit a block's shared memory;
 //   2. fill: per edge the MLP input z [F], the sender features [Din] and the
 //      harmonics of u = v / |v| (|v|^2 clamped at 1e-12, so a zero vector
 //      gives zero in every l >= 1 component): 1, sqrt(3) u and, for SHD=9,
@@ -37,8 +39,9 @@
 // ~1 KB). It keeps w2 tiles in shared memory for TM edges at a time and
 // never writes w or the per-edge messages to device memory.
 //
-// The tensor-core stage (TC = true: the rec and cross_rev inference kernels;
-// every other instance keeps the float32 stage) runs steps 3 and 4 so:
+// The tensor-core stage (TC = true: the rec, pb, cross_rev and rec_g
+// inference kernels; every other instance keeps the float32 stage) runs steps
+// 3 and 4 so:
 //
 //   * 3xTF32: w2 is split once on the host (ops/cuda/tpconv_common.py:
 //     pack_weights) into w2_hi = tf32(w2) and w2_lo = tf32(w2 - w2_hi), and
@@ -47,7 +50,15 @@
 //     product within float32 rounding of the float32 stage's (one TF32
 //     product is off by ~3e-4 of the largest value at K=96, over the
 //     kernels' 2e-4 bar). H is padded with zeros to
-//     Hp, a multiple of 8, and may be at most KMAX = 96;
+//     Hp, a multiple of 8, and may be at most KMAX = 96. A layer with a
+//     larger H, or whose layout below does not fit the 232,448 bytes a block
+//     may take (the ns=48/nv=10 ladder: 230,608 bytes at 48 -> 78 before the
+//     static 3,104, 310,288 at 156 -> 156), runs the kernel's float32 build at
+//     TM_WIDE edges a chunk instead (156,544 bytes at 156 -> 156); the host
+//     picks the build from a mirror of these layouts
+//     (ops/cuda/tpconv_common.py: pick_build, engine_smem_bytes), and every
+//     library exports the C++ bytes (cbt_smem_bytes, and its kernels' static
+//     bytes: cbt_static_smem_bytes);
 //   * both warpgroups hold the chunk's 64 x Hp hidden layer as wgmma A
 //     fragments in registers (hi and lo, loaded once per chunk) and each
 //     multiplies it by its 24-column half of a TNC = 48-column w2 tile read
@@ -68,8 +79,9 @@
 //     copied per chunk into the X region until the contributions write X, for
 //     a register-tiled hidden layer stored [edges][Hp]; the X table's rows
 //     and cg, copied into the msg region until step 4 zeroes msg, for
-//     contributions with fixed-trip loops; the epilogue items, copied once
-//     per block; b2 of a tile is read while the tile multiplies;
+//     contributions with fixed-trip loops (unrolled to the l = 1 harmonic
+//     block at SHD=4 and the l = 2 block at SHD=9); the epilogue items,
+//     copied once per block; b2 of a tile is read while the tile multiplies;
 //   * cross_rev runs both directions through one call site: two inlined
 //     copies of the stage hold too many registers at once and spill;
 //   * room: the transients of a chunk (z, the sender features, the
@@ -79,7 +91,9 @@
 //     12,544, X 87,296, msg 25,856, out tile 3,200, epilogue items 3,824) at
 //     100 -> 100 (S=340); 172,928 at 68 -> 100 (S=212); 152,160 at 50 -> 68;
 //     139,248 at 32 -> 50; plus 3,104 static, under the 227 KB a block may
-//     take.
+//     take. pb and cross_rev take (8 - RT) * Dout floats less (RT = 6 and
+//     1 at B=32); rec_g at the confidence trunk's 84 -> 84 layer (SHD=9,
+//     S=312, H=72, RT=8) 175,296.
 //
 // What bounds the tensor-core stage: the 3 TF32 products, 6*Hp*W flops per
 // edge at 495 TFLOP/s (chip_smoke.py's tensor-core bound). It also streams
@@ -95,7 +109,8 @@
 
 namespace cbt {
 
-constexpr int TM = 64;    // edges per chunk
+constexpr int TM = 64;    // edges per chunk: the tensor-core stage and the float32 stage's default build
+constexpr int TM_WIDE = 32;  // edges per chunk of the float32 builds for layers whose TM-edge layout does not fit
 constexpr int TN = 64;    // w2 columns per GEMM tile (ops/cuda/tpconv_common.py: TN)
 constexpr int NT = 256;   // threads per block (16 x 16 GEMM thread grid)
 constexpr int XROW = 8;   // ints per X-table row
@@ -133,7 +148,8 @@ __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 // At SHD=9 and the confidence trunk's 84 -> 84 layer (S=312, H=72) this is
 // about 41k floats (165 KB) plus the receiver tile, under the 227 KB a block
 // may take.
-template <int SHD>
+// CM: edges per chunk (TM, or TM_WIDE for a layer too wide for TM).
+template <int SHD, int CM = TM>
 __host__ __device__ inline Layout make_layout(const Dims& d, int S, int RT) {
   Layout L;
   L.ldz = d.F | 1;  // odd strides: rows of consecutive threads hit distinct banks
@@ -142,8 +158,8 @@ __host__ __device__ inline Layout make_layout(const Dims& d, int S, int RT) {
   L.ldxs = S | 1;
   L.ldc = TN + 1;
   L.ldm = d.Dout | 1;
-  const int zsz = round4(TM * L.ldz), xssz = round4(TM * L.ldx);
-  const int wsz = round4(d.H * TN), csz = round4(TM * L.ldc);
+  const int zsz = round4(CM * L.ldz), xssz = round4(CM * L.ldx);
+  const int wsz = round4(d.H * TN), csz = round4(CM * L.ldc);
   int o = 0;
   L.z = o;
   L.xs = o + zsz;
@@ -151,13 +167,13 @@ __host__ __device__ inline Layout make_layout(const Dims& d, int S, int RT) {
   L.c = o + wsz;
   o += (zsz + xssz > wsz + csz) ? zsz + xssz : wsz + csz;
   L.sh = o;
-  o += round4(TM * L.ldsh);
+  o += round4(CM * L.ldsh);
   L.h = o;
-  o += round4(d.H * TM);
+  o += round4(d.H * CM);
   L.X = o;
-  o += round4(TM * L.ldxs);
+  o += round4(CM * L.ldxs);
   L.msg = o;
-  o += round4(TM * L.ldm);
+  o += round4(CM * L.ldm);
   L.out = o;
   o += round4(RT * d.Dout);
   L.total = o;
@@ -165,37 +181,38 @@ __host__ __device__ inline Layout make_layout(const Dims& d, int S, int RT) {
 }
 
 // Per-chunk edge records, filled by each kernel for the edges compact() kept.
+template <int CM = TM>
 struct EdgeSlots {
-  const float* emb[TM];   // edge embedding row [Fe]
-  const float* recv[TM];  // receiver feature row (first ns read)
-  const float* send[TM];  // sender feature row [Din]
-  float vec[TM][3];       // sender position - receiver position
-  int slot[TM];           // receiver row inside the block's tile
-  int dst[TM];            // cross_rev: receptor row of the edge
-  int cand[TM];           // candidate index of each kept edge
+  const float* emb[CM];   // edge embedding row [Fe]
+  const float* recv[CM];  // receiver feature row (first ns read)
+  const float* send[CM];  // sender feature row [Din]
+  float vec[CM][3];       // sender position - receiver position
+  int slot[CM];           // receiver row inside the block's tile
+  int dst[CM];            // cross_rev: receptor row of the edge
+  int cand[CM];           // candidate index of each kept edge
   int count, cursor;
 };
 
-// Keep the next (up to TM) valid candidates in [cursor, ncand), in order.
-template <class Valid>
-__device__ void compact(int ncand, Valid valid, EdgeSlots& s) {
+// Keep the next (up to CM) valid candidates in [cursor, ncand), in order.
+template <int CM, class Valid>
+__device__ void compact(int ncand, Valid valid, EdgeSlots<CM>& s) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     int count = 0, cur = s.cursor;
-    while (count < TM && cur < ncand) {
+    while (count < CM && cur < ncand) {
       const int c = cur + lane;
       const bool v = c < ncand && valid(c);
       const unsigned ball = __ballot_sync(0xffffffffu, v);
       const int pos = count + __popc(ball & ((1u << lane) - 1u));
-      if (v && pos < TM) s.cand[pos] = c;
+      if (v && pos < CM) s.cand[pos] = c;
       const int total = __popc(ball);
-      if (count + total <= TM) {
+      if (count + total <= CM) {
         count += total;
         cur += 32;
       } else {
-        const unsigned last = __ballot_sync(0xffffffffu, v && pos == TM - 1);
+        const unsigned last = __ballot_sync(0xffffffffu, v && pos == CM - 1);
         cur += __ffs(last);  // one past the lane of the last edge kept
-        count = TM;
+        count = CM;
       }
     }
     if (lane == 0) {
@@ -209,14 +226,14 @@ __device__ void compact(int ncand, Valid valid, EdgeSlots& s) {
 // MLP input, sender features and harmonics of the first `count` slots.
 // recv/send may be swapped by the caller (the reversed cross direction);
 // sign flips the edge vector with them. sig (nullable) is added to emb.
-template <int SHD>
+template <int SHD, int CM = TM>
 __device__ void fill_edges(float* sm, const Layout& L, const Dims& d, int count, const float* const* emb,
                            const float* const* recv, const float* const* send, const float (*vec)[3],
                            const float* sig, float sign) {
   float* z = sm + L.z;
   float* xs = sm + L.xs;
   float* sh = sm + L.sh;
-  for (int i = threadIdx.x; i < TM * d.F; i += NT) {
+  for (int i = threadIdx.x; i < CM * d.F; i += NT) {
     const int m = i / d.F, f = i % d.F;
     float v = 0.f;
     if (m < count) {
@@ -229,11 +246,11 @@ __device__ void fill_edges(float* sm, const Layout& L, const Dims& d, int count,
     }
     z[m * L.ldz + f] = v;
   }
-  for (int i = threadIdx.x; i < TM * d.Din; i += NT) {
+  for (int i = threadIdx.x; i < CM * d.Din; i += NT) {
     const int m = i / d.Din, a = i % d.Din;
     xs[m * L.ldx + a] = (m < count) ? send[m][a] : 0.f;
   }
-  for (int m = threadIdx.x; m < TM; m += NT) {
+  for (int m = threadIdx.x; m < CM; m += NT) {
     float x = 0.f, y = 0.f, w = 0.f;
     if (m < count) {
       x = sign * vec[m][0];
@@ -263,44 +280,47 @@ __device__ void fill_edges(float* sm, const Layout& L, const Dims& d, int count,
 }
 
 // h[k][m] = relu(b1[k] + sum_f z[m][f] w1[f][k]), stored k-major for the GEMM.
+template <int CM = TM>
 __device__ void hidden_layer(float* sm, const Layout& L, const Dims& d, const TPWeights& W) {
   const float* z = sm + L.z;
   float* h = sm + L.h;
-  for (int i = threadIdx.x; i < TM * d.H; i += NT) {
-    const int m = i % TM, k = i / TM;
+  for (int i = threadIdx.x; i < CM * d.H; i += NT) {
+    const int m = i % CM, k = i / CM;
     const float* zr = z + m * L.ldz;
     float acc = W.b1[k];
     for (int f = 0; f < d.F; ++f) acc = fmaf(zr[f], W.w1[f * d.H + k], acc);
-    h[k * TM + m] = fmaxf(acc, 0.f);
+    h[k * CM + m] = fmaxf(acc, 0.f);
   }
 }
 
 // The training variant: h[k][m] times the hidden-layer dropout mask of the
 // slot's edge, dm[cand[m] * hd + k] ({0, 1/keep}; hd = H, or 1 for one value
 // per edge), applied after the ReLU as the JAX package's kernels apply it.
-__device__ void hidden_layer_dm(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const EdgeSlots& s,
-                                const float* __restrict__ dm, int hd) {
+template <int CM = TM>
+__device__ void hidden_layer_dm(float* sm, const Layout& L, const Dims& d, const TPWeights& W,
+                                const EdgeSlots<CM>& s, const float* __restrict__ dm, int hd) {
   const float* z = sm + L.z;
   float* h = sm + L.h;
   const int ks = hd > 1 ? 1 : 0;
-  for (int i = threadIdx.x; i < TM * d.H; i += NT) {
-    const int m = i % TM, k = i / TM;
+  for (int i = threadIdx.x; i < CM * d.H; i += NT) {
+    const int m = i % CM, k = i / CM;
     const float* zr = z + m * L.ldz;
     float acc = W.b1[k];
     for (int f = 0; f < d.F; ++f) acc = fmaf(zr[f], W.w1[f * d.H + k], acc);
     float v = fmaxf(acc, 0.f);
     if (m < s.count) v *= dm[(size_t)s.cand[m] * hd + k * ks];
-    h[k * TM + m] = v;
+    h[k * CM + m] = v;
   }
 }
 
 // X[m][e] = sum_{a,b} x[in_base + a] sh[sh_base + b] cg[(a*ds + b)*dout + c].
+template <int CM = TM>
 __device__ void contributions(float* sm, const Layout& L, const TPTables& T) {
   const float* xs = sm + L.xs;
   const float* sh = sm + L.sh;
   float* X = sm + L.X;
-  for (int i = threadIdx.x; i < TM * T.S; i += NT) {
-    const int m = i % TM, e = i / TM;
+  for (int i = threadIdx.x; i < CM * T.S; i += NT) {
+    const int m = i % CM, e = i / CM;
     const int* r = T.xtab + e * XROW;
     const int di = r[1], ds = r[3], dout = r[4];
     const float* x = xs + m * L.ldx + r[0];
@@ -322,43 +342,57 @@ __device__ void load_w_tile(float* ws, const Dims& d, const TPWeights& W, const 
   }
 }
 
-// msg[m][:] = the weighted tensor product of every slot (step 4 above).
+// msg[m][:] = the weighted tensor product of every slot (step 4 above). The
+// 16 x 16 thread grid holds CM/16 rows and 4 columns of a tile each.
+template <int CM = TM>
 __device__ void weighted_tp(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const TPTables& T) {
+  constexpr int RM = CM / 16;
+  static_assert(RM == 4 || RM == 2, "chunks of 64 or 32 edges");
   const float* h = sm + L.h;
   float* ws = sm + L.w;
   float* cs = sm + L.c;
   const float* X = sm + L.X;
   float* msg = sm + L.msg;
-  for (int i = threadIdx.x; i < TM * L.ldm; i += NT) msg[i] = 0.f;
+  for (int i = threadIdx.x; i < CM * L.ldm; i += NT) msg[i] = 0.f;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   load_w_tile(ws, d, W, T, 0);
   __syncthreads();
   for (int t = 0; t < T.n_tiles; ++t) {
-    float acc[4][4];
+    float acc[RM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
     for (int k = 0; k < d.H; ++k) {
-      const float4 a = reinterpret_cast<const float4*>(h + k * TM)[ty];
+      float av[RM];
+      if constexpr (RM == 4) {
+        const float4 a = reinterpret_cast<const float4*>(h + k * CM)[ty];
+        av[0] = a.x;
+        av[1] = a.y;
+        av[2] = a.z;
+        av[3] = a.w;
+      } else {
+        const float2 a = reinterpret_cast<const float2*>(h + k * CM)[ty];
+        av[0] = a.x;
+        av[1] = a.y;
+      }
       const float4 b = reinterpret_cast<const float4*>(ws + k * TN)[tx];
-      const float av[4] = {a.x, a.y, a.z, a.w};
       const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cs[(ty * 4 + i) * L.ldc + tx * 4 + j] = acc[i][j] + W.b2[t * TN + tx * 4 + j];
+      for (int j = 0; j < 4; ++j) cs[(ty * RM + i) * L.ldc + tx * 4 + j] = acc[i][j] + W.b2[t * TN + tx * 4 + j];
     __syncthreads();
     if (t + 1 < T.n_tiles) load_w_tile(ws, d, W, T, t + 1);
     const int e0 = T.epi_start[t], ne = T.epi_start[t + 1] - e0;
-    for (int i = threadIdx.x; i < ne * TM; i += NT) {
-      const int m = i % TM;
-      const int* it = T.epi + (e0 + i / TM) * EROW;
+    for (int i = threadIdx.x; i < ne * CM; i += NT) {
+      const int m = i % CM;
+      const int* it = T.epi + (e0 + i / CM) * EROW;
       const int lo = it[0], hi = it[1], step = it[3];
       const float* cr = cs + m * L.ldc;
       const float* xr = X + m * L.ldxs + it[2];
@@ -374,23 +408,24 @@ __device__ void weighted_tp(float* sm, const Layout& L, const Dims& d, const TPW
 // selects the training variant of the hidden layer (dropout mask dm, whose
 // rows are indexed by the slots' candidate numbers); the inference
 // instantiation (DM = false) is the code it was before the mask existed.
-template <int SHD, bool DM = false>
+template <int SHD, bool DM = false, int CM = TM>
 __device__ void run_engine(float* sm, const Layout& L, const Dims& d, const TPWeights& W, const TPTables& T,
-                           const EdgeSlots& s, const float* const* recv, const float* const* send,
+                           const EdgeSlots<CM>& s, const float* const* recv, const float* const* send,
                            const float* sig, float sign, const float* dm = nullptr, int hd = 0) {
-  fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
+  fill_edges<SHD, CM>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
   __syncthreads();
   if constexpr (DM)
-    hidden_layer_dm(sm, L, d, W, s, dm, hd);
+    hidden_layer_dm<CM>(sm, L, d, W, s, dm, hd);
   else
-    hidden_layer(sm, L, d, W);
-  contributions(sm, L, T);
+    hidden_layer<CM>(sm, L, d, W);
+  contributions<CM>(sm, L, T);
   __syncthreads();
-  weighted_tp(sm, L, d, W, T);
+  weighted_tp<CM>(sm, L, d, W, T);
 }
 
 // out_tile[slot[m]][:] += msg[m][:] in slot order (deterministic).
-__device__ void reduce_to_tile(float* sm, const Layout& L, const Dims& d, const EdgeSlots& s) {
+template <int CM>
+__device__ void reduce_to_tile(float* sm, const Layout& L, const Dims& d, const EdgeSlots<CM>& s) {
   const float* msg = sm + L.msg;
   float* outs = sm + L.out;
   for (int o = threadIdx.x; o < d.Dout; o += NT)
@@ -600,9 +635,12 @@ __device__ void stage_tables(float* sm, const LayoutTC& L, const Dims& d, const 
 }
 
 // contributions() from stage_tables' copies, its loops unrolled to the
-// stage's irreps (l <= 1 inputs, lmax=1 harmonics: di, ds <= 3); the same
-// terms in the same order, so X is the same bit for bit.
+// stage's irreps (l <= 1 inputs: di <= 3; harmonic blocks up to l = 1 at
+// SHD=4, l = 2 at SHD=9: ds <= 3 or 5); the same terms in the same order, so
+// X is the same bit for bit.
+template <int SHD>
 __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T) {
+  constexpr int DS = SHD == 4 ? 3 : 5;
   const float* xs = sm + L.xs;
   const float* sh = sm + L.sh;
   const int* xtab = reinterpret_cast<const int*>(sm + L.msg);
@@ -620,7 +658,7 @@ __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int b = 0; b < 3; ++b)
+      for (int b = 0; b < DS; ++b)
         if (a < di && b < ds) acc = fmaf(x[a] * s[b], cg[(a * ds + b) * dout], acc);
     X[m * L.ldxs + e] = acc;
   }
@@ -730,14 +768,14 @@ __device__ void weighted_tp_tc(float* sm, const LayoutTC& L, const TPWeightsTC& 
 // Steps 2-4 of one chunk on the tensor-core stage; leaves msg in shared memory.
 template <int SHD>
 __device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T,
-                              const EdgeSlots& s, const float* const* recv, const float* const* send, const float* sig,
-                              float sign, uint64_t* bar, uint32_t& tiles) {
+                              const EdgeSlots<TM>& s, const float* const* recv, const float* const* send,
+                              const float* sig, float sign, uint64_t* bar, uint32_t& tiles) {
   fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
   stage_tables(sm, L, d, W, T);
   __syncthreads();
   hidden_layer_tc(sm, L, d, W);
   __syncthreads();  // contributions_tc() overwrites the staged w1
-  contributions_tc(sm, L, T);
+  contributions_tc<SHD>(sm, L, T);
   __syncthreads();
   weighted_tp_tc(sm, L, W, T, bar, tiles);
 }
@@ -746,12 +784,13 @@ __device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const
 template <bool TC>
 using WeightsOf = std::conditional_t<TC, TPWeightsTC, TPWeights>;
 
-template <int SHD, bool TC>
+template <int SHD, bool TC, int CM = TM>
 __host__ __device__ inline auto engine_layout(const Dims& d, const TPTables& T, int RT) {
+  static_assert(!TC || CM == TM, "the tensor-core stage takes TM-edge chunks");
   if constexpr (TC)
     return make_layout_tc<SHD>(d, T, RT);
   else
-    return make_layout<SHD>(d, T.S, RT);
+    return make_layout<SHD, CM>(d, T.S, RT);
 }
 
 // The block's setup for the tensor-core stage: the ring's barriers, one
@@ -773,14 +812,15 @@ __device__ void init_tc(float* sm, const LayoutTC& L, const TPTables& T, uint64_
 // receivers are one node table [B, N, Din] (the rec and rec_g kernels).
 // Candidates are the RT*K neighbour slots in (receiver, k) order; sig [B, Fe]
 // is added to the cached edge embedding in the fill. With DM (training), dm
-// [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot.
-template <int SHD, bool DM = false, bool TC = false>
-__device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node, const float* __restrict__ pos,
+// [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot. CM:
+// edges per chunk of the float32 stage (TM_WIDE for layers too wide for TM).
+template <int SHD, bool DM = false, bool TC = false, int CM = TM>
+__device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ node, const float* __restrict__ pos,
                          const int64_t* __restrict__ nbr, const float* __restrict__ emb,
                          const float* __restrict__ sig, const uint8_t* __restrict__ mask, const WeightsOf<TC>& W,
                          const TPTables& T, const Dims& d, int N, int K, int RT, float* __restrict__ out,
                          const float* __restrict__ dm = nullptr, int hd = 0, uint64_t* bar = nullptr) {
-  const auto L = engine_layout<SHD, TC>(d, T, RT);
+  const auto L = engine_layout<SHD, TC, CM>(d, T, RT);
   uint32_t tiles = 0;
   if constexpr (TC) init_tc(sm, L, T, bar);
   const int b = blockIdx.y, i0 = blockIdx.x * RT;
@@ -808,10 +848,10 @@ __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node
     if constexpr (TC)
       run_engine_tc<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles);
     else if constexpr (DM)
-      run_engine<SHD, true>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
-                            dm + (row0 + i0) * K * hd, hd);
+      run_engine<SHD, true, CM>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
+                                dm + (row0 + i0) * K * hd, hd);
     else
-      run_engine<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f);
+      run_engine<SHD, false, CM>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f);
     reduce_to_tile(sm, L, d, s);
     __syncthreads();
   }
@@ -824,15 +864,16 @@ __device__ void rec_tile(float* sm, EdgeSlots& s, const float* __restrict__ node
 // receivers with the forward weights (summed onto the tile in slot order),
 // then, when with_rev is set, sender <- receiver with the roles swapped and
 // the harmonics negated, added into out_rec [B, N, Dout] with atomicAdd:
-// those sums' order varies from run to run (a few float32 ulps).
-template <int SHD, bool TC = false>
-__device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ lig, const float* __restrict__ lpos,
+// those sums' order varies from run to run (a few float32 ulps). CM as in
+// rec_tile.
+template <int SHD, bool TC = false, int CM = TM>
+__device__ void cross_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ lig, const float* __restrict__ lpos,
                            const float* __restrict__ rec, const float* __restrict__ rpos,
                            const int64_t* __restrict__ idx, const float* __restrict__ emb,
                            const uint8_t* __restrict__ mask, const WeightsOf<TC>& Wf, const WeightsOf<TC>& Wr,
                            int with_rev, const TPTables& T, const Dims& d, int L, int N, int K, int RT,
                            float* __restrict__ out_lig, float* __restrict__ out_rec, uint64_t* bar = nullptr) {
-  const auto Ly = engine_layout<SHD, TC>(d, T, RT);
+  const auto Ly = engine_layout<SHD, TC, CM>(d, T, RT);
   uint32_t tiles = 0;
   if constexpr (TC) init_tc(sm, Ly, T, bar);
   const int b = blockIdx.y, l0 = blockIdx.x * RT;
@@ -877,11 +918,11 @@ __device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ li
         __syncthreads();
       }
     } else {
-      run_engine<SHD>(sm, Ly, d, Wf, T, s, s.recv, s.send, nullptr, 1.f);
+      run_engine<SHD, false, CM>(sm, Ly, d, Wf, T, s, s.recv, s.send, nullptr, 1.f);
       reduce_to_tile(sm, Ly, d, s);
       __syncthreads();
       if (with_rev) {
-        run_engine<SHD>(sm, Ly, d, Wr, T, s, s.send, s.recv, nullptr, -1.f);
+        run_engine<SHD, false, CM>(sm, Ly, d, Wr, T, s, s.send, s.recv, nullptr, -1.f);
         const float* msg = sm + Ly.msg;
         for (int i = threadIdx.x; i < s.count * d.Dout; i += NT) {
           const int m = i / d.Dout, o = i % d.Dout;
@@ -897,22 +938,22 @@ __device__ void cross_tile(float* sm, EdgeSlots& s, const float* __restrict__ li
 // Edge-list fill: the MLP input (all F columns), sender features and
 // harmonics (SHD given components) of each kept slot, read from per-edge
 // rows; edge e = the slot's candidate number past the block's first edge.
-template <int SHD>
-__device__ void fill_given(float* sm, const Layout& L, const Dims& d, const EdgeSlots& s,
+template <int SHD, int CM>
+__device__ void fill_given(float* sm, const Layout& L, const Dims& d, const EdgeSlots<CM>& s,
                            const float* __restrict__ attr, const float* __restrict__ send,
                            const float* __restrict__ shin) {
   float* z = sm + L.z;
   float* xs = sm + L.xs;
   float* sh = sm + L.sh;
-  for (int i = threadIdx.x; i < TM * d.F; i += NT) {
+  for (int i = threadIdx.x; i < CM * d.F; i += NT) {
     const int m = i / d.F, f = i % d.F;
     z[m * L.ldz + f] = (m < s.count) ? attr[(size_t)s.cand[m] * d.F + f] : 0.f;
   }
-  for (int i = threadIdx.x; i < TM * d.Din; i += NT) {
+  for (int i = threadIdx.x; i < CM * d.Din; i += NT) {
     const int m = i / d.Din, a = i % d.Din;
     xs[m * L.ldx + a] = (m < s.count) ? send[(size_t)s.cand[m] * d.Din + a] : 0.f;
   }
-  for (int i = threadIdx.x; i < TM * SHD; i += NT) {
+  for (int i = threadIdx.x; i < CM * SHD; i += NT) {
     const int m = i / SHD, b = i % SHD;
     sh[m * L.ldsh + b] = (m < s.count) ? shin[(size_t)s.cand[m] * SHD + b] : 0.f;
   }
@@ -923,13 +964,13 @@ __device__ void fill_given(float* sm, const Layout& L, const Dims& d, const Edge
 // [M, K]; with DM the hidden-layer dropout mask dm [M, K, hd]. Candidates are
 // the RT*K edges of the rows in order. sum_k: the rows' message sums
 // [M, Dout]; otherwise each kept edge's message at out [M, K, Dout] (the
-// caller zeroes out, so masked edges read zero).
-template <int SHD, bool DM>
-__device__ void edge_tile(float* sm, EdgeSlots& s, const float* __restrict__ attr, const float* __restrict__ send,
+// caller zeroes out, so masked edges read zero). CM as in rec_tile.
+template <int SHD, bool DM, int CM = TM>
+__device__ void edge_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ attr, const float* __restrict__ send,
                           const float* __restrict__ shin, const uint8_t* __restrict__ mask,
                           const float* __restrict__ dm, int hd, const TPWeights& W, const TPTables& T, const Dims& d,
                           int M, int K, int RT, int sum_k, float* __restrict__ out) {
-  const Layout L = make_layout<SHD>(d, T.S, RT);
+  const Layout L = make_layout<SHD, CM>(d, T.S, RT);
   const int m0 = blockIdx.x * RT;
   const int nrows = min(RT, M - m0);
   const size_t e0 = (size_t)m0 * K;
@@ -945,12 +986,12 @@ __device__ void edge_tile(float* sm, EdgeSlots& s, const float* __restrict__ att
     fill_given<SHD>(sm, L, d, s, attr + e0 * d.F, send + e0 * d.Din, shin + e0 * SHD);
     __syncthreads();
     if constexpr (DM)
-      hidden_layer_dm(sm, L, d, W, s, dm + e0 * hd, hd);
+      hidden_layer_dm<CM>(sm, L, d, W, s, dm + e0 * hd, hd);
     else
-      hidden_layer(sm, L, d, W);
-    contributions(sm, L, T);
+      hidden_layer<CM>(sm, L, d, W);
+    contributions<CM>(sm, L, T);
     __syncthreads();
-    weighted_tp(sm, L, d, W, T);
+    weighted_tp<CM>(sm, L, d, W, T);
     if (sum_k) {
       reduce_to_tile(sm, L, d, s);
     } else {
@@ -966,6 +1007,61 @@ __device__ void edge_tile(float* sm, EdgeSlots& s, const float* __restrict__ att
     for (int i = threadIdx.x; i < nrows * d.Dout; i += NT) out[(size_t)m0 * d.Dout + i] = outs[i];
 }
 
+// Launch kernel k on grid x NT threads with smem bytes of dynamic shared
+// memory (raised past 48 KB first). Returns a CUDA error code: a launch the
+// card refuses (too much shared memory) returns it here, never runs.
+template <class Kernel, class... Args>
+int launch(Kernel k, dim3 grid, size_t smem, void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  k<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int SHD>
+inline long long layout_bytes(int tc, int cm, const Dims& d, const TPTables& T, int RT) {
+  if (tc) return cm == TM ? (long long)smem_bytes(make_layout_tc<SHD>(d, T, RT)) : -1;
+  if (cm == TM) return (long long)smem_bytes(make_layout<SHD, TM>(d, T.S, RT));
+  if (cm == TM_WIDE) return (long long)smem_bytes(make_layout<SHD, TM_WIDE>(d, T.S, RT));
+  return -1;
+}
+
+// Static shared memory, in bytes, of the kernels of one build
+// (cudaFuncGetAttributes): the value all of them have, or -2 where they
+// differ or a query fails. Each library's cbt_static_smem_bytes returns it,
+// -1 for a build the library does not have; the host mirror is
+// ops/cuda/tpconv_common.engine_static_bytes.
+template <class Kernel, class... More>
+long long static_bytes(Kernel k, More... more) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, k) != cudaSuccess) return -2;
+  if constexpr (sizeof...(more) > 0) {
+    if (static_bytes(more...) != (long long)a.sharedSizeBytes) return -2;
+  }
+  return (long long)a.sharedSizeBytes;
+}
+
 }  // namespace cbt
 
 extern "C" const char* cbt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// The dynamic shared memory, in bytes, of one block of this library's
+// kernels at a layer: the tensor-core stage (tc) or the float32 stage at cm
+// edges a chunk (TM or TM_WIDE), shd harmonic components (4, 9 or 20); -1
+// for a build that does not exist. The host mirror is
+// ops/cuda/tpconv_common.engine_smem_bytes.
+extern "C" long long cbt_smem_bytes(int tc, int cm, int shd, int Fe, int ns, int F, int H, int Din, int Dout, int S,
+                                    int n_tiles, int n_epi, int n_cg, int RT) {
+  const cbt::Dims d{Fe, ns, F, H, Din, Dout};
+  const cbt::TPTables T{nullptr, nullptr, nullptr, nullptr, S, n_tiles, 0, n_epi, n_cg};
+  switch (shd) {
+    case 4:
+      return cbt::layout_bytes<4>(tc, cm, d, T, RT);
+    case 9:
+      return cbt::layout_bytes<9>(tc, cm, d, T, RT);
+    case 20:
+      return cbt::layout_bytes<20>(tc, cm, d, T, RT);
+    default:
+      return -1;
+  }
+}

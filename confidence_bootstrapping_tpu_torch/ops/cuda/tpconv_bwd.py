@@ -12,7 +12,9 @@ contributions' cotangent, the MLP backward); the layout is this repository's
 
 ``edge_bwd`` launches the kernel for CUDA tensors and calls ``edge_bwd_plain``
 (autograd of ``tpconv_edge.tpconv_edge_plain``) for CPU tensors;
-``edge_bwd.launches`` counts kernel launches.
+``edge_bwd.launches`` counts kernel launches. The per-edge kernel has two
+builds (``bwd_build``): 32 edges a block for H <= 128, and 16 for H <= 192 or
+where the 32-edge layout does not fit a block's shared memory.
 """
 
 from __future__ import annotations
@@ -26,15 +28,15 @@ import torch
 
 from ..irreps import Irreps, WeightedTensorProduct
 from . import build
-from .tpconv_common import TN, check_inputs, device_tables, ptr, sh_dim, tp_layout
+from .tpconv_common import SMEM_LIMIT, TN, check_inputs, device_tables, ptr, sh_dim, tp_layout
 from .tpconv_edge import tpconv_edge_plain
 
-MAX_H = 128  # csrc/tpconv_bwd.cu: 16 * HJ
+BUILDS = ((32, 128), (16, 192))  # csrc/tpconv_bwd.cu: (edges a block, the largest H) of each per-edge build
 TARGET_BLOCKS = 528  # reduction blocks to aim for: four per SM of an H100
 MIN_ROWS_PER_SPLIT = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] + [_P] * 11 + [_I] * 9 + [_P] * 6 + [_I] * 2 + [_P] * 4
+_ARGTYPES = [_P] * 5 + [_I] + [_P] * 11 + [_I] * 9 + [_P] * 6 + [_I] * 2 + [_P] * 3 + [_I, _P]
 
 
 class BwdLayout(NamedTuple):
@@ -93,6 +95,30 @@ def bwd_layout(irreps_in: str, irreps_out: str, irreps_sh: str) -> BwdLayout:
                      np.asarray(vtab, np.int32).reshape(-1, 5), vtab_start.astype(np.int32))
 
 
+def bwd_smem_bytes(bt: int, F: int, H: int, Din: int, Dsh: int, Dout: int, S: int) -> int:
+    """Dynamic shared memory of one block of the per-edge kernel at ``bt``
+    edges a block: the host mirror of ``bwd_layout`` in csrc/tpconv_bwd.cu,
+    whose library exports the C++ value (``cbt_bwd_smem_bytes``)."""
+    ldw = TN + 1
+    region = max(bt * (F | 1), H * ldw + 2 * bt * ldw, bt * (H | 1))
+    return 4 * (region + bt * ((Din | 1) + (Dsh | 1) + (Dout | 1) + 2 * (S | 1)) + H * (bt + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_build(F: int, H: int, Din: int, Dsh: int, Dout: int, S: int) -> int:
+    """Edges a block of the per-edge build a layer takes: the first of
+    ``BUILDS`` that takes its H and whose layout fits SMEM_LIMIT. Raises,
+    naming the bytes, where none does."""
+    need = []
+    for bt, hmax in BUILDS:
+        b = bwd_smem_bytes(bt, F, H, Din, Dsh, Dout, S)
+        if H <= hmax and b <= SMEM_LIMIT:
+            return bt
+        need.append(f"{bt} edges a block: {b} B, H <= {hmax}")
+    raise ValueError(f"edge_bwd: no build of the backward kernel takes F={F} H={H} Din={Din} Dout={Dout} S={S} "
+                     f"in {SMEM_LIMIT} bytes of shared memory ({'; '.join(need)})")
+
+
 @functools.lru_cache(maxsize=None)
 def _device_bwd_tables(irreps_in: str, irreps_out: str, irreps_sh: str, device: torch.device):
     return tuple(torch.as_tensor(a, device=device) for a in bwd_layout(irreps_in, irreps_out, irreps_sh))
@@ -138,9 +164,10 @@ def _launch(attr, sender, sh, g, dmask, w1, b1, w2, b2, irreps_in, irreps_sh, ir
     hd = 0 if dmask is None else dmask.shape[-1]
     check_inputs(dev, floats=(attr, sender, sh, g) + (() if dmask is None else (dmask,)))
     if (sender.shape != (T, lay.din) or sh.shape != (T, dsh) or g.shape != (T, lay.dout)
-            or tuple(w1.shape) != (F, H) or tuple(w2.shape) != (H, lay.weight_numel) or H > MAX_H
+            or tuple(w1.shape) != (F, H) or tuple(w2.shape) != (H, lay.weight_numel)
             or (dmask is not None and (dmask.shape[0] != T or hd not in (1, H)))):
         raise ValueError("edge_bwd: inconsistent shapes")
+    bt = bwd_build(F, H, lay.din, dsh, lay.dout, lay.n_x)
     xtab, cg = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:2]
     cscale, bcol, bepi, bepi_start, vtab, vtab_start = _device_bwd_tables(irreps_in, irreps_out, irreps_sh, dev)
     W = lay.weight_numel
@@ -163,7 +190,7 @@ def _launch(attr, sender, sh, g, dmask, w1, b1, w2, b2, irreps_in, irreps_sh, ir
         ptr(attr), ptr(sender), ptr(sh), ptr(g), ptr(dmask), hd, ptr(w1c), ptr(b1c), ptr(w2c), ptr(b2c), ptr(xtab),
         ptr(cg), ptr(bcol), ptr(bepi), ptr(bepi_start), ptr(vtab), ptr(vtab_start), T, F, H, lay.din, dsh, lay.dout,
         lay.n_x, lay.n_tiles, lay.wpad, ptr(d_attr), ptr(d_x), ptr(d_sh), ptr(hbuf), ptr(dhbuf), ptr(dwbuf), s2, s1,
-        ptr(part), ptr(dw2), ptr(dw1), torch.cuda.current_stream(dev).cuda_stream,
+        ptr(part), ptr(dw2), ptr(dw1), bt, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, "tpconv_bwd")
     return d_attr, d_x, d_sh, dw1[:F], dw1[F], dw2[:H, :W] * cscale, dw2[H, :W] * cscale

@@ -16,13 +16,17 @@ layout directly:
 * the epilogue items of each column tile: (col_lo, col_hi, x_base, x_step,
   out_col), one per (g, v) segment in the tile and output component c.
 
-The tensor-core stage of the rec and cross_rev kernels (3xTF32 ``wgmma``)
-reads w2 split into TF32 parts, ``w2_hi = tf32(w2)`` and
+The tensor-core stage of the rec, pb, cross_rev and rec_g kernels (3xTF32
+``wgmma``) reads w2 split into TF32 parts, ``w2_hi = tf32(w2)`` and
 ``w2_lo = tf32(w2 - w2_hi)`` (round to nearest, ties away from zero, as
 ``cvt.rna.tf32.f32``), each cut into TNC-column tiles stored in the layout
 ``wgmma`` reads: per tile [TNC/8][Hp/4][8][4], core matrices of 8 columns x 4
 k (16 bytes a row), H padded with zero rows to Hp, a multiple of 8
 (``tile_w2``). Its epilogue tables are ``tp_layout``'s for TNC-column tiles.
+Each kernel has more than one build (the tensor-core stage, the float32
+stage at 64 or 32 edges a chunk); ``pick_build`` chooses the one a layer
+fits from a host mirror of their shared-memory layouts
+(``engine_smem_bytes``).
 
 The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model),
 ``1x0e + 1x1o + 1x2e`` (lmax=2, the all-atom confidence model) or, for the
@@ -51,6 +55,9 @@ TOR_SH_IRREPS = str(FullTensorProduct(SH_IRREPS, "1x2e").irreps_out)  # the tors
 TN = 64  # column tile of the kernels (csrc/tpconv_engine.cuh: TN, csrc/tpconv_bwd.cu: BN)
 TNC = 48  # column tile of the tensor-core stage (csrc/tpconv_engine.cuh: TNC)
 KMAX = 96  # the largest hidden width H the tensor-core stage takes (csrc/tpconv_engine.cuh: KMAX)
+TM = 64  # edges per chunk: the tensor-core stage and the float32 stage's default build (csrc/tpconv_engine.cuh: TM)
+TM_WIDE = 32  # edges per chunk of the float32 builds for layers whose TM-edge layout does not fit
+SMEM_LIMIT = 232_448  # bytes of shared memory (static and dynamic) one block may take on an H100
 XROW = 8
 EROW = 5
 
@@ -137,6 +144,81 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS, tn: i
         epi=np.asarray(epi, np.int32).reshape(-1, EROW),
         epi_start=np.asarray(epi_start, np.int32),
     )
+
+
+class Dims(NamedTuple):
+    """csrc/tpconv_engine.cuh: Dims. F is the MLP input width (Fe + 2 ns for
+    the gather kernels, the edge-list kernel's whole F with ns = 0)."""
+
+    Fe: int
+    ns: int
+    F: int
+    H: int
+    Din: int
+    Dout: int
+
+
+def _r4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def engine_smem_bytes(shd: int, tm: int, d: Dims, S: int, rt: int, tc: bool = False, n_cg: int = 0, n_epi: int = 0,
+                      n_tiles: int = 0) -> int:
+    """Dynamic shared memory of one engine block: the host mirror of
+    ``make_layout`` (float32 stage, ``tm`` edges a chunk) and, with ``tc``,
+    of ``make_layout_tc`` (tensor-core stage, TM edges a chunk) in
+    csrc/tpconv_engine.cuh. Every kernel library exports the C++ value
+    (``cbt_smem_bytes``); chip_smoke.py holds the two against each other."""
+    ldz, ldx, ldsh, ldxs, ldm = d.F | 1, d.Din | 1, shd | 1, S | 1, d.Dout | 1
+    if not tc:
+        zx = _r4(tm * ldz) + _r4(tm * ldx)
+        wc = _r4(d.H * TN) + _r4(tm * (TN + 1))
+        o = max(zx, wc) + _r4(tm * ldsh) + _r4(d.H * tm) + _r4(tm * ldxs) + _r4(tm * ldm) + _r4(rt * d.Dout)
+        return 4 * o
+    hp = -(-d.H // 8) * 8
+    ring, csz = 4 * TNC * hp, _r4(TM * (TNC + 1))
+    h = _r4(TM * ldz) + _r4(TM * ldx) + _r4(TM * ldsh)
+    o = max(ring + csz, h + _r4(TM * (hp + 4)))
+    o += _r4(max(TM * ldxs, d.F * d.H))
+    o += _r4(max(TM * ldm, S * XROW + n_cg))
+    o += _r4(rt * d.Dout) + _r4(n_epi * EROW + n_tiles + 1)
+    return 4 * o
+
+
+def engine_static_bytes(tm: int, tc: bool) -> int:
+    """Static shared memory of an engine kernel: its EdgeSlots (48 bytes an
+    edge slot and two ints) and, on the tensor-core stage, the ring's two
+    barriers, rounded up to 16 bytes. Every kernel library exports the
+    value of its kernels (``cbt_static_smem_bytes``); chip_smoke.py holds
+    the two against each other."""
+    return (48 * tm + 8 + (16 if tc else 0) + 15) & ~15
+
+
+@functools.lru_cache(maxsize=None)
+def pick_build(what: str, irreps_in: str, irreps_out: str, irreps_sh: str, d: Dims, rt: int, tc: bool,
+               tms=(TM, TM_WIDE)) -> tuple:
+    """The build of an engine kernel that a layer takes: (tensor cores?,
+    edges a chunk). With ``tc``, the tensor-core stage when H <= KMAX and its
+    layout fits SMEM_LIMIT; otherwise the first float32 chunk size of
+    ``tms`` whose layout fits. Raises, naming the bytes, where none fits:
+    no layer falls back to a plain version on the card."""
+    shd = sh_dim(irreps_sh)
+    need = []
+    if tc:
+        lay = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
+        b = engine_smem_bytes(shd, TM, d, lay.n_x, rt, True, len(lay.cg), len(lay.epi), lay.n_tiles)
+        b += engine_static_bytes(TM, True)
+        if d.H <= KMAX and b <= SMEM_LIMIT:
+            return True, TM
+        need.append(f"tensor cores {b} B (H={d.H}, at most {KMAX})")
+    S = tp_layout(irreps_in, irreps_out, irreps_sh).n_x
+    for tm in tms:
+        b = engine_smem_bytes(shd, tm, d, S, rt) + engine_static_bytes(tm, False)
+        if b <= SMEM_LIMIT:
+            return False, tm
+        need.append(f"float32 at {tm} edges a chunk {b} B")
+    raise ValueError(f"{what}: no build of the kernel fits {irreps_in} -> {irreps_out} in {SMEM_LIMIT} bytes of "
+                     f"shared memory ({', '.join(need)})")
 
 
 @functools.lru_cache(maxsize=None)

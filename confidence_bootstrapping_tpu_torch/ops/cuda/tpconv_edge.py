@@ -8,6 +8,9 @@ and the mask over pre-gathered edge lists [M, K, *], then the sum over K
 ``msgs_g``), in the canonical irreps layout. It is the forward of every
 training TP-conv but the receptor kNN groups (``ops/cuda/tpconv_train.py``).
 The harmonics come in as input: widths 4, 9 or 20 (``tpconv_common.sh_dim``).
+A layer whose 64-edge layout does not fit a block's shared memory (the ns=48
+ladder's wider layers) runs the kernel's build at 32 edges a chunk
+(``tpconv_common.pick_build``); where neither fits, the wrapper raises.
 
 ``fused_tpconv_edge`` launches the kernel for CUDA tensors and calls
 ``tpconv_edge_plain`` for CPU tensors; ``fused_tpconv_edge.launches`` counts
@@ -21,11 +24,12 @@ import ctypes
 import torch
 
 from . import build
-from .tpconv_common import check_inputs, device_tables, edge_messages, launch_weights, ptr, sh_dim, tp_layout
+from .tpconv_common import (Dims, check_inputs, device_tables, edge_messages, launch_weights, pick_build, ptr, sh_dim,
+                            tp_layout)
 from .tpconv_g import cross_rows_per_block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
+_ARGTYPES = [_P] * 5 + [_I] + [_P] * 8 + [_I] * 13 + [_P, _P]
 
 
 def tpconv_edge_plain(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask=None,
@@ -65,6 +69,8 @@ def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_
             or tuple(w1.shape) != (F, H) or tuple(w2.shape) != (H, lay.weight_numel)
             or (dmask is not None and (dmask.shape[:2] != (M, K) or hd not in (1, H)))):
         raise ValueError("fused_tpconv_edge: inconsistent shapes")
+    cm = pick_build("fused_tpconv_edge", irreps_in, irreps_out, irreps_sh, Dims(F, 0, F, H, lay.din, lay.dout),
+                    cross_rows_per_block(K), False)[1]
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
     w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
     shape = (M, lay.dout) if sum_k else (M, K, lay.dout)
@@ -75,7 +81,7 @@ def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_
     code = fn(
         ptr(edge_attr), ptr(sender), ptr(sh), ptr(mask), ptr(dmask), hd, ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p),
         ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, M, K, F, H, lay.din, lay.dout,
-        dsh, cross_rows_per_block(K), int(sum_k), ptr(out), torch.cuda.current_stream(dev).cuda_stream,
+        dsh, cross_rows_per_block(K, cm), int(sum_k), cm, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, "tpconv_edge")
     return out

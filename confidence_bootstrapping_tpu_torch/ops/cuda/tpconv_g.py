@@ -18,8 +18,13 @@ The Pallas kernels take any mul-1 harmonics up to l=2; these take
 input and output irreps of l <= 1. Positions stay float32 (the Pallas
 kernels split them into bf16 halves, about 1e-4 from a float32 composition).
 What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
-Each wrapper launches its kernel for CUDA tensors, calls its ``*_plain``
-version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
+``fused_tpconv_rec_g``'s inference kernel runs the H -> W product on the
+tensor cores (3xTF32 ``wgmma``) from the split, tiled w2 fields of
+``pack_weights``, and a layer that stage does not take its float32 build at
+TM_WIDE edges a chunk; its training variant and ``fused_tpconv_cross_g`` keep
+the float32 stage at TM edges a chunk (``tpconv_common.pick_build``; where
+no build fits a layer the wrapper raises). Each wrapper launches its kernel
+for CUDA tensors, calls its ``*_plain`` version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
 training, ``fused_tpconv_rec_g``'s ``dmask`` (the hidden-layer dropout mask)
 selects the kernel's training variant (``tpconv_rec_g_dm_kernel``), counted
 apart in ``fused_tpconv_rec_g.dm_launches``.
@@ -33,22 +38,22 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import (check_dmask, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh_dim,
-                            sh_kernel, tp_layout)
+from .tpconv_common import (TM, TM_WIDE, TNC, Dims, check_dmask, check_inputs, device_tables, edge_messages,
+                            launch_weights, pick_build, ptr, sh_dim, sh_kernel, tp_layout)
 
 RT_REC = 8  # receivers per rec_g block: 8 * K=24 receptor or K=8 atom neighbours
-EDGES_PER_CHUNK = 64  # csrc/tpconv_engine.cuh: TM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_REC_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_REC_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
+_REC_WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
 _REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
-_CROSS_ARGTYPES = [_P] * 15 + [_I] * 13 + [_P, _P]
+_CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 
 
-def cross_rows_per_block(K: int) -> int:
-    """Receivers per block of a list of K senders each (cross_g, the
-    edge-list kernel): enough to fill a 64-edge chunk."""
-    return max(1, EDGES_PER_CHUNK // max(K, 1))
+def cross_rows_per_block(K: int, chunk: int = TM) -> int:
+    """Receivers per block of a list of K senders each (the cross kernels,
+    the edge-list kernel): enough to fill a chunk of ``chunk`` edges."""
+    return max(1, chunk // max(K, 1))
 
 
 def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
@@ -112,17 +117,29 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
+    d = Dims(Fe, ns, Fe + 2 * ns, H, Din, lay.dout)
+    tc, _ = pick_build("fused_tpconv_rec_g", irreps_in, irreps_out, irreps_sh, d, RT_REC, dm is None,
+                       (TM_WIDE,) if dm is None else (TM,))
+    pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec_g")
-    tables = (ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
-              lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT_REC, ptr(out),
-              torch.cuda.current_stream(dev).cuda_stream)
+    dims = (B, N, K, Fe, ns, H, Din, lay.dout, RT_REC, ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
-    if dm is None:
+    if tc:
+        tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
         fn = lib.cbt_tpconv_rec_g
         fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+        build.check(lib, code, "tpconv_rec_g")
+        return out
+    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
+    tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x,
+              lay.n_tiles, lay.wpad, *dims)
+    if dm is None:
+        fn = lib.cbt_tpconv_rec_g_wide
+        fn.argtypes, fn.restype = _REC_WIDE_ARGTYPES, ctypes.c_int
         code = fn(*inputs, *tables)
     else:
         fn = lib.cbt_tpconv_rec_g_dm
@@ -176,6 +193,11 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
             or idx.shape != (B, L, K) or edge_emb.shape[:3] != (B, L, K) or mask.shape != (B, L, K)
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError(f"{kernel}: inconsistent shapes")
+    # row 4 (lmax=1) has a build at TM_WIDE edges a chunk for the layers TM does not fit; cross_g has TM only
+    d = Dims(Fe, ns, Fe + 2 * ns, H, D, lay.dout)
+    tms = (TM, TM_WIDE) if kernel == "tpconv_cross" else (TM,)
+    cm = pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, cross_rows_per_block(K), False, tms)[1]
+    rt = cross_rows_per_block(K, cm)
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
     w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
@@ -185,8 +207,7 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
     code = fn(
         ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask), ptr(w1c),
         ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad,
-        B, L, N, K, Fe, ns, H, D, lay.dout, cross_rows_per_block(K), ptr(out),
-        torch.cuda.current_stream(dev).cuda_stream,
+        B, L, N, K, Fe, ns, H, D, lay.dout, rt, cm, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, kernel)
     return out

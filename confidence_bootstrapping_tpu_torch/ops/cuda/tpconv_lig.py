@@ -13,29 +13,56 @@ Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_lig.py``:
   order varies between runs (a few float32 ulps per receptor row).
 
 What bounds them and how they are laid out: ``csrc/tpconv_engine.cuh``;
-cross_rev runs the H -> W product on the tensor cores (3xTF32 ``wgmma``,
-H <= KMAX = 96) from the split, tiled w2 fields of ``pack_weights``, pb keeps
-the float32 stage. Each
-wrapper launches its kernel for CUDA tensors, calls its ``*_plain`` version
-for CPU tensors, and counts launches in ``<wrapper>.launches``.
+both run the H -> W product on the tensor cores (3xTF32 ``wgmma``) from the
+split, tiled w2 fields of ``pack_weights``; a layer that stage does not take
+(H > KMAX = 96, or a layout over a block's shared memory: the ns=48 ladder)
+runs the kernel's float32 build at TM_WIDE edges a chunk
+(``tpconv_common.pick_build``), and where no build fits the wrapper raises.
+Each wrapper launches its kernel for CUDA tensors, calls its ``*_plain``
+version for CPU tensors, and counts launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..graph_builders import gather_nodes, scatter_mean_to_nodes
 from . import build
-from .tpconv_common import KMAX, TNC, check_inputs, device_tables, edge_messages, launch_weights, ptr, sh1, tp_layout
+from .tpconv_common import (SH_IRREPS, TM_WIDE, TN, TNC, Dims, check_inputs, device_tables, edge_messages,
+                            launch_weights, pick_build, ptr, sh1, tp_layout)
 
-RT_PB = 4  # ligand receivers per pb block
 RT_CROSS = 1  # ligand receivers per cross_rev block (K up to 128 edges each)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PB_ARGTYPES = [_P] * 16 + [_I] * 12 + [_P, _P]
+_PB_ARGTYPES = [_P] * 17 + [_I] * 14 + [_P, _P]
+_PB_WIDE_ARGTYPES = [_P] * 16 + [_I] * 12 + [_P, _P]
 _CROSS_ARGTYPES = [_P] * 17 + [_I] + [_P] * 4 + [_I] * 15 + [_P] * 3
+_CROSS_WIDE_ARGTYPES = [_P] * 15 + [_I] + [_P] * 4 + [_I] * 13 + [_P] * 3
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pb_rows_per_block(B: int, L: int, n_sm: int) -> int:
+    """Ligand receivers per pb block: the fewest that put the grid
+    (B * ceil(L / RT) blocks, one an SM at pb's shared memory) in one wave
+    over n_sm SMs, or a whole pose a block when B alone exceeds them. Every
+    chunk streams all of w2, so a block's time goes with its chunks: fewer
+    receivers a block means fewer and emptier chunks, and the one wave keeps
+    a second from doubling the time. On an H100 (132 SMs, L=24; the sample's
+    pb calls, scripts/engine_ablation.py) the RT it picks was the fastest of
+    RT 2-24 at each batch timed: B=8, RT=2 (0.081 ms a call, next 0.151 at
+    RT=3); B=32, RT=6 (0.195, next 0.233 at RT=8); B=64, RT=12 (0.355, next
+    0.370 at RT=6)."""
+    for rt in range(1, L + 1):
+        if B * -(-L // rt) <= n_sm:
+            return rt
+    return max(L, 1)
 
 
 def tpconv_pb_plain(lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_emb, bond_mask,
@@ -85,18 +112,28 @@ def _launch_pb(lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_
             or bond_dst.shape != (B, E) or bond_emb.shape != (B, E, Fe) or bond_mask.shape != (B, E)
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_pb: inconsistent shapes")
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)[:4]
+    rt = pb_rows_per_block(B, L, _sm_count(dev))
+    tc, _ = pick_build("fused_tpconv_pb", irreps_in, irreps_out, SH_IRREPS, Dims(Fe, ns, Fe + 2 * ns, H, Dl, lay.dout),
+                       rt, True, (TM_WIDE,))
+    pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_pb")
-    fn = lib.cbt_tpconv_pb
-    fn.argtypes, fn.restype = _PB_ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(lig_attr), ptr(lig_pos), ptr(pair_emb), ptr(pair_mask), ptr(bond_src), ptr(bond_dst), ptr(bond_emb),
-        ptr(bond_mask), ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),
-        lay.n_x, lay.n_tiles, lay.wpad, B, L, E, Fe, ns, H, Dl, lay.dout, RT_PB, ptr(out),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    inputs = (ptr(lig_attr), ptr(lig_pos), ptr(pair_emb), ptr(pair_mask), ptr(bond_src), ptr(bond_dst), ptr(bond_emb),
+              ptr(bond_mask))
+    dims = (B, L, E, Fe, ns, H, Dl, lay.dout, rt, ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    if tc:
+        tcl = tp_layout(irreps_in, irreps_out, tn=TNC)
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
+        fn = lib.cbt_tpconv_pb
+        fn.argtypes, fn.restype = _PB_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+    else:
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
+        fn = lib.cbt_tpconv_pb_wide
+        fn.argtypes, fn.restype = _PB_WIDE_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi),
+                  ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, *dims)
     build.check(lib, code, "tpconv_pb")
     return out
 
@@ -156,25 +193,30 @@ def _launch_cross_rev(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mas
             or tuple(w1_f.shape) != (Fe + 2 * ns, H) or tuple(w2_f.shape) != (H, lay.weight_numel)
             or (with_rev and (w1_r.shape != w1_f.shape or w2_r.shape != w2_f.shape))):
         raise ValueError("fused_tpconv_cross_rev: inconsistent shapes")
-    if H > KMAX:
-        raise ValueError(f"fused_tpconv_cross_rev: the tensor-core stage takes H <= {KMAX}, got {H}")
-    tc = tp_layout(irreps_in, irreps_out, tn=TNC)
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
-    tc_fields = lambda p: (p.w1, p.b1, p.w2_hi, p.w2_lo, p.b2_tc)
-    fwd = tc_fields(launch_weights(w1_f, b1_f, w2_f, b2_f, irreps_in, irreps_out, packed_f, dev))
-    rev = (tc_fields(launch_weights(w1_r, b1_r, w2_r, b2_r, irreps_in, irreps_out, packed_r, dev)) if with_rev
-           else (None,) * 5)
+    tc, _ = pick_build("fused_tpconv_cross_rev", irreps_in, irreps_out, SH_IRREPS,
+                       Dims(Fe, ns, Fe + 2 * ns, H, D, lay.dout), RT_CROSS, True, (TM_WIDE,))
+    fields = ((lambda p: (p.w1, p.b1, p.w2_hi, p.w2_lo, p.b2_tc)) if tc else (lambda p: (p.w1, p.b1, p.w2, p.b2)))
+    fwd = fields(launch_weights(w1_f, b1_f, w2_f, b2_f, irreps_in, irreps_out, packed_f, dev))
+    rev = (fields(launch_weights(w1_r, b1_r, w2_r, b2_r, irreps_in, irreps_out, packed_r, dev)) if with_rev
+           else (None,) * len(fwd))
     out_lig = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     out_rec = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev) if with_rev else None
     lib = build.load("tpconv_cross_rev")
-    fn = lib.cbt_tpconv_cross_rev
-    fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask),
-        *map(ptr, fwd), *map(ptr, rev), int(with_rev), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),
-        tc.n_x, tc.n_tiles, tc.wpad, len(tc.epi), len(tc.cg), B, L, N, K, Fe, ns, H, D, lay.dout, RT_CROSS,
-        ptr(out_lig), ptr(out_rec), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    tl = tp_layout(irreps_in, irreps_out, tn=TNC) if tc else lay
+    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC if tc else TN)[:4]
+    inputs = (ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask),
+              *map(ptr, fwd), *map(ptr, rev), int(with_rev), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),
+              tl.n_x, tl.n_tiles, tl.wpad)
+    dims = (B, L, N, K, Fe, ns, H, D, lay.dout, RT_CROSS, ptr(out_lig), ptr(out_rec),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if tc:
+        fn = lib.cbt_tpconv_cross_rev
+        fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, len(tl.epi), len(tl.cg), *dims)
+    else:
+        fn = lib.cbt_tpconv_cross_rev_wide
+        fn.argtypes, fn.restype = _CROSS_WIDE_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, *dims)
     build.check(lib, code, "tpconv_cross_rev")
     return out_lig, out_rec
 

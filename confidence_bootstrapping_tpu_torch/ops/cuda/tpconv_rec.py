@@ -15,9 +15,13 @@ Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_rec.py``:
 
 What bounds them and how the kernels are laid out: ``csrc/tpconv_engine.cuh``.
 ``fused_tpconv_rec``'s inference kernel runs the H -> W product on the tensor
-cores (3xTF32 ``wgmma``, H <= KMAX = 96), reading the split, tiled w2 fields
-of ``pack_weights`` and the tables of TNC-column tiles; its training variant
-and ``fused_tpconv_cross`` keep the float32 stage.
+cores (3xTF32 ``wgmma``), reading the split, tiled w2 fields of
+``pack_weights`` and the tables of TNC-column tiles; a layer that stage does
+not take (H > KMAX = 96, or a layout over a block's shared memory: the
+ns=48 ladder) runs its float32 build at TM_WIDE edges a chunk. Its training
+variant and ``fused_tpconv_cross`` keep the float32 stage, at TM edges a
+chunk or TM_WIDE where TM does not fit (``tpconv_common.pick_build``). Where
+no build fits a layer the wrapper raises.
 
 ``fused_tpconv_rec`` launches the kernel for CUDA tensors and calls
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts
@@ -35,15 +39,16 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import (KMAX, SH_IRREPS, TNC, check_dmask, check_inputs, device_tables, edge_messages,
-                            launch_weights, ptr, sh1, tp_layout)
+from .tpconv_common import (SH_IRREPS, TM, TM_WIDE, TNC, Dims, check_dmask, check_inputs, device_tables, edge_messages,
+                            launch_weights, pick_build, ptr, sh1, tp_layout)
 from .tpconv_g import launch_cross, tpconv_cross_g_plain
 
 RT = 8  # receivers per block: 8 * K=24 neighbours fill three 64-edge chunks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
-_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
+_WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
+_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 13 + [_P, _P]
 
 
 def tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, dmask=None):
@@ -91,28 +96,35 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    if dm is None and H > KMAX:
-        raise ValueError(f"fused_tpconv_rec: the tensor-core stage takes H <= {KMAX}, got {H}")
+    d = Dims(Fe, ns, Fe + 2 * ns, H, Din, lay.dout)
+    tc, cm = pick_build("fused_tpconv_rec", irreps_in, irreps_out, SH_IRREPS, d, RT, dm is None,
+                        (TM_WIDE,) if dm is None else (TM, TM_WIDE))
     pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec")
     stream = torch.cuda.current_stream(dev).cuda_stream
     inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
-    if dm is None:
-        tc = tp_layout(irreps_in, irreps_out, tn=TNC)
+    dims = (B, N, K, Fe, ns, H, Din, lay.dout, RT)
+    if tc:
+        tcl = tp_layout(irreps_in, irreps_out, tn=TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
         fn = lib.cbt_tpconv_rec
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
         code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), tc.n_x, tc.n_tiles, tc.wpad, len(tc.epi), len(tc.cg), B, N, K, Fe, ns,
-                  H, Din, lay.dout, RT, ptr(out), stream)
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims,
+                  ptr(out), stream)
     else:
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
-        fn = lib.cbt_tpconv_rec_dm
-        fn.argtypes, fn.restype = _DM_ARGTYPES, ctypes.c_int
-        code = fn(*inputs, ptr(dm), dm.shape[-1], ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, B, N, K, Fe, ns, H, Din, lay.dout, RT,
-                  ptr(out), stream)
+        tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),
+                  lay.n_x, lay.n_tiles, lay.wpad, *dims)
+        if dm is None:
+            fn = lib.cbt_tpconv_rec_wide
+            fn.argtypes, fn.restype = _WIDE_ARGTYPES, ctypes.c_int
+            code = fn(*inputs, *tables, ptr(out), stream)
+        else:
+            fn = lib.cbt_tpconv_rec_dm
+            fn.argtypes, fn.restype = _DM_ARGTYPES, ctypes.c_int
+            code = fn(*inputs, ptr(dm), dm.shape[-1], *tables, cm, ptr(out), stream)
     build.check(lib, code, "tpconv_rec")
     return out
 

@@ -2,7 +2,8 @@
 
 Builds copies of ``csrc/tpconv_rec.cu`` whose engine (``csrc/tpconv_engine.cuh``)
 has stages of the tensor-core path cut out, and times each on the score
-model's full-width 100 -> 100 layer (B=32, N=512, K=24, 70% of the neighbour
+model's 100 -> 100 layer (the trunk with its pseudoscalars unreduced, wider
+than the sample's 74 -> 74; B=32, N=512, K=24, 70% of the neighbour
 slots valid, weights and data from seed 0):
 
   full              the kernel as built;
@@ -15,8 +16,17 @@ slots valid, weights and data from seed 0):
 
 A cut kernel computes something else; only the full one is compared with
 the plain version. The differences between rows are the stages' costs where
-they do not overlap. Prints the card's name and power limit first. Run from
-the repository root on a machine with the CUDA toolkit:
+they do not overlap.
+
+Then pb's receivers a block (RT): every pb call of one of chip_smoke.py's
+phase-5 samples (B=32 poses, 20 steps, 160 calls), recorded, then replayed
+at each RT of a list, marking the one ``tpconv_lig.pb_rows_per_block``
+picks: the mean ms per call (CUDA events), the blocks and waves of the grid,
+and each RT's first calls against the plain version; then the same calls cut
+to their first 8 poses (B=8) and with their poses twice (B=64).
+
+Prints the card's name and power limit first. Run from the repository root
+on a machine with the CUDA toolkit:
 
     python scripts/engine_ablation.py
 
@@ -28,6 +38,8 @@ import os
 import shutil
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "confidence_bootstrapping_tpu_torch", "csrc")
@@ -46,7 +58,7 @@ def variants(src: str) -> dict:
     epi = src[src.index("    const int e0 = ", loop):src.index("    __syncthreads();\n  }\n  tiles += nt;", loop)]
     no_tiles = cut(cut(src, "const int nt = T.n_tiles, stage_sz", "const int nt = 0, stage_sz"),
                    "  float acc[12];\n  mbar_wait(", "  float acc[12];\n  if (nt == 0) return;\n  mbar_wait(")
-    no_contrib = cut(no_tiles, "  contributions_tc(sm, L, T);\n")
+    no_contrib = cut(no_tiles, "  contributions_tc<SHD>(sm, L, T);\n")
     return {
         "full": src,
         "no_mma": cut(cut(src, "mma_tile(acc, hi, lo, ring + (tiles & 1) * stage_sz, L.hp);"),
@@ -135,6 +147,87 @@ def main() -> None:
                           "hidden layer": ("no_contributions", "no_hidden")}.items():
         print(f"{stage}: {ms[a] - ms[b]:.4f} ms", flush=True)
     print(f"compaction, fill, receiver sums and output: {ms['no_hidden']:.4f} ms", flush=True)
+    pb_rows(dev)
+
+
+PB_RT = (2, 3, 4, 6, 8, 12, 24)
+
+
+def crystal_pb_edges() -> None:
+    """pb's edges at the 1a0q crystal pose (no card needed): the dense pairs
+    within the score model's ligand radius and the bonds, and the valid
+    edges of each block at each RT (the chunk fill the RT choice trades)."""
+    import chip_smoke
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+
+    padded = chip_smoke.host_complex(0)[0]
+    pos, m = padded["lig_pos"], padded["lig_mask"]
+    L = len(pos)
+    d = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+    pairs = (d < ScoreModelConfig().lig_max_radius) & m[:, None] & m[None] & ~np.eye(L, dtype=bool)
+    src, bonds = padded["lig_edge_src"], padded["lig_edge_mask"]
+    print(f"pb at the crystal pose: {int(pairs.sum())} pairs within {ScoreModelConfig().lig_max_radius} A and "
+          f"{int(bonds.sum())} bonds over {int(m.sum())} atoms", flush=True)
+    for rt in PB_RT:
+        per = [int(pairs[i:i + rt].sum() + ((src >= i) & (src < i + rt) & bonds).sum()) for i in range(0, L, rt)]
+        print(f"  RT={rt:2d}: valid edges a block {per}", flush=True)
+
+
+def pb_rows(dev) -> None:
+    """pb's time per call by receivers a block, on the calls of one sample
+    (B=32), and on the same calls cut to their first 8 poses and with their
+    poses twice (B=64)."""
+    import torch
+
+    import chip_smoke
+
+    crystal_pb_edges()
+    _, _, run = chip_smoke.main_path(dev)
+    calls = chip_smoke.record_calls(run, ("tpconv_pb",))["tpconv_pb"]
+    n_pose = 8  # the per-pose arguments: features, positions, pair embedding and mask, bonds
+    for B, batch in ((32, lambda t: t), (8, lambda t: t[:8].contiguous()), (64, lambda t: torch.cat([t, t]))):
+        pb_rows_at([(tuple(batch(a) if i < n_pose else a for i, a in enumerate(args)), kw) for args, kw in calls],
+                   dev)
+
+
+def pb_rows_at(calls, dev) -> None:
+    """Replay pb's calls at each RT of PB_RT: the first three against the
+    plain version, then all of them timed (CUDA events), twice."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_lig
+
+    B, L = calls[0][0][0].shape[:2]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    picked = tpconv_lig.pb_rows_per_block(B, L, n_sm)
+    edges = sum(int(a[3].sum()) + int(a[7].sum()) for a, _ in calls) / len(calls)
+    print(f"pb: {len(calls)} calls of one sample, B={B} L={L}, {edges:.0f} valid edges a call; {n_sm} SMs; "
+          f"pb_rows_per_block picks RT={picked}", flush=True)
+    rule = tpconv_lig.pb_rows_per_block
+    times = {rt: [] for rt in PB_RT}
+    try:
+        for _ in range(2):
+            for rt in PB_RT:
+                tpconv_lig.pb_rows_per_block = lambda B, L, n, rt=rt: rt
+                for args, kw in calls[:3]:
+                    got, want = tpconv_lig.fused_tpconv_pb(*args, **kw), tpconv_lig.tpconv_pb_plain(*args)
+                    err, scale = float((got - want).abs().max()), float(want.abs().max())
+                    if err > 2e-4 * max(1.0, scale):
+                        sys.exit(f"pb at B={B}, RT={rt} disagrees with its plain version: {err:.3g}")
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for args, kw in calls:
+                    tpconv_lig.fused_tpconv_pb(*args, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                times[rt].append(start.elapsed_time(end) / len(calls))
+    finally:
+        tpconv_lig.pb_rows_per_block = rule
+    for rt, ts in times.items():
+        blocks = B * -(-L // rt)
+        print(f"pb B={B} RT={rt:2d}: {blocks:4d} blocks, {-(-blocks // n_sm)} wave(s): "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms a call{'  (picked)' if rt == picked else ''}", flush=True)
 
 
 if __name__ == "__main__":

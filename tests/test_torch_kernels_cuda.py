@@ -10,10 +10,15 @@ and without a dropout mask, rec and rec_g with one, the edge backward) and
 the autograd ops over them, the composed route's kernels (the one-direction
 cross kernel at K off the 16-grid, the edge-list kernel's inference instance
 for sums and per-edge messages, the v1 API over it, and TPConv's routing to
-them), and the wrappers' input checks. The rec and cross_rev kernels run the
-H -> W product on the tensor cores (3xTF32): their cases include the
-full-width 100 -> 100 layer, H not a multiple of 8, and rec's output bit for
-bit across two launches. Tolerance:
+them), and the wrappers' input checks. The rec, pb, cross_rev and rec_g
+kernels run the H -> W product on the tensor cores (3xTF32): their cases
+include the full-width 100 -> 100 layer, H not a multiple of 8, and rec's,
+pb's and rec_g's outputs bit for bit across two launches. Layers that stage
+does not take (H above 96, a layout over a block's shared memory, the
+ns=48/nv=10 ladder) run the float32 builds at 32 edges a chunk, rec_g's
+too, and so do the training kernels' layers whose 64-edge layout
+does not fit; the edge backward runs at H up to 192. Every library's
+shared-memory bytes equal the host mirror's. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
 than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
@@ -36,7 +41,9 @@ from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
 pytestmark = pytest.mark.cuda
 
 FLAGSHIP = "32x0e + 6x1o + 6x1e + 6x0o"
-FULL = "32x0e + 6x1o + 6x1e + 32x0o"  # the score model's 100 -> 100 trunk layer (W=2960, 62 tensor-core tiles)
+FULL = "32x0e + 6x1o + 6x1e + 32x0o"  # the 100 -> 100 trunk layer, pseudoscalars unreduced (W=2960, 62 tiles)
+WIDE_SEQ = ("48x0e", "48x0e + 10x1o", "48x0e + 10x1o + 10x1e", "48x0e + 10x1o + 10x1e + 48x0o")  # ns=48, nv=10
+WIDE = WIDE_SEQ[3]  # its 156 -> 156 trunk layer (W=6928, H=144)
 ODD_H = "10x0e + 2x1o + 2x1e + 2x0o"  # ns=10: H=30, not a multiple of 8
 CONF_TRUNK = "24x0e + 6x1o + 6x1e + 24x0o"
 SH1, SH2 = "1x0e + 1x1o", "1x0e + 1x1o + 1x2e"
@@ -54,9 +61,9 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-def _weights(g, irreps_in, irreps_out, ns, dev, sh=SH1):
+def _weights(g, irreps_in, irreps_out, ns, dev, sh=SH1, H=None):
     W = WeightedTensorProduct(irreps_in, sh, irreps_out).weight_numel
-    H = 3 * ns
+    H = H or 3 * ns
     shapes = ((3 * ns, H), (H,), (H, W), (W,))
     return [(torch.randn(s, generator=g) * 0.2).to(dev) for s in shapes]
 
@@ -108,6 +115,8 @@ def test_rec_kernel_matches_plain(dev, irreps_in, irreps_out, B, N, K, masked):
 @pytest.mark.parametrize("irreps_in,irreps_out,B,L,E", [
     ("32x0e", "32x0e + 6x1o", 2, 13, 30),
     (FLAGSHIP, FLAGSHIP, 3, 24, 48),
+    (FULL, FULL, 32, 24, 48),  # the sample's full-width layer and batch: the whole card in one wave
+    (ODD_H, ODD_H, 5, 13, 20),  # H=30 padded to 32
 ])
 def test_pb_kernel_matches_plain(dev, irreps_in, irreps_out, B, L, E):
     g = _gen(1)
@@ -125,9 +134,14 @@ def test_pb_kernel_matches_plain(dev, irreps_in, irreps_out, B, L, E):
     bond_mask = torch.rand(B, E, generator=g) > 0.3
     args = [t.to(dev) for t in (lig, pos, pair_emb, pair_mask, src, dst, bond_emb, bond_mask)]
     args += _weights(g, irreps_in, irreps_out, ns, dev)
+    before = tpconv_lig.fused_tpconv_pb.launches
     got = tpconv_lig.fused_tpconv_pb(*args, irreps_in, irreps_out, ns)
     torch.cuda.synchronize()
+    assert tpconv_lig.fused_tpconv_pb.launches == before + 1
     _close(got, tpconv_lig.tpconv_pb_plain(*args, irreps_in, irreps_out, ns))
+    again = tpconv_lig.fused_tpconv_pb(*args, irreps_in, irreps_out, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # each bond summed by one block, in edge order: bit for bit
 
 
 @pytest.mark.parametrize("irreps,B,L,N,K,with_rev", [
@@ -181,10 +195,76 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         kw = dict(node=node, pos=pos, nbr=nbr, emb=emb, sig=sig, mask=mask) | bad
         with pytest.raises(ValueError):
             tpconv_rec.fused_tpconv_rec(*kw.values(), *w, "32x0e", "32x0e", ns)
-    wide = [w[0].new_zeros(96, 120), w[1].new_zeros(120), w[2].new_zeros(120, w[2].shape[1]), w[3]]
-    with pytest.raises(ValueError):  # the tensor-core stage takes H <= 96
-        tpconv_rec.fused_tpconv_rec(node, pos, nbr, emb, sig, mask, *wide, "32x0e", "32x0e", ns)
     assert tpconv_rec.fused_tpconv_rec.launches == before
+
+
+def _cross_inputs(g, irreps, B, L, N, K, ns):
+    D = WeightedTensorProduct(irreps, SH1, irreps).irreps_in.dim
+    return [torch.randn(B, L, D, generator=g), torch.randn(B, L, 3, generator=g) * 2,
+            torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+            torch.randint(0, N, (B, L, K), generator=g), torch.randn(B, L, K, ns, generator=g),
+            torch.rand(B, L, K, generator=g) > 0.3]
+
+
+@pytest.mark.parametrize("irreps_in,irreps_out,H", [
+    (FULL, FULL, 120),  # H above the tensor-core stage's 96
+    (FULL, FULL, 144),
+    (WIDE_SEQ[0], WIDE_SEQ[1], 144),  # the ns=48 ladder: over the shared memory at 64 edges a chunk
+    (WIDE, WIDE, 144),
+])
+def test_wide_hidden_layers_run_on_the_float32_builds(dev, irreps_in, irreps_out, H):
+    """rec, pb and cross_rev (with and without reverse weights) at layers
+    the tensor-core stage does not take: the float32 builds at 32 edges a
+    chunk, against the plain versions; rec and pb bit for bit across two
+    launches."""
+    g = _gen(14)
+    ns = _ns(irreps_in)
+    D = WeightedTensorProduct(irreps_in, SH1, irreps_out).irreps_in.dim
+    d = tpconv_common.Dims(ns, ns, 3 * ns, H, D, WeightedTensorProduct(irreps_in, SH1, irreps_out).irreps_out.dim)
+    assert tpconv_common.pick_build("rec", irreps_in, irreps_out, SH1, d, tpconv_rec.RT, True,
+                                    (tpconv_common.TM_WIDE,)) == (False, tpconv_common.TM_WIDE)
+    B, N, K = 2, 37, 24
+    rec = [torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+           torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+           torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3]
+    rec = [t.to(dev) for t in rec] + _weights(g, irreps_in, irreps_out, ns, dev, H=H)
+    got = tpconv_rec.fused_tpconv_rec(*rec, irreps_in, irreps_out, ns)
+    again = tpconv_rec.fused_tpconv_rec(*rec, irreps_in, irreps_out, ns)
+    torch.cuda.synchronize()
+    _close(got, tpconv_rec.tpconv_rec_plain(*rec, irreps_in, irreps_out, ns))
+    assert torch.equal(got, again)
+    L, E = 13, 30
+    pb = [torch.randn(B, L, D, generator=g), torch.randn(B, L, 3, generator=g) * 2,
+          torch.randn(B, L, L, ns, generator=g), (torch.rand(B, L, L, generator=g) > 0.4) & ~torch.eye(L, dtype=torch.bool),
+          torch.randint(0, L, (B, E), generator=g), torch.randint(0, L, (B, E), generator=g),
+          torch.randn(B, E, ns, generator=g), torch.rand(B, E, generator=g) > 0.3]
+    pb = [t.to(dev) for t in pb] + _weights(g, irreps_in, irreps_out, ns, dev, H=H)
+    got = tpconv_lig.fused_tpconv_pb(*pb, irreps_in, irreps_out, ns)
+    again = tpconv_lig.fused_tpconv_pb(*pb, irreps_in, irreps_out, ns)
+    torch.cuda.synchronize()
+    _close(got, tpconv_lig.tpconv_pb_plain(*pb, irreps_in, irreps_out, ns))
+    assert torch.equal(got, again)
+    if irreps_in == irreps_out:  # cross_rev reads both tables at one width
+        cross = [t.to(dev) for t in _cross_inputs(g, irreps_in, B, 9, 40, 70, ns)]
+        cross += _weights(g, irreps_in, irreps_in, ns, dev, H=H)
+        for rw in (_weights(g, irreps_in, irreps_in, ns, dev, H=H), [None] * 4):
+            got_l, got_r = tpconv_lig.fused_tpconv_cross_rev(*cross, *rw, irreps_in, irreps_in, ns)
+            torch.cuda.synchronize()
+            want_l, want_r = tpconv_lig.tpconv_cross_rev_plain(*cross, *rw, irreps_in, irreps_in, ns)
+            _close(got_l, want_l)
+            if rw[0] is not None:
+                _close(got_r, want_r)
+
+
+def test_layout_mirror_matches_each_library(dev):
+    """The host mirror of the engine's shared-memory layouts
+    (tpconv_common.engine_smem_bytes, tpconv_bwd.bwd_smem_bytes) against the
+    bytes each kernel library computes, at both ladders' layers, both stages
+    and both chunk sizes, and at the confidence trunk's lmax=2 layers
+    (chip_smoke.layout_check, which fails on the first difference)."""
+    import chip_smoke
+
+    assert chip_smoke.layout_check() > 0
 
 
 def test_tpconv_packs_weights_once_and_again_after_a_change(dev):
@@ -227,7 +307,9 @@ def test_tpconv_packs_weights_once_and_again_after_a_change(dev):
     ("24x0e", "24x0e + 6x1o", 1, 37, 24, False),  # the ladder's first step, a ragged last tile
     (CONF_TRUNK, CONF_TRUNK, 2, 19, 8, True),  # the atom groups' K, N not a multiple of 8, a masked tile
     (CONF_TRUNK, CONF_TRUNK, 2, 13, 1, False),  # K = 1
+    (CONF_TRUNK, CONF_TRUNK, 2, 37, 5, False),  # 40 candidates a tile: one partial chunk
     ("24x0e + 6x1o + 6x1e", CONF_TRUNK, 3, 30, 24, True),  # every edge of the last batch element masked
+    (CONF_TRUNK, CONF_TRUNK, 4, 256, 24, False),  # the rerank's receptor group after the crop
 ])
 def test_rec_g_kernel_matches_plain(dev, irreps_in, irreps_out, B, N, K, masked):
     g = _gen(5)
@@ -252,6 +334,37 @@ def test_rec_g_kernel_matches_plain(dev, irreps_in, irreps_out, B, N, K, masked)
     _close(got, tpconv_g.tpconv_rec_g_plain(*args, irreps_in, SH2, irreps_out, ns))
     if masked:
         assert float(got[:, 8:16].abs().max()) == 0.0 and float(got[-1].abs().max()) == 0.0
+    again = tpconv_g.fused_tpconv_rec_g(*args, irreps_in, SH2, irreps_out, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # the same sums in the same order: bit for bit
+
+
+@pytest.mark.parametrize("irreps,H", [
+    (CONF_TRUNK, 120),  # H above the tensor-core stage's 96
+    ("32x0e + 8x1o + 8x1e + 32x0o", 96),  # H it takes, a layout over a block's shared memory (232,976 bytes)
+    (WIDE, 144),  # the ns=48/nv=10 trunk layer with lmax=2 harmonics
+])
+def test_rec_g_float32_build_matches_plain(dev, irreps, H):
+    """rec_g at layers the tensor-core stage does not take runs its float32
+    build at 32 edges a chunk: against the plain version, bit for bit across
+    two launches."""
+    g = _gen(16)
+    ns, B, N, K = _ns(irreps), 2, 37, 24
+    D = WeightedTensorProduct(irreps, SH2, irreps).irreps_in.dim
+    d = tpconv_common.Dims(ns, ns, 3 * ns, H, D, D)
+    assert tpconv_common.pick_build("rec_g", irreps, irreps, SH2, d, tpconv_g.RT_REC, True,
+                                    (tpconv_common.TM_WIDE,)) == (False, tpconv_common.TM_WIDE)
+    args = [torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+            torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+            torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3]
+    args = [t.to(dev) for t in args] + _weights(g, irreps, irreps, ns, dev, SH2, H)
+    before = tpconv_g.fused_tpconv_rec_g.launches
+    got = tpconv_g.fused_tpconv_rec_g(*args, irreps, SH2, irreps, ns)
+    again = tpconv_g.fused_tpconv_rec_g(*args, irreps, SH2, irreps, ns)
+    torch.cuda.synchronize()
+    assert tpconv_g.fused_tpconv_rec_g.launches == before + 2
+    _close(got, tpconv_g.tpconv_rec_g_plain(*args, irreps, SH2, irreps, ns))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("irreps,B,L,N,K", [
@@ -328,10 +441,9 @@ SUM_REL = 1e-3  # weight gradients: sums over every edge, in another order than 
 TOR_OUT = "32x0o + 32x0e"
 
 
-def _edge_inputs(g, irreps_in, irreps_sh, irreps_out, M, K, F, dev, dropout):
+def _edge_inputs(g, irreps_in, irreps_sh, irreps_out, M, K, F, dev, dropout, H=96):
     D = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_in.dim
     dsh = tpconv_common.sh_dim(irreps_sh)
-    H = 96
     W = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).weight_numel
     attr, send, sh = torch.randn(M, K, F, generator=g), torch.randn(M, K, D, generator=g), torch.randn(M, K, dsh, generator=g)
     mask = torch.rand(M, K, generator=g) > 0.3
@@ -360,6 +472,42 @@ def test_edge_kernel_matches_plain(dev, irreps_sh, irreps_out, M, K, dropout, su
     assert float(got[:3].abs().max()) == 0.0
 
 
+def test_training_and_composed_kernels_at_the_wide_ladder(dev):
+    """The ns=48/nv=10 trunk layer (156 -> 156, H=144), whose 64-edge layout
+    does not fit a block's shared memory: the edge-list kernel (with a
+    dropout mask, sums and per-edge messages; and the torsion head's 20-wide
+    harmonics), rec with a dropout mask and row 4 run their builds at 32
+    edges a chunk and agree with the plain versions."""
+    g = _gen(15)
+    ns, H = 48, 144
+    F = 3 * ns
+    for sh, out in ((SH1, WIDE), (tpconv_common.TOR_SH_IRREPS, "48x0o + 48x0e")):
+        inputs, weights, dmask = _edge_inputs(g, WIDE, sh, out, 20, 24, F, dev, True, H)
+        lay = tpconv_common.tp_layout(WIDE, out, sh)
+        d = tpconv_common.Dims(F, 0, F, H, lay.din, lay.dout)
+        assert tpconv_common.pick_build("edge", WIDE, out, sh, d, 2, False)[1] == (tpconv_common.TM_WIDE if sh == SH1
+                                                                                   else tpconv_common.TM)
+        for sum_k in (True, False):
+            got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, WIDE, sh, out, dmask=dmask, sum_k=sum_k)
+            torch.cuda.synchronize()
+            _close(got, tpconv_edge.tpconv_edge_plain(*inputs, *weights, WIDE, sh, out, dmask, sum_k))
+    B, N, K = 2, 37, 24
+    D = WeightedTensorProduct(WIDE, SH1, WIDE).irreps_in.dim
+    rec = [torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+           torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+           torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3]
+    rec = [t.to(dev) for t in rec] + _weights(g, WIDE, WIDE, ns, dev)
+    dmask = ((torch.rand(B, N, K, H, generator=g) > 0.1).float() / 0.9).to(dev)
+    got = tpconv_rec.fused_tpconv_rec(*rec, WIDE, WIDE, ns, dmask=dmask)
+    torch.cuda.synchronize()
+    _close(got, tpconv_rec.tpconv_rec_plain(*rec, WIDE, WIDE, ns, dmask))
+    for a, b in ((WIDE_SEQ[2], WIDE), (WIDE, WIDE)):  # row 4 at 64 edges a chunk (232,312 bytes), then at 32
+        cross = [t.to(dev) for t in _cross_inputs(g, a, B, 24, 300, 100, ns)] + _weights(g, a, b, ns, dev)
+        got = tpconv_rec.fused_tpconv_cross(*cross, a, b, ns)
+        torch.cuda.synchronize()
+        _close(got, tpconv_rec.tpconv_cross_plain(*cross, a, b, ns))
+
+
 @pytest.mark.parametrize("lmax2", [False, True])
 def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
     g = _gen(8)
@@ -385,19 +533,22 @@ def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
     assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 2)  # counted apart from inference
 
 
-@pytest.mark.parametrize("irreps_sh,irreps_out,T,dropout", [
-    (SH1, FLAGSHIP, 333, True),  # a ragged last block
-    (SH1, FLAGSHIP, 6000, False),  # several slices of the weight reduction
-    (tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, True),
-    (SH2, FLAGSHIP, 100, False),
+@pytest.mark.parametrize("irreps_in,irreps_sh,irreps_out,T,dropout,H", [
+    (FLAGSHIP, SH1, FLAGSHIP, 333, True, 96),  # a ragged last block
+    (FLAGSHIP, SH1, FLAGSHIP, 6000, False, 96),  # several slices of the weight reduction
+    (FLAGSHIP, tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, True, 96),
+    (FLAGSHIP, SH2, FLAGSHIP, 100, False, 96),
+    (WIDE, SH1, WIDE, 333, True, 144),  # the ns=48 trunk layer: 16 edges a block
+    (FLAGSHIP, SH1, FLAGSHIP, 150, False, 192),  # H = 192, the widest the 16-edge build takes
 ])
-def test_edge_bwd_kernel_matches_plain(dev, irreps_sh, irreps_out, T, dropout):
+def test_edge_bwd_kernel_matches_plain(dev, irreps_in, irreps_sh, irreps_out, T, dropout, H):
     g = _gen(9)
-    (attr, send, sh, mask), weights, dmask = _edge_inputs(g, FLAGSHIP, irreps_sh, irreps_out, T, 1, 96, dev, dropout)
-    dout = WeightedTensorProduct(FLAGSHIP, irreps_sh, irreps_out).irreps_out.dim
+    F = 3 * _ns(irreps_in)
+    (attr, send, sh, mask), weights, dmask = _edge_inputs(g, irreps_in, irreps_sh, irreps_out, T, 1, F, dev, dropout, H)
+    dout = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_out.dim
     cot = (torch.randn(T, dout, generator=g).to(dev) * mask.reshape(T, 1)).contiguous()
     flat = lambda t: None if t is None else t.reshape(T, -1).contiguous()
-    ins = (flat(attr), flat(send), flat(sh), cot, flat(dmask), *weights, FLAGSHIP, irreps_sh, irreps_out)
+    ins = (flat(attr), flat(send), flat(sh), cot, flat(dmask), *weights, irreps_in, irreps_sh, irreps_out)
     before = tpconv_bwd.edge_bwd.launches
     got = tpconv_bwd.edge_bwd(*ins)
     torch.cuda.synchronize()

@@ -1,12 +1,15 @@
-"""The host half of the tensor-core stage (rec and cross_rev kernels), on the CPU.
+"""The host half of the tensor-core stage (rec, pb, cross_rev and rec_g
+kernels), on the CPU.
 
 ``pack_weights`` splits w2 into TF32 parts and cuts them into the tiles the
 kernels' bulk copies and ``wgmma`` read (``ops/cuda/tpconv_common.py``);
 the kernels' side runs on the card (``tests/test_torch_kernels_cuda.py``).
 Here: the split's bits, the tile layout against the packed [H, Wpad]
-matrix, and a plain emulation of the 3xTF32 product at the score model's
-full width, which meets the kernels' 2e-4 x max(1, max |plain|) bar where a
-single TF32 product does not.
+matrix, a plain emulation of the 3xTF32 product at the score model's full
+width, which meets the kernels' 2e-4 x max(1, max |plain|) bar where a
+single TF32 product does not, and an emulation of the whole stage (CG
+contributions, 3xTF32 product, epilogue of TNC-column tiles) at pb's layers
+and at rec_g's lmax=2 layers (H=72) against the weighted tensor product.
 """
 
 import numpy as np
@@ -86,3 +89,56 @@ def test_3xtf32_product_meets_the_kernel_tolerance_where_one_tf32_product_does_n
     err3, err1 = float((three - plain).abs().max()), float((one - plain).abs().max())
     assert err3 <= REL * scale / 20, (err3, scale)
     assert err1 > REL * scale, (err1, scale)
+
+
+def emulate_tc_messages(x, sh, h, p, irreps_in, irreps_out, irreps_sh):
+    """The tensor-core stage's arithmetic for one chunk of edges (x [E, Din],
+    sh [E, Dsh], the hidden layer h [E, H]) in float32: the CG contributions
+    X term by term in the kernels' order (``contributions_tc``), the 3xTF32
+    H -> W product from the packed tiles, and the itemised epilogue of the
+    TNC-column tiles with b2 added to each column."""
+    lay = tc.tp_layout(irreps_in, irreps_out, irreps_sh, tc.TNC)
+    E, H = h.shape
+    X = torch.zeros(E, lay.n_x)
+    for s, (in_base, di, sh_base, ds, dout, c, cg_off, _) in enumerate(lay.xtab.tolist()):
+        acc = torch.zeros(E)
+        for a in range(di):
+            for b in range(ds):
+                acc = acc + x[:, in_base + a] * sh[:, sh_base + b] * float(lay.cg[cg_off + c + (a * ds + b) * dout])
+        X[:, s] = acc
+    h_hi, h_lo = tc.split_tf32(h)
+    w_hi, w_lo = untile_w2(p.w2_hi, H), untile_w2(p.w2_lo, H)
+    w = h_lo @ w_hi + h_hi @ w_lo + h_hi @ w_hi + p.b2_tc
+    msg = torch.zeros(E, lay.dout)
+    for t in range(lay.n_tiles):
+        for lo, hi, xb, step, oc in lay.epi[lay.epi_start[t]: lay.epi_start[t + 1]].tolist():
+            cols = t * tc.TNC + torch.arange(lo, hi)
+            msg[:, oc] += (w[:, cols] * X[:, xb + torch.arange(hi - lo) * step]).sum(-1)
+    return msg
+
+
+@pytest.mark.parametrize("irreps_in,irreps_out,irreps_sh,H", [
+    ("32x0e", "32x0e + 6x1o", tc.SH_IRREPS, 96),  # pb's ligand-embedding layers
+    ("32x0e + 6x1o", "32x0e + 6x1o + 6x1e", tc.SH_IRREPS, 96),
+    ("32x0e + 6x1o + 6x1e", FLAGSHIP, tc.SH_IRREPS, 96),
+    (FLAGSHIP, FLAGSHIP, tc.SH_IRREPS, 96),  # pb's trunk layer
+    ("24x0e + 6x1o + 6x1e", "24x0e + 6x1o + 6x1e + 24x0o", tc.SH2_IRREPS, 72),  # rec_g: the l = 2 harmonic block
+    ("24x0e + 6x1o + 6x1e + 24x0o", "24x0e + 6x1o + 6x1e + 24x0o", tc.SH2_IRREPS, 72),
+])
+def test_tensor_core_stage_emulation_matches_the_tensor_product(irreps_in, irreps_out, irreps_sh, H):
+    """pb's layers and rec_g's SHD=9 contributions at H=72: the stage's
+    arithmetic, emulated, within 2e-4 x max(1, max |plain|) of the weighted
+    tensor product of the same hidden layer, summed in float64."""
+    g = torch.Generator().manual_seed(6)
+    tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
+    W = tp.weight_numel
+    w1, b1, w2, b2 = (torch.randn(s, generator=g) * 0.2 for s in ((H, H), (H,), (H, W), (W,)))
+    p = tc.pack_weights(w1, b1, w2, b2, irreps_in, irreps_out, irreps_sh)
+    E = 64  # one chunk
+    x = torch.randn(E, tp.irreps_in.dim, generator=g)
+    sh = tc.sh_kernel(torch.randn(E, 3, generator=g), irreps_sh)
+    h = torch.relu(torch.randn(E, H, generator=g))
+    got = emulate_tc_messages(x, sh, h, p, irreps_in, irreps_out, irreps_sh)
+    want = tp(x.double(), sh.double(), h.double() @ w2.double() + b2.double())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.double() - want).abs().max()) <= REL * scale
