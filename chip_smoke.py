@@ -9,9 +9,10 @@ Phases (each one fails the script when it fails):
   1. the card's name and power limit (nvidia-smi);
   2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed), with
      each kernel's ptxas line and each library's count of HGMMA (wgmma)
-     instructions from cuobjdump -sass: rec, pb, cross_rev and rec_g, whose
-     H -> W product runs on the tensor cores, must have some, and their
-     tensor-core kernels no spill;
+     instructions from cuobjdump -sass: rec, pb, cross_rev, rec_g and row 4
+     (tpconv_cross), whose H -> W product runs on the tensor cores, and the
+     edge backward (tpconv_bwd), whose three H x W products do, must have
+     some, and their tensor-core kernels no spill;
   3. per kernel, on every call of one sample of phase 5's path (recorded,
      then replayed): the kernel against its plain PyTorch version on the same
      inputs (stated tolerance), both timed, and its two bounds (``bounds``:
@@ -44,7 +45,11 @@ Phases (each one fails the script when it fails):
      dropout mask and the edge backward against the config), the eval loss in
      batch-statistics mode over 8 fixed draws before and after them, every
      call of one more step replayed through kernel and plain version (and the
-     two autograd ops forward and backward), one step under torch.profiler.
+     two autograd ops forward and backward; the edge backward by call kind,
+     receptor group or edge list, bit for bit across two launches, exact
+     zeros on the masked edges, its device time by stage and its
+     weight-gradient reduction beside torch.matmul's time for the same
+     products), one step under torch.profiler.
   8. the evaluator's path with a pinned cross cap (``cli/infer.py:355-571``
      for one complex): the full-width score model with cross_cap=100 and
      cross_cap_frac=0 (``infer --cross_cap 100``), so the cross lists' K=100
@@ -61,7 +66,7 @@ Phases (each one fails the script when it fails):
      (card against CPU), then phase 8's B=32 20-step sample at this bucket on
      the card (warm, then timed: poses/s, launches against the config);
      then every row 4/5/6 call of one sample of each replayed through kernel
-     and plain version, and row 13's v1 API (rows 5 and 6 behind the v1
+     and plain version (row 4 bit for bit across two launches), and row 13's v1 API (rows 5 and 6 behind the v1
      signatures, no kernel of its own) on a few of them, printed.
   9. the wide ladder: the score model at ns=48/nv=10 (H=144, above the
      tensor-core stage's 96; DiffDock's published width), otherwise phase 5's
@@ -87,6 +92,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,7 +105,12 @@ B_POSES, STEPS, LM_DIM, PLAN = 32, 20, 1280, ((6, 256), (12, 128))
 # H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, TF32 on the tensor cores, and HBM3
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accuracy
-TC_KERNELS = ("tpconv_rec", "tpconv_pb", "tpconv_cross_rev", "tpconv_rec_g")  # H -> W on wgmma
+# {library: its kernels that run H x W products on wgmma, by a part of their mangled names}
+TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel",), "tpconv_pb": ("16tpconv_pb_kernel",),
+              "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",), "tpconv_rec_g": ("19tpconv_rec_g_kernel",),
+              "tpconv_cross": ("22tpconv_cross_tc_kernel",),
+              "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
+                             "17tn_gemm_tc_kernelILi96ELb1E")}
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
 MODEL_RTOL = 1e-3  # CUDA vs CPU forward, per output, relative to its max |value|
 SAMPLE_ATOL = 1e-2  # CUDA vs CPU ligand positions after a 3-step ODE sample, in A
@@ -790,9 +801,10 @@ def record_train_calls(run) -> dict:
     from confidence_bootstrapping_tpu_torch.models import layers
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_train as tt
 
-    calls = {name: [] for name in list(TRAIN_KERNELS) + list(TRAIN_OPS)}
+    calls = {name: [] for name in list(TRAIN_KERNELS) + list(TRAIN_OPS) + ["bwd_kind"]}
     orig = {"edge": tt.fused_tpconv_edge, "rec": tt.fused_tpconv_rec, "bwd": tt.edge_bwd,
-            "op": layers.fused_tpconv_train, "rec_op": layers.fused_tpconv_rec_train}
+            "op": layers.fused_tpconv_train, "rec_op": layers.fused_tpconv_rec_train,
+            "rec_bwd": tt._RecTrain.backward}
 
     def edge(*a, dmask=None, sum_k=True, packed=None):
         calls["tpconv_edge"].append((a + (dmask, sum_k), {}))
@@ -802,9 +814,19 @@ def record_train_calls(run) -> dict:
         calls["tpconv_rec_dm"].append((a + (dmask,), {}))
         return orig["rec"](*a, packed=packed, dmask=dmask)
 
-    def bwd(*a):
-        calls["tpconv_bwd"].append((a, {}))
-        return orig["bwd"](*a)
+    kind = []  # set while the receptor op's backward runs: its edge backward is a receptor group's
+
+    def bwd(*a, **kw):
+        calls["tpconv_bwd"].append((a, kw))
+        calls["bwd_kind"].append("receptor group" if kind else "edge list")
+        return orig["bwd"](*a, **kw)
+
+    def rec_backward(ctx, g):
+        kind.append(1)
+        try:
+            return orig["rec_bwd"](ctx, g)
+        finally:
+            kind.pop()
 
     def op(*a, **kw):
         calls["fused_tpconv_train"].append((a, kw))
@@ -817,10 +839,12 @@ def record_train_calls(run) -> dict:
     try:
         tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = edge, rec, bwd
         layers.fused_tpconv_train, layers.fused_tpconv_rec_train = op, rec_op
+        tt._RecTrain.backward = staticmethod(rec_backward)
         run()
     finally:
         tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = orig["edge"], orig["rec"], orig["bwd"]
         layers.fused_tpconv_train, layers.fused_tpconv_rec_train = orig["op"], orig["rec_op"]
+        tt._RecTrain.backward = staticmethod(orig["rec_bwd"])
     return calls
 
 
@@ -920,18 +944,95 @@ def replay_train_kernels(calls: dict) -> list:
         guarded += int((near & (a[3] != 0).any(-1)).sum())
         calls["tpconv_bwd"][i] = (a[:3] + (a[3] * ~near[:, None],) + a[4:], kw)
     print(f"edge backward replay: {guarded} edges at the ReLU left out", flush=True)
+    kinds = iter(calls["bwd_kind"])  # replay() calls the work function once per call, in call order
+
+    def bwd_kind_work(args):
+        flops, mm, tag = bwd_work(args)
+        return flops, mm, f"{next(kinds)}: {tag}"
+
     kernels = {
         "tpconv_edge": (lambda *a: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12]),
                         tpconv_edge.tpconv_edge_plain, edge_work, TRAIN_KERNELS["tpconv_edge"][1]),
         "tpconv_rec_dm": (lambda *a: tpconv_rec.fused_tpconv_rec(*a[:13], dmask=a[13]), tpconv_rec.tpconv_rec_plain,
                           lambda a: rec_work(a[:13]), TRAIN_KERNELS["tpconv_rec_dm"][1]),
-        "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_work, TRAIN_KERNELS["tpconv_bwd"][1]),
+        "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_kind_work,
+                       TRAIN_KERNELS["tpconv_bwd"][1]),
     }
     with torch.no_grad():
-        rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4})
-    for r in rows:
-        r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
+        rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4},
+                      bitwise=("tpconv_bwd",))
+        for r in rows:
+            r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
+            if r["name"] == "tpconv_bwd":
+                r.update(bwd_stages(calls["tpconv_bwd"]))
     return rows
+
+
+def bwd_stages(bwd_calls: list) -> dict:
+    """Row 10's device time by stage over one pass of the recorded calls
+    (torch.profiler), in mean ms a call: the per-edge kernel, the dh product,
+    the MLP backward, the weight-gradient reduction (its products and the
+    slices' sum) and the rest (the wrapper's numbering of the valid edges,
+    packing and zeroing); and beside the reduction its library yardstick,
+    torch.matmul of [h | 1]^T d_w and [z | 1]^T dh at float32 "highest"
+    precision over each call's valid edges (d_w and dh random: a dense
+    product's time does not depend on the values), and the reduction's two
+    bounds over those edges (``bounds``: 2 (H + 1) W + 2 (F + 1) H flops an
+    edge, all of them matrix products; h, d_w, z and dh read once, dW2, db2,
+    dW1 and db1 written once). Checks that the edges marked masked got exact
+    zeros. Returns the row's extra keys."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd
+
+    for a, kw in bwd_calls:
+        valid = kw.get("valid")
+        if valid is not None and not all(bool((t[~valid] == 0).all()) for t in tpconv_bwd.edge_bwd(*a, **kw)[:3]):
+            fail("the edge backward gave a masked edge a gradient")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for a, kw in bwd_calls:
+            tpconv_bwd.edge_bwd(*a, **kw)
+        torch.cuda.synchronize()
+    stages = dict(per_edge=0.0, dh=0.0, mlp=0.0, reduction=0.0, other=0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        k, t = e.key, e.self_device_time_total / 1e3 / len(bwd_calls)
+        product = re.search(r"tn_gemm_tc_kernel<\d+, (true|false)>", k)  # <BN, PART>: PART, the weight products
+        stage = ("per_edge" if "tpconv_bwd_edge" in k else "mlp" if "mlp_bwd_kernel" in k
+                 else ("reduction" if product.group(1) == "true" else "dh") if product
+                 else "reduction" if "sum_splits" in k else "other")
+        stages[stage] += t
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    lib, valid_edges, red_tc, red_fp32 = [], [], [], []
+    for a, kw in bwd_calls:
+        attr, g, dm, w1, b1, w2 = a[0], a[3], a[4], a[5], a[6], a[7]
+        valid = kw.get("valid")
+        valid = (g != 0).any(-1) if valid is None else valid
+        z = attr[valid]
+        h = torch.relu(z @ w1 + b1) * (1.0 if dm is None else dm[valid])
+        one = torch.ones(len(z), 1, device=z.device)
+        hc, zc = torch.cat([h, one], 1), torch.cat([z, one], 1)
+        dw, dh = torch.randn(len(z), w2.shape[1], device=z.device), torch.randn(len(z), w2.shape[0], device=z.device)
+        lib.append(cuda_time(lambda: (torch.matmul(hc.t(), dw), torch.matmul(zc.t(), dh)), reps=3, warmup=1))
+        valid_edges.append(len(z))
+        n, F, (H, W) = len(z), attr.shape[1], w2.shape
+        mm = 2 * n * ((H + 1) * W + (F + 1) * H)
+        b = bounds(4 * (n * (2 * H + W + F) + (H + 1) * W + (F + 1) * H), mm, mm)
+        red_tc.append(b["tc"])
+        red_fp32.append(b["fp32"])
+    torch.set_float32_matmul_precision(prec)
+    lib_ms, bound_tc, bound_fp32 = float(np.mean(lib)), float(np.mean(red_tc)), float(np.mean(red_fp32))
+    print(f"edge backward by stage (torch.profiler, mean ms a call over {len(bwd_calls)} calls, "
+          f"{np.mean(valid_edges):.0f} valid edges a call): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; the reduction's library yardstick, torch.matmul of [h | 1]^T d_w and [z | 1]^T dh at 'highest': "
+          f"{lib_ms:.4f} ms; the reduction's bound {bound_tc:.4f} ms tensor cores, {bound_fp32:.4f} ms float32",
+          flush=True)
+    return {"stage_ms": stages, "reduction_ms": stages["reduction"], "reduction_library_ms": lib_ms,
+            "reduction_bound_ms": bound_tc, "reduction_bound_fp32_ms": bound_fp32}
 
 
 def train_phase(dev) -> tuple:
@@ -1370,7 +1471,22 @@ def layout_check() -> int:
                 fail(f"tpconv_bwd: {fn(*args)} bytes of shared memory at {a} -> {b}, the host mirror says "
                      f"{tpconv_bwd.bwd_smem_bytes(*args)}")
             n += 1
-    return n
+    fn = build.load("tpconv_bwd").cbt_bwd_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    for a, b, sh, ns in cases:
+        lay = tc.tp_layout(a, b, sh)
+        args = (3 * ns, 3 * ns, lay.din, tc.sh_dim(sh), lay.dout, lay.n_x, len(lay.cg),
+                len(tpconv_bwd.bwd_layout(a, b, sh).vtab))
+        if fn(*args) != tpconv_bwd.bwd_tc_smem_bytes(*args):
+            fail(f"tpconv_bwd: {fn(*args)} bytes of shared memory on the tensor-core build at {a} -> {b}, the host "
+                 f"mirror says {tpconv_bwd.bwd_tc_smem_bytes(*args)}")
+        n += 1
+    static = build.load("tpconv_bwd").cbt_bwd_tc_static_bytes
+    static.argtypes, static.restype = [], ctypes.c_longlong
+    if static() != tpconv_bwd.BWD_TC_STATIC:
+        fail(f"tpconv_bwd: the tensor-core kernel has {static()} bytes of static shared memory, the host mirror "
+             f"says {tpconv_bwd.BWD_TC_STATIC}")
+    return n + 1
 
 
 def wide_phase(dev) -> None:
@@ -1452,16 +1568,32 @@ def wide_phase(dev) -> None:
 
 
 def tc_spills(logs: dict) -> dict:
-    """{kernel: bytes of spill stores} from the ptxas logs, for the kernels
-    that run the tensor-core stage (their weights argument is TPWeightsTC)."""
-    out, name = {}, None
-    for log in logs.values():
+    """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
+    the kernels that run on the tensor cores: those whose weights argument
+    is TPWeightsTC (the engine's tensor-core stage) and those TC_KERNELS
+    names (the edge backward's per-edge kernel and its two products)."""
+    out = {}
+    for lib, log in logs.items():
+        name = None
         for line in log.splitlines():
             if "Function properties for " in line:
                 name = line.split("Function properties for ")[-1].strip()
-            elif name and "TPWeightsTC" in name and "bytes spill stores" in line:
-                out[name.split("PK")[0].lstrip("_Z0123456789")] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            elif (name and ("TPWeightsTC" in name or any(k in name for k in TC_KERNELS.get(lib, ())))
+                  and "bytes spill stores" in line):
+                out.setdefault(lib, {})[name] = int(line.split("bytes spill stores")[0].split(",")[-1])
     return out
+
+
+def check_tc_spills(spills: dict) -> None:
+    """Fails unless every kernel TC_KERNELS names appears, once, in its
+    library's ptxas log, and no tensor-core kernel spills."""
+    for lib, kernels in TC_KERNELS.items():
+        for k in kernels:
+            found = [n for n in spills.get(lib, {}) if k in n]
+            if len(found) != 1:
+                fail(f"{lib}: ptxas reported {len(found)} kernels matching {k}, not 1")
+    if any(v for k in spills.values() for v in k.values()):
+        fail("every tensor-core kernel must build with no spill")
 
 
 def main() -> None:
@@ -1488,11 +1620,10 @@ def main() -> None:
     hgmma = build.hgmma_counts()
     print(f"HGMMA instructions (cuobjdump -sass) per library: {hgmma}", flush=True)
     if any(hgmma[name] == 0 for name in TC_KERNELS):
-        fail(f"{', '.join(TC_KERNELS)} must run the H -> W product on the tensor cores")
+        fail(f"{', '.join(TC_KERNELS)} must run their H x W products on the tensor cores")
     spills = tc_spills(logs)
     print(f"tensor-core kernels' spill stores (ptxas): {spills}", flush=True)
-    if len(spills) != len(TC_KERNELS) or any(spills.values()):
-        fail("every tensor-core kernel must build, with no spill")
+    check_tc_spills(spills)
     model, b0, run = main_path(dev)
     rows = kernel_phase(model, run)
     torch.cuda.synchronize()
@@ -1508,7 +1639,7 @@ def main() -> None:
     torch.cuda.synchronize()
     pairs_launches, calls_8b = composed_pairs_phase(dev)
     calls.update(calls_8b)
-    eval_rows = replay(calls, eval_kernels())
+    eval_rows = replay(calls, eval_kernels(), bitwise=("tpconv_cross",))
     for r in eval_rows[1:]:  # rows 5 and 6 launch the edge-list kernel's inference instance
         r["source"] = "confidence_bootstrapping_tpu_torch/csrc/tpconv_edge.cu"
     replay_v1(calls)

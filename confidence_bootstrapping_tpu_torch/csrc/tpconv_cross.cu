@@ -15,8 +15,13 @@
 // edges). The edge embedding already holds the sigma embedding. A layer whose
 // TM-edge layout does not fit a block's shared memory (the ns=48 ladder's
 // wider layers) runs the build at TM_WIDE edges a chunk
-// (tpconv_cross_wide_kernel). Bound: the H x W edge-MLP product on the CUDA
-// cores (see tpconv_engine.cuh).
+// (tpconv_cross_wide_kernel). A layer with H <= KMAX = 96 whose layout fits
+// (the score model's ns=32 ladder, the evaluator's path) runs the H -> W
+// product on the engine's tensor-core stage (tpconv_cross_tc_kernel: 3xTF32
+// wgmma, w2 tiles streamed by bulk copies, as cross_rev's forward direction);
+// the float32 builds at TM and TM_WIDE edges a chunk take the others. Bound:
+// the H x W edge-MLP product, on the tensor cores where the stage runs (see
+// tpconv_engine.cuh).
 #include "tpconv_engine.cuh"
 
 using namespace cbt;
@@ -42,7 +47,34 @@ __global__ void __launch_bounds__(NT) tpconv_cross_wide_kernel(
                                 nullptr);
 }
 
-// cm: edges a chunk, TM or TM_WIDE.
+__global__ void __launch_bounds__(NT) tpconv_cross_tc_kernel(
+    const float* __restrict__ recv, const float* __restrict__ rpos, const float* __restrict__ src,
+    const float* __restrict__ spos, const int64_t* __restrict__ idx, const float* __restrict__ emb,
+    const uint8_t* __restrict__ mask, TPWeightsTC W, TPTables T, Dims d, int L, int N, int K, int RT,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ EdgeSlots<> s;
+  __shared__ uint64_t bar[2];
+  cross_tile<4, true>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out, nullptr, bar);
+}
+
+// The tensor-core build: w1, b1, w2hi, w2lo, b2 (pack_weights' TNC-column
+// tiles); the tables, n_tiles, Wpad and n_epi are those of TNC-column tiles;
+// n_cg: floats in cg.
+extern "C" int cbt_tpconv_cross_tc(const float* recv, const float* rpos, const float* src, const float* spos,
+                                   const int64_t* idx, const float* emb, const uint8_t* mask, const float* w1,
+                                   const float* b1, const float* w2hi, const float* w2lo, const float* b2,
+                                   const int* xtab, const float* cg, const int* epi, const int* epi_start, int S,
+                                   int n_tiles, int Wpad, int n_epi, int n_cg, int B, int L, int N, int K, int Fe,
+                                   int ns, int H, int Din, int Dout, int RT, float* out, void* stream) {
+  const Dims d{Fe, ns, Fe + 2 * ns, H, Din, Dout};
+  const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad, n_epi, n_cg};
+  const TPWeightsTC W{w1, b1, w2hi, w2lo, b2};
+  return launch(tpconv_cross_tc_kernel, dim3((L + RT - 1) / RT, B), smem_bytes(make_layout_tc<4>(d, T, RT)), stream,
+                recv, rpos, src, spos, idx, emb, mask, W, T, d, L, N, K, RT, out);
+}
+
+// The float32 builds; cm: edges a chunk, TM or TM_WIDE.
 extern "C" int cbt_tpconv_cross(const float* recv, const float* rpos, const float* src, const float* spos,
                                 const int64_t* idx, const float* emb, const uint8_t* mask, const float* w1,
                                 const float* b1, const float* w2, const float* b2, const int* xtab, const float* cg,
@@ -64,7 +96,7 @@ extern "C" int cbt_tpconv_cross(const float* recv, const float* rpos, const floa
 // tensor-core stage (tc) or the float32 stage at cm edges a chunk
 // (cbt::static_bytes).
 extern "C" long long cbt_static_smem_bytes(int tc, int cm) {
-  if (tc) return -1;
+  if (tc) return cm == TM ? static_bytes(tpconv_cross_tc_kernel) : -1;
   if (cm == TM) return static_bytes(tpconv_cross_kernel);
   if (cm == TM_WIDE) return static_bytes(tpconv_cross_wide_kernel);
   return -1;

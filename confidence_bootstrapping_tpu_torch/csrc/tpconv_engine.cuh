@@ -39,9 +39,10 @@
 // ~1 KB). It keeps w2 tiles in shared memory for TM edges at a time and
 // never writes w or the per-edge messages to device memory.
 //
-// The tensor-core stage (TC = true: the rec, pb, cross_rev and rec_g
-// inference kernels; every other instance keeps the float32 stage) runs steps
-// 3 and 4 so:
+// The tensor-core stage (TC = true: the rec, pb, cross_rev, rec_g and row 4
+// (cross) inference kernels; every other instance keeps the float32 stage;
+// the edge backward's tensor-core build reuses its pieces) runs steps 3 and 4
+// so:
 //
 //   * 3xTF32: w2 is split once on the host (ops/cuda/tpconv_common.py:
 //     pack_weights) into w2_hi = tf32(w2) and w2_lo = tf32(w2 - w2_hi), and

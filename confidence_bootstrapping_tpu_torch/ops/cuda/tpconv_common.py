@@ -16,7 +16,7 @@ layout directly:
 * the epilogue items of each column tile: (col_lo, col_hi, x_base, x_step,
   out_col), one per (g, v) segment in the tile and output component c.
 
-The tensor-core stage of the rec, pb, cross_rev and rec_g kernels (3xTF32
+The tensor-core stage of the rec, pb, cross_rev, rec_g and row 4 kernels (3xTF32
 ``wgmma``) reads w2 split into TF32 parts, ``w2_hi = tf32(w2)`` and
 ``w2_lo = tf32(w2 - w2_hi)`` (round to nearest, ties away from zero, as
 ``cvt.rna.tf32.f32``), each cut into TNC-column tiles stored in the layout
@@ -36,7 +36,8 @@ compile-time parameter of the kernels. Input and output irreps may hold any
 l <= 1 blocks.
 
 The training backward (``csrc/tpconv_bwd.cu``) reads w2 in its canonical
-column order and three more tables (``bwd_layout``).
+column order and three more tables (``bwd_layout``); its tensor-core build
+packs that order's TNC-column hi/lo tiles on the card per call.
 """
 
 from __future__ import annotations

@@ -48,6 +48,7 @@ _REC_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 _REC_WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
 _REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
 _CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
+_CROSS_TC_ARGTYPES = [_P] * 16 + [_I] * 15 + [_P, _P]
 
 
 def cross_rows_per_block(K: int, chunk: int = TM) -> int:
@@ -181,9 +182,12 @@ def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask,
 def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                  irreps_in, irreps_sh, irreps_out, ns, packed):
     """Launch ``csrc/<kernel>.cu``, a one-direction cross kernel of the
-    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2, ``tpconv_cross``:
-    lmax=1; both ``cross_tile`` of the engine), after checking its inputs.
-    Returns the sums [B, L, Dout]."""
+    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2, on the float32
+    stage; ``tpconv_cross``: lmax=1, on the tensor-core stage where the
+    layer fits it; both ``cross_tile`` of the engine), after checking its
+    inputs; receivers a block: ``cross_rows_per_block`` (one at the
+    evaluator's K=100, the fastest of RT 1-12 at B = 8 and 32 on an H100,
+    scripts/engine_ablation.py). Returns the sums [B, L, Dout]."""
     dev = recv_attr.device
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     B, L, D = recv_attr.shape
@@ -193,15 +197,32 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
             or idx.shape != (B, L, K) or edge_emb.shape[:3] != (B, L, K) or mask.shape != (B, L, K)
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError(f"{kernel}: inconsistent shapes")
-    # row 4 (lmax=1) has a build at TM_WIDE edges a chunk for the layers TM does not fit; cross_g has TM only
+    # row 4 (lmax=1) has a tensor-core build, and one at TM_WIDE edges a chunk for the layers TM does not fit;
+    # cross_g has the float32 build at TM only
     d = Dims(Fe, ns, Fe + 2 * ns, H, D, lay.dout)
     tms = (TM, TM_WIDE) if kernel == "tpconv_cross" else (TM,)
+    tc = False
+    if kernel == "tpconv_cross":
+        rt = cross_rows_per_block(K)
+        tc = pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, rt, True, tms)[0]
+    pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
+    out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
+    lib = build.load(kernel)
+    inputs = (ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask))
+    if tc:
+        tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
+        fn = getattr(lib, "cbt_" + kernel + "_tc")
+        fn.argtypes, fn.restype = _CROSS_TC_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), B, L, N, K, Fe,
+                  ns, H, D, lay.dout, rt, ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, code, kernel)
+        return out
     cm = pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, cross_rows_per_block(K), False, tms)[1]
     rt = cross_rows_per_block(K, cm)
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
-    out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
-    lib = build.load(kernel)
+    w1c, b1c, w2p, b2p = pw[:4]
     fn = getattr(lib, "cbt_" + kernel)
     fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
     code = fn(

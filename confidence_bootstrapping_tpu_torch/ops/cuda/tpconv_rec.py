@@ -18,10 +18,12 @@ What bounds them and how the kernels are laid out: ``csrc/tpconv_engine.cuh``.
 cores (3xTF32 ``wgmma``), reading the split, tiled w2 fields of
 ``pack_weights`` and the tables of TNC-column tiles; a layer that stage does
 not take (H > KMAX = 96, or a layout over a block's shared memory: the
-ns=48 ladder) runs its float32 build at TM_WIDE edges a chunk. Its training
-variant and ``fused_tpconv_cross`` keep the float32 stage, at TM edges a
-chunk or TM_WIDE where TM does not fit (``tpconv_common.pick_build``). Where
-no build fits a layer the wrapper raises.
+ns=48 ladder) runs its float32 build at TM_WIDE edges a chunk.
+``fused_tpconv_cross`` runs the same tensor-core stage where its layer fits
+it, and otherwise the float32 stage at TM edges a chunk or TM_WIDE where TM
+does not fit; ``fused_tpconv_rec``'s training variant keeps the float32 stage
+(``tpconv_common.pick_build``). Where no build fits a layer the wrapper
+raises.
 
 ``fused_tpconv_rec`` launches the kernel for CUDA tensors and calls
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts

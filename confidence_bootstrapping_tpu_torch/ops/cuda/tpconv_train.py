@@ -7,7 +7,7 @@ Replaces ``confidence_bootstrapping_tpu/ops/pallas/tpconv_train.py``'s two
   optional K-sum over pre-gathered edge lists [M, K, *]. Forward: the
   edge-list kernel (``tpconv_edge``); backward: the edge backward kernel
   (``tpconv_bwd``) on the cotangent broadcast over K (for the K-sum) and
-  masked.
+  masked, given the mask, so that its tensor-core build skips masked edges.
 * ``fused_tpconv_rec_train``: the receptor kNN groups (senders and receivers
   one node table). Forward: the in-kernel-gather kernel with the dropout mask
   (``tpconv_rec`` at lmax=1, ``tpconv_rec_g`` at lmax=2). Backward: the
@@ -48,7 +48,7 @@ class _EdgeTrain(torch.autograd.Function):
         T = M * K
         d_a, d_x, d_s, dw1, db1, dw2, db2 = edge_bwd(
             edge_attr.reshape(T, F), sender.reshape(T, -1), sh.reshape(T, -1), ge.reshape(T, -1).contiguous(),
-            None if dmask is None else dmask.reshape(T, -1), w1, b1, w2, b2, *ctx.irreps)
+            None if dmask is None else dmask.reshape(T, -1), w1, b1, w2, b2, *ctx.irreps, valid=mask.reshape(T))
         return (d_a.reshape(edge_attr.shape), d_x.reshape(sender.shape), d_s.reshape(sh.shape), None, None,
                 dw1, db1, dw2, db2, None, None, None)
 
@@ -99,7 +99,7 @@ class _RecTrain(torch.autograd.Function):
         ge = g[:, :, None, :] * mask[..., None]
         d_a, d_x, d_s, dw1, db1, dw2, db2 = edge_bwd(
             eattr.reshape(T, -1), sender.reshape(T, Din), sh.detach().reshape(T, -1), ge.reshape(T, -1),
-            None if dmask is None else dmask.reshape(T, -1), w1, b1, w2, b2, *ctx.irreps)
+            None if dmask is None else dmask.reshape(T, -1), w1, b1, w2, b2, *ctx.irreps, valid=mask.reshape(T))
         d_eattr = d_a.reshape(B, N, K, -1)
         d_edge_emb = d_eattr[..., :Fe]
         d_sender = d_x.reshape(B, N, K, Din).clone()

@@ -25,6 +25,23 @@ picks: the mean ms per call (CUDA events), the blocks and waves of the grid,
 and each RT's first calls against the plain version; then the same calls cut
 to their first 8 poses (B=8) and with their poses twice (B=64).
 
+Then row 4's receivers a block on its tensor-core build: every
+``fused_tpconv_cross`` call of one of chip_smoke.py's phase-8 evaluator samples
+(cross cap pinned at 100, the derived plan, B=32, 20 steps, 100 calls),
+replayed at each RT of a list (the wrapper's rule ``cross_rows_per_block``
+gives RT=1 at K=100; pb's one-wave rule RT=6 at B=32), at B=32 and cut or
+doubled to B=8 and B=64, as for pb.
+
+Then where the edge backward's tensor-core build spends its time: copies of
+``csrc/tpconv_bwd.cu`` whose per-edge kernel has one stage cut out each
+(d_w to scratch, the d_X epilogue, the sender and harmonic gradients, the
+recompute's wgmma products, the whole tile loop, and the CG contributions
+with it), each run on a full-width receptor group of a B=16 training step
+(the 74 -> 74 trunk layer, T = 16 x 512 x 24 = 196,608 slots, 19% masked,
+dropout 0.1, seed 0) under torch.profiler: the device time of each of the
+build's kernels (the per-edge kernel, the dh product, the MLP backward, the
+two weight-gradient products).
+
 Prints the card's name and power limit first. Run from the repository root
 on a machine with the CUDA toolkit:
 
@@ -148,6 +165,170 @@ def main() -> None:
         print(f"{stage}: {ms[a] - ms[b]:.4f} ms", flush=True)
     print(f"compaction, fill, receiver sums and output: {ms['no_hidden']:.4f} ms", flush=True)
     pb_rows(dev)
+    cross_rows(dev)
+    bwd_stages(dev)
+
+
+CROSS_RT = (1, 2, 3, 4, 6, 8, 12)
+
+
+def bwd_variants(src: str) -> dict:
+    """{name: backward source} with one stage of the tensor-core per-edge kernel cut out each."""
+    k = src.index("__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel")
+    head, body = src[:k], src[k:]
+
+    def cut(s, old, new):
+        if old not in s:
+            raise RuntimeError(f"the backward no longer has the stage this script cuts: {old[:60]!r}")
+        return s.replace(old, new)
+
+    none = "for (int i = tid; i < 0; i += NTB) {"
+    no_tiles = cut(cut(body, "const int nt = a.n_tiles, stage_sz", "const int nt = 0, stage_sz"),
+                   "  float acc[12];\n  mbar_wait(bar, 0);\n  mma_tile(acc, hi, lo, ring, L.hp);", "  float acc[12];")
+    cuts = {
+        "full": body,
+        "no_dw": cut(body, "for (int i = tid; i < nrow * TNC; i += NTB) {", none),
+        "no_dX": cut(body, "for (int i = tid; i < here * CMT; i += NTB) {", none),
+        "no_dx_dsh": cut(body, "for (int i = tid; i < nrow * (a.Din + a.Dsh); i += NTB) {", none),
+        "no_mma": cut(cut(body, "mma_tile(acc, hi, lo, ring, L.hp);", ""),
+                      "mma_tile(acc, hi, lo, ring + ((t + 1) & 1) * stage_sz, L.hp);", ""),
+        "no_tiles": no_tiles,
+        "no_contributions": cut(no_tiles, "for (int i = tid; i < CMT * a.S; i += NTB) {", none),
+    }
+    return {name: head + b for name, b in cuts.items()}
+
+
+def bwd_stages(dev) -> None:
+    """The edge backward's kernels by stage (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import build, tpconv_bwd
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import SH_IRREPS, sh1
+    from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
+
+    with open(os.path.join(CSRC, "tpconv_bwd.cu")) as f:
+        cuts = bwd_variants(f.read())
+    procs = {}
+    for name, src in cuts.items():
+        d = os.path.join(OUT, "bwd_" + name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "tpconv_bwd.cu"), "w") as f:
+            f.write(src)
+        shutil.copy(os.path.join(CSRC, "tpconv_engine.cuh"), d)
+        procs[name] = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
+                                        os.path.join(d, "tpconv_bwd.cu")], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            sys.exit(f"nvcc failed for the backward's {name}:\n{log}")
+    ir, T, F, H = "32x0e + 6x1o + 6x1e + 6x0o", 16 * 512 * 24, 96, 96
+    W = WeightedTensorProduct(ir, SH_IRREPS, ir).weight_numel
+    g = torch.Generator().manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev)
+    attr, x, sh = mk(T, F), mk(T, 74), sh1(mk(T, 3))
+    valid = (torch.rand(T, generator=g) >= 0.19).to(dev)
+    cot = (mk(T, 74) * valid[:, None]).contiguous()
+    dm = ((torch.rand(T, H, generator=g) > 0.1).float() / 0.9).to(dev)
+    ins = (attr, x, sh, cot, dm, *[mk(*s) * 0.2 for s in ((F, H), (H,), (H, W), (W,))], ir, SH_IRREPS, ir)
+    print(f"edge backward at {ir} -> {ir}: T={T}, {int(valid.sum())} valid edges, dropout 0.1; device ms a call "
+          f"(torch.profiler, 3 calls, second pass):", flush=True)
+    load = build.load
+    names = {"tpconv_bwd_edge_tc": "per-edge", "tn_gemm_tc_kernel<96, false": "dh product", "mlp_bwd": "MLP backward",
+             "tn_gemm_tc_kernel<96, true": "weight products", "sum_splits": "slice sums"}
+    try:
+        for rep in range(2):
+            for name in cuts:
+                lib = ctypes.CDLL(os.path.join(OUT, "bwd_" + name, "lib.so"))
+                lib.cbt_error_string.argtypes = [ctypes.c_int]
+                lib.cbt_error_string.restype = ctypes.c_char_p
+                build.load = lambda _name, lib=lib: lib
+                tpconv_bwd.edge_bwd(*ins, valid=valid)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        tpconv_bwd.edge_bwd(*ins, valid=valid)
+                    torch.cuda.synchronize()
+                t = {v: 0.0 for v in names.values()}
+                for e in prof.key_averages():
+                    for key, v in names.items():
+                        if key in e.key:
+                            t[v] += e.self_device_time_total / 3e3
+                if rep:
+                    print(f"  {name:17s} " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+    finally:
+        build.load = load
+
+
+def cross_rows(dev) -> None:
+    """Row 4's time per call by receivers a block, on the calls of one
+    evaluator sample (B=32), cut to 8 poses and doubled to 64."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, sample, with_derived_plan
+
+    cfg = dataclasses.replace(ScoreModelConfig(lm_embedding_dim=chip_smoke.LM_DIM), cross_cap=chip_smoke.EVAL_CAP,
+                              cross_cap_frac=0.0)
+    padded = chip_smoke.host_complex(chip_smoke.LM_DIM)[0]
+    scfg = with_derived_plan(cfg, SamplerConfig(inference_steps=chip_smoke.STEPS), padded["rec_pos"],
+                             padded["rec_mask"])
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    b0 = randomize_position(replicate_complex(padded, chip_smoke.B_POSES, device=dev),
+                            torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run = lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    calls = chip_smoke.record_calls(run, ("tpconv_cross",))["tpconv_cross"]
+    n_pose = 7  # the per-pose arguments: receivers, positions, sender table and positions, idx, embedding, mask
+    for B, batch in ((32, lambda t: t), (8, lambda t: t[:8].contiguous()), (64, lambda t: torch.cat([t, t]))):
+        cross_rows_at([(tuple(batch(a) if i < n_pose else a for i, a in enumerate(args)), kw) for args, kw in calls],
+                      dev)
+
+
+def cross_rows_at(calls, dev) -> None:
+    """Replay row 4's calls at each RT of CROSS_RT: the first three against
+    the plain version, then all of them timed (CUDA events), twice."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g, tpconv_lig, tpconv_rec
+
+    B, L = calls[0][0][0].shape[:2]
+    K = calls[0][0][4].shape[2]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    edges = sum(int(a[6].sum()) for a, _ in calls) / len(calls)
+    print(f"row 4: {len(calls)} calls of one evaluator sample, B={B} L={L} K={K}, {edges:.0f} valid edges a call; "
+          f"the wrapper's rule RT={tpconv_g.cross_rows_per_block(K)}, one wave RT="
+          f"{tpconv_lig.pb_rows_per_block(B, L, n_sm)}", flush=True)
+    rule = tpconv_g.cross_rows_per_block  # launch_cross's receivers a block
+    times = {rt: [] for rt in CROSS_RT}
+    try:
+        for _ in range(2):
+            for rt in CROSS_RT:
+                tpconv_g.cross_rows_per_block = lambda K, chunk=64, rt=rt: rt
+                for args, kw in calls[:3]:
+                    got, want = tpconv_rec.fused_tpconv_cross(*args, **kw), tpconv_rec.tpconv_cross_plain(*args)
+                    err, scale = float((got - want).abs().max()), float(want.abs().max())
+                    if err > 2e-4 * max(1.0, scale):
+                        sys.exit(f"row 4 at B={B}, RT={rt} disagrees with its plain version: {err:.3g}")
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for args, kw in calls:
+                    tpconv_rec.fused_tpconv_cross(*args, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                times[rt].append(start.elapsed_time(end) / len(calls))
+    finally:
+        tpconv_g.cross_rows_per_block = rule
+    for rt, ts in times.items():
+        blocks = B * -(-L // rt)
+        print(f"row 4 B={B} RT={rt:2d}: {blocks:4d} blocks, {-(-blocks // n_sm)} wave(s): "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms a call", flush=True)
 
 
 PB_RT = (2, 3, 4, 6, 8, 12, 24)

@@ -28,7 +28,7 @@ def functions(cuobjdump: str, lib: str) -> dict:
         if m:
             if name:
                 funcs[name] = body
-            name, body = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1)), []
+            name, body = re.sub(r"_GLOBAL__N__[0-9a-f]+_|(?<=_cu_)[0-9a-f]{8}", "", m.group(1)), []
         elif name and "/*" in line:
             body.append(re.sub(r"\s+", " ", line.strip()))
     if name:

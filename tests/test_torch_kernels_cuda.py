@@ -17,7 +17,9 @@ pb's and rec_g's outputs bit for bit across two launches. Layers that stage
 does not take (H above 96, a layout over a block's shared memory, the
 ns=48/nv=10 ladder) run the float32 builds at 32 edges a chunk, rec_g's
 too, and so do the training kernels' layers whose 64-edge layout
-does not fit; the edge backward runs at H up to 192. Every library's
+does not fit; the edge backward runs at H up to 192, and on its
+tensor-core build (H <= 96) skips the masked edges it is told of, giving
+them exact zeros, bit for bit across launches, as row 4 is. Every library's
 shared-memory bytes equal the host mirror's. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
@@ -533,29 +535,66 @@ def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
     assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 2)  # counted apart from inference
 
 
-@pytest.mark.parametrize("irreps_in,irreps_sh,irreps_out,T,dropout,H", [
-    (FLAGSHIP, SH1, FLAGSHIP, 333, True, 96),  # a ragged last block
-    (FLAGSHIP, SH1, FLAGSHIP, 6000, False, 96),  # several slices of the weight reduction
-    (FLAGSHIP, tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, True, 96),
-    (FLAGSHIP, SH2, FLAGSHIP, 100, False, 96),
-    (WIDE, SH1, WIDE, 333, True, 144),  # the ns=48 trunk layer: 16 edges a block
-    (FLAGSHIP, SH1, FLAGSHIP, 150, False, 192),  # H = 192, the widest the 16-edge build takes
+@pytest.mark.parametrize("irreps_in,irreps_sh,irreps_out,T,masked,hd,H", [
+    (FLAGSHIP, SH1, FLAGSHIP, 333, 0.3, "H", 96),  # a ragged last block
+    (FLAGSHIP, SH1, FLAGSHIP, 6000, 0.3, None, 96),  # several slices of the weight reduction
+    (FLAGSHIP, SH1, FLAGSHIP, 24576, 0.19, "H", 96),  # a full-width receptor group (B=2, N=512, K=24), 19% masked
+    (FLAGSHIP, SH1, FLAGSHIP, 9000, 0.55, 1, 96),  # an edge list, 55% masked, one dropout value an edge
+    (FLAGSHIP, tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, 0.3, "H", 96),  # the torsion head's Dsh = 20
+    (FLAGSHIP, SH2, FLAGSHIP, 100, 0.3, None, 96),
+    (ODD_H, SH1, ODD_H, 500, 0.3, "H", 30),  # H = 30, not a multiple of 8
+    (CONF_TRUNK, SH2, CONF_TRUNK, 2000, 0.3, 1, 72),  # H = 72 at lmax = 2
+    (WIDE, SH1, WIDE, 333, 0.3, "H", 144),  # the ns=48 trunk layer: the float32 build at 16 edges a block
+    (WIDE, SH1, WIDE, 5000, 0.3, None, 144),  # several slices of the float32 builds' weight reduction
+    (FLAGSHIP, SH1, FLAGSHIP, 3000, 0.3, 1, 120),  # H = 120: the float32 build at 32 edges a block
+    (FLAGSHIP, SH1, FLAGSHIP, 150, 0.3, None, 192),  # H = 192, the widest the 16-edge build takes
 ])
-def test_edge_bwd_kernel_matches_plain(dev, irreps_in, irreps_sh, irreps_out, T, dropout, H):
+def test_edge_bwd_kernel_matches_plain(dev, irreps_in, irreps_sh, irreps_out, T, masked, hd, H):
+    """The tensor-core build (H <= 96) skips the masked edges it is told of:
+    they get exact zeros; every build gives the same bits on a second
+    launch."""
     g = _gen(9)
     F = 3 * _ns(irreps_in)
-    (attr, send, sh, mask), weights, dmask = _edge_inputs(g, irreps_in, irreps_sh, irreps_out, T, 1, F, dev, dropout, H)
-    dout = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_out.dim
-    cot = (torch.randn(T, dout, generator=g).to(dev) * mask.reshape(T, 1)).contiguous()
-    flat = lambda t: None if t is None else t.reshape(T, -1).contiguous()
-    ins = (flat(attr), flat(send), flat(sh), cot, flat(dmask), *weights, irreps_in, irreps_sh, irreps_out)
+    tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
+    W = tp.weight_numel
+    attr, send = torch.randn(T, F, generator=g), torch.randn(T, tp.irreps_in.dim, generator=g)
+    sh = torch.randn(T, tpconv_common.sh_dim(irreps_sh), generator=g)
+    mask = torch.rand(T, generator=g) >= masked
+    cot = torch.randn(T, tp.irreps_out.dim, generator=g) * mask[:, None]
+    dmask = None if hd is None else (torch.rand(T, H if hd == "H" else hd, generator=g) > 0.1).float() / 0.9
+    weights = [(torch.randn(s, generator=g) * 0.2).to(dev) for s in ((F, H), (H,), (H, W), (W,))]
+    to = lambda t: None if t is None else t.to(dev).contiguous()
+    ins = (to(attr), to(send), to(sh), to(cot), to(dmask), *weights, irreps_in, irreps_sh, irreps_out)
+    mask = mask.to(dev)
     before = tpconv_bwd.edge_bwd.launches
-    got = tpconv_bwd.edge_bwd(*ins)
+    got = tpconv_bwd.edge_bwd(*ins, valid=mask)
+    again = tpconv_bwd.edge_bwd(*ins, valid=mask)
     torch.cuda.synchronize()
-    assert tpconv_bwd.edge_bwd.launches == before + 1
+    assert tpconv_bwd.edge_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = tpconv_bwd.edge_bwd_plain(*ins)
     for i, (a, b) in enumerate(zip(got, want)):
         _close(a, b, REL if i < 3 else SUM_REL)
+    for a in got[:3]:
+        assert float(a[~mask].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("irreps,H", [(FLAGSHIP, 96), (WIDE, 144)])
+def test_edge_bwd_without_valid_takes_every_edge(dev, irreps, H):
+    """valid=None (the tensor-core build, H=96; the float32 build, H=144)
+    gives the bits of valid=all-true."""
+    g = _gen(12)
+    T, F = 700, 3 * _ns(irreps)
+    tp = WeightedTensorProduct(irreps, SH1, irreps)
+    shapes = ((T, F), (T, tp.irreps_in.dim), (T, 4), (T, tp.irreps_out.dim))
+    ins = [torch.randn(s, generator=g).to(dev) for s in shapes]
+    weights = [(torch.randn(s, generator=g) * 0.2).to(dev) for s in ((F, H), (H,), (H, tp.weight_numel),
+                                                                      (tp.weight_numel,))]
+    args = (*ins, None, *weights, irreps, SH1, irreps)
+    got = tpconv_bwd.edge_bwd(*args)
+    every = tpconv_bwd.edge_bwd(*args, valid=torch.ones(T, dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, every))
 
 
 def test_train_ops_match_autograd_of_plain(dev):
@@ -599,6 +638,8 @@ def test_train_ops_match_autograd_of_plain(dev):
 @pytest.mark.parametrize("irreps,B,L,N,K", [
     (FLAGSHIP, 2, 13, 150, 40),
     (FLAGSHIP, 2, 24, 512, 100),  # the evaluator's pinned cap: a full 64-edge chunk and a partial one per receiver
+    (FLAGSHIP, 32, 24, 512, 100),  # the evaluator's full batch
+    (ODD_H, 2, 13, 150, 40),  # H = 30 on the tensor-core stage
     ("16x0e + 4x1o + 4x1e + 4x0o", 2, 9, 300, 205),  # four chunks per receiver, K above 128
 ])
 def test_cross_kernel_matches_plain(dev, irreps, B, L, N, K):
@@ -617,8 +658,10 @@ def test_cross_kernel_matches_plain(dev, irreps, B, L, N, K):
     args = [t.to(dev) for t in (recv, rpos, src, spos, idx, emb, mask)] + _weights(g, irreps, irreps, ns, dev)
     before = tpconv_rec.fused_tpconv_cross.launches
     got = tpconv_rec.fused_tpconv_cross(*args, irreps, irreps, ns)
+    again = tpconv_rec.fused_tpconv_cross(*args, irreps, irreps, ns)
     torch.cuda.synchronize()
-    assert tpconv_rec.fused_tpconv_cross.launches == before + 1
+    assert tpconv_rec.fused_tpconv_cross.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits on every launch
     _close(got, tpconv_rec.tpconv_cross_plain(*args, irreps, irreps, ns))
     assert float(got[0, 3].abs().max()) == 0.0
     with pytest.raises(ValueError):  # lmax=2 weights do not fit the lmax=1 kernel's tables
