@@ -9,9 +9,10 @@ Phases (each one fails the script when it fails):
   1. the card's name and power limit (nvidia-smi);
   2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed), with
      each kernel's ptxas line and each library's count of HGMMA (wgmma)
-     instructions from cuobjdump -sass: rec, pb, cross_rev, rec_g and row 4
-     (tpconv_cross), whose H -> W product runs on the tensor cores, and the
-     edge backward (tpconv_bwd), whose three H x W products do, must have
+     instructions from cuobjdump -sass: rec (with and without the dropout
+     mask), pb, cross_rev, rec_g, row 4 (tpconv_cross) and the edge-list
+     kernel (tpconv_edge), whose H -> W product runs on the tensor cores, and
+     the edge backward (tpconv_bwd), whose three H x W products do, must have
      some, and their tensor-core kernels no spill;
   3. per kernel, on every call of one sample of phase 5's path (recorded,
      then replayed): the kernel against its plain PyTorch version on the same
@@ -44,9 +45,10 @@ Phases (each one fails the script when it fails):
      CUDA events, the launches per step of the edge-list forward, rec with the
      dropout mask and the edge backward against the config), the eval loss in
      batch-statistics mode over 8 fixed draws before and after them, every
-     call of one more step replayed through kernel and plain version (and the
-     two autograd ops forward and backward; the edge backward by call kind,
-     receptor group or edge list, bit for bit across two launches, exact
+     call of one more step replayed through kernel and plain version (the
+     edge-list forward and rec with the mask bit for bit across two launches;
+     and the two autograd ops forward and backward; the edge backward by call
+     kind, receptor group or edge list, bit for bit across two launches, exact
      zeros on the masked edges, its device time by stage and its
      weight-gradient reduction beside torch.matmul's time for the same
      products), one step under torch.profiler.
@@ -66,7 +68,7 @@ Phases (each one fails the script when it fails):
      (card against CPU), then phase 8's B=32 20-step sample at this bucket on
      the card (warm, then timed: poses/s, launches against the config);
      then every row 4/5/6 call of one sample of each replayed through kernel
-     and plain version (row 4 bit for bit across two launches), and row 13's v1 API (rows 5 and 6 behind the v1
+     and plain version (rows 4, 5 and 6 bit for bit across two launches), and row 13's v1 API (rows 5 and 6 behind the v1
      signatures, no kernel of its own) on a few of them, printed.
   9. the wide ladder: the score model at ns=48/nv=10 (H=144, above the
      tensor-core stage's 96; DiffDock's published width), otherwise phase 5's
@@ -106,9 +108,10 @@ B_POSES, STEPS, LM_DIM, PLAN = 32, 20, 1280, ((6, 256), (12, 128))
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accuracy
 # {library: its kernels that run H x W products on wgmma, by a part of their mangled names}
-TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel",), "tpconv_pb": ("16tpconv_pb_kernel",),
+TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel", "23tpconv_rec_dm_tc_kernel"), "tpconv_pb": ("16tpconv_pb_kernel",),
               "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",), "tpconv_rec_g": ("19tpconv_rec_g_kernel",),
               "tpconv_cross": ("22tpconv_cross_tc_kernel",),
+              "tpconv_edge": tuple(f"21tpconv_edge_tc_kernelILi{shd}ELb{dm}E" for shd in (4, 9, 20) for dm in (0, 1)),
               "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
                              "17tn_gemm_tc_kernelILi96ELb1E")}
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
@@ -929,6 +932,38 @@ def replay_train_ops(calls: dict) -> list:
     return rows
 
 
+def edge_builds(calls: dict) -> dict:
+    """{kernel: {build: calls}}: the build (``tensor cores``, or ``float32 at``
+    64 or 32 edges a chunk) that each recorded call of the edge-list kernel
+    (rows 5-7) and of rec with the dropout mask ran, as its wrapper picks it
+    (``tpconv_edge.edge_build``, ``tpconv_rec.rec_build``)."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_rec
+
+    def name(tc_cm):
+        return "tensor cores" if tc_cm[0] else f"float32 at {tc_cm[1]}"
+
+    out = {}
+    for kernel in ("tpconv_edge", "tpconv_nbr", "tpconv_msgs", "tpconv_rec_dm"):
+        for a, _ in calls.get(kernel, ()):
+            if kernel == "tpconv_rec_dm":
+                b = tpconv_rec.rec_build(a[10], a[11], a[3].shape[-1], a[12], a[8].shape[0], True)
+            else:  # the training calls name their harmonics; rows 5 and 6 take lmax=1
+                sh, ir_out = (a[9], a[10]) if kernel == "tpconv_edge" else (SH1, a[9])
+                b = tpconv_edge.edge_build(a[8], sh, ir_out, a[0].shape[-1], a[6].shape[0], a[0].shape[1])
+            out.setdefault(kernel, {}).setdefault(name(b), 0)
+            out[kernel][name(b)] += 1
+    return out
+
+
+def check_tc_builds(calls: dict, what: str) -> None:
+    """Prints ``edge_builds`` and fails unless every call ran a tensor-core
+    kernel (the score model's ns=32 ladder: every layer fits the stage)."""
+    builds = edge_builds(calls)
+    print(f"{what}: builds {builds}", flush=True)
+    if any(set(b) != {"tensor cores"} for b in builds.values()):
+        fail(f"{what}: an edge-list or rec-with-mask call of the ns=32 ladder ran a float32 build")
+
+
 def replay_train_kernels(calls: dict) -> list:
     """The training kernels' recorded calls (``record_train_calls``) replayed
     through kernel and plain version; the edges at the ReLU
@@ -960,7 +995,7 @@ def replay_train_kernels(calls: dict) -> list:
     }
     with torch.no_grad():
         rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4},
-                      bitwise=("tpconv_bwd",))
+                      bitwise=("tpconv_bwd", "tpconv_edge", "tpconv_rec_dm"))
         for r in rows:
             r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
             if r["name"] == "tpconv_bwd":
@@ -1146,6 +1181,7 @@ def train_phase(dev) -> tuple:
     # one step's calls, replayed through kernel and plain version
     calls = record_train_calls(lambda: step(state, batch, gen))
     torch.cuda.synchronize()
+    check_tc_builds(calls, "training step")
     rows = replay_train_kernels(calls)
     rows += replay_train_ops(calls)
     profile_run(lambda: step(state, batch, gen), med)
@@ -1516,6 +1552,7 @@ def wide_phase(dev) -> None:
     step(state, batch, gen)  # warm-up
     calls = record_train_calls(lambda: step(state, batch, gen))
     torch.cuda.synchronize()
+    print(f"wide training step: builds {edge_builds(calls)}", flush=True)
     replay_train_kernels(calls)
     del model, state, calls
     torch.cuda.empty_cache()
@@ -1639,7 +1676,8 @@ def main() -> None:
     torch.cuda.synchronize()
     pairs_launches, calls_8b = composed_pairs_phase(dev)
     calls.update(calls_8b)
-    eval_rows = replay(calls, eval_kernels(), bitwise=("tpconv_cross",))
+    check_tc_builds(calls, "evaluator and composed-pairs samples")
+    eval_rows = replay(calls, eval_kernels(), bitwise=("tpconv_cross", "tpconv_nbr", "tpconv_msgs"))
     for r in eval_rows[1:]:  # rows 5 and 6 launch the edge-list kernel's inference instance
         r["source"] = "confidence_bootstrapping_tpu_torch/csrc/tpconv_edge.cu"
     replay_v1(calls)

@@ -40,9 +40,10 @@
 // never writes w or the per-edge messages to device memory.
 //
 // The tensor-core stage (TC = true: the rec, pb, cross_rev, rec_g and row 4
-// (cross) inference kernels; every other instance keeps the float32 stage;
-// the edge backward's tensor-core build reuses its pieces) runs steps 3 and 4
-// so:
+// (cross) inference kernels, rec with the dropout mask and the edge-list
+// kernel; cross_g, rec_g with the mask and the layers the stage does not take
+// keep the float32 stage; the edge backward's tensor-core build reuses its
+// pieces) runs steps 3 and 4 so:
 //
 //   * 3xTF32: w2 is split once on the host (ops/cuda/tpconv_common.py:
 //     pack_weights) into w2_hi = tf32(w2) and w2_lo = tf32(w2 - w2_hi), and
@@ -81,7 +82,8 @@
 //     a register-tiled hidden layer stored [edges][Hp]; the X table's rows
 //     and cg, copied into the msg region until step 4 zeroes msg, for
 //     contributions with fixed-trip loops (unrolled to the l = 1 harmonic
-//     block at SHD=4 and the l = 2 block at SHD=9); the epilogue items,
+//     block at SHD=4, the l = 2 block at SHD=9 and the l = 3 block at
+//     SHD=20, the torsion head's harmonics); the epilogue items,
 //     copied once per block; b2 of a tile is read while the tile multiplies;
 //   * cross_rev runs both directions through one call site: two inlined
 //     copies of the stage hold too many registers at once and spill;
@@ -637,11 +639,11 @@ __device__ void stage_tables(float* sm, const LayoutTC& L, const Dims& d, const 
 
 // contributions() from stage_tables' copies, its loops unrolled to the
 // stage's irreps (l <= 1 inputs: di <= 3; harmonic blocks up to l = 1 at
-// SHD=4, l = 2 at SHD=9: ds <= 3 or 5); the same terms in the same order, so
-// X is the same bit for bit.
+// SHD=4, l = 2 at SHD=9, l = 3 at SHD=20: ds <= 3, 5 or 7); the same terms
+// in the same order, so X is the same bit for bit.
 template <int SHD>
 __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T) {
-  constexpr int DS = SHD == 4 ? 3 : 5;
+  constexpr int DS = SHD == 4 ? 3 : SHD == 9 ? 5 : 7;
   const float* xs = sm + L.xs;
   const float* sh = sm + L.sh;
   const int* xtab = reinterpret_cast<const int*>(sm + L.msg);
@@ -706,6 +708,59 @@ __device__ void hidden_layer_tc(float* sm, const LayoutTC& L, const Dims& d, con
   }
 }
 
+// The training variant: h[m][k] times the dropout mask of the slot's edge,
+// dm[cand[m] * hd + k] (hd = H, or 1 for one value per edge), after the ReLU
+// and before the TF32 split, as hidden_layer_dm applies it; columns past H
+// stay zero. A function of its own, so that hidden_layer_tc's callers keep
+// their code.
+__device__ void hidden_layer_tc_dm(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W,
+                                   const EdgeSlots<TM>& s, const float* __restrict__ dm, int hd) {
+  constexpr int KJ = KMAX / 16;
+  const float* z = sm + L.z;
+  const float* w1 = sm + L.X;
+  float* h = sm + L.h;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = tx + 16 * j;
+    const float b = k < d.H ? W.b1[k] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][j] = b;
+  }
+#pragma unroll 4
+  for (int f = 0; f < d.F; ++f) {
+    float zv[4], wv[KJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zv[i] = z[(ty + 16 * i) * L.ldz + f];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = tx + 16 * j;
+      wv[j] = k < d.H ? w1[f * d.H + k] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) acc[i][j] = fmaf(zv[i], wv[j], acc[i][j]);
+  }
+  const int ks = hd > 1 ? 1 : 0;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = tx + 16 * j;
+    if (k < L.hp)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = ty + 16 * i;
+        float v = 0.f;
+        if (k < d.H) {
+          v = fmaxf(acc[i][j], 0.f);
+          if (m < s.count) v *= dm[(size_t)s.cand[m] * hd + k * ks];
+        }
+        h[m * L.ldh + k] = v;
+      }
+  }
+}
+
 // Step 4 on the tensor cores (T's tables are those of TNC-column tiles).
 // bar: the ring's two barriers; tiles: the block's running count of tiles
 // loaded, which gives each stage's barrier parity.
@@ -766,19 +821,34 @@ __device__ void weighted_tp_tc(float* sm, const LayoutTC& L, const TPWeightsTC& 
   tiles += nt;
 }
 
-// Steps 2-4 of one chunk on the tensor-core stage; leaves msg in shared memory.
-template <int SHD>
-__device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T,
-                              const EdgeSlots<TM>& s, const float* const* recv, const float* const* send,
-                              const float* sig, float sign, uint64_t* bar, uint32_t& tiles) {
-  fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
+// Steps 3-4 of one chunk on the tensor-core stage, after a fill (fill_edges
+// or fill_given) of the slots' z, sender features and harmonics; leaves msg
+// in shared memory. DM: the training variant of the hidden layer (dropout
+// mask dm, rows indexed by the slots' candidate numbers).
+template <int SHD, bool DM = false>
+__device__ void engine_tc_stages(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W,
+                                 const TPTables& T, const EdgeSlots<TM>& s, uint64_t* bar, uint32_t& tiles,
+                                 const float* dm = nullptr, int hd = 0) {
   stage_tables(sm, L, d, W, T);
   __syncthreads();
-  hidden_layer_tc(sm, L, d, W);
+  if constexpr (DM)
+    hidden_layer_tc_dm(sm, L, d, W, s, dm, hd);
+  else
+    hidden_layer_tc(sm, L, d, W);
   __syncthreads();  // contributions_tc() overwrites the staged w1
   contributions_tc<SHD>(sm, L, T);
   __syncthreads();
   weighted_tp_tc(sm, L, W, T, bar, tiles);
+}
+
+// Steps 2-4 of one chunk on the tensor-core stage; leaves msg in shared memory.
+template <int SHD, bool DM = false>
+__device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T,
+                              const EdgeSlots<TM>& s, const float* const* recv, const float* const* send,
+                              const float* sig, float sign, uint64_t* bar, uint32_t& tiles,
+                              const float* dm = nullptr, int hd = 0) {
+  fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
+  engine_tc_stages<SHD, DM>(sm, L, d, W, T, s, bar, tiles, dm, hd);
 }
 
 // The layout and weights of the float32 (TC = false) or tensor-core stage.
@@ -813,8 +883,9 @@ __device__ void init_tc(float* sm, const LayoutTC& L, const TPTables& T, uint64_
 // receivers are one node table [B, N, Din] (the rec and rec_g kernels).
 // Candidates are the RT*K neighbour slots in (receiver, k) order; sig [B, Fe]
 // is added to the cached edge embedding in the fill. With DM (training), dm
-// [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot. CM:
-// edges per chunk of the float32 stage (TM_WIDE for layers too wide for TM).
+// [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot, on
+// either stage. CM: edges per chunk of the float32 stage (TM_WIDE for layers
+// too wide for TM).
 template <int SHD, bool DM = false, bool TC = false, int CM = TM>
 __device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ node, const float* __restrict__ pos,
                          const int64_t* __restrict__ nbr, const float* __restrict__ emb,
@@ -846,7 +917,10 @@ __device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ 
       for (int q = 0; q < 3; ++q) s.vec[m][q] = pos[(row0 + j) * 3 + q] - pos[(row0 + i) * 3 + q];
     }
     __syncthreads();
-    if constexpr (TC)
+    if constexpr (TC && DM)
+      run_engine_tc<SHD, true>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles,
+                               dm + (row0 + i0) * K * hd, hd);
+    else if constexpr (TC)
       run_engine_tc<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles);
     else if constexpr (DM)
       run_engine<SHD, true, CM>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
@@ -965,13 +1039,17 @@ __device__ void fill_given(float* sm, const Layout& L, const Dims& d, const Edge
 // [M, K]; with DM the hidden-layer dropout mask dm [M, K, hd]. Candidates are
 // the RT*K edges of the rows in order. sum_k: the rows' message sums
 // [M, Dout]; otherwise each kept edge's message at out [M, K, Dout] (the
-// caller zeroes out, so masked edges read zero). CM as in rec_tile.
-template <int SHD, bool DM, int CM = TM>
+// caller zeroes out, so masked edges read zero). TC: the tensor-core stage
+// (one call site, as in rec_tile); CM as in rec_tile.
+template <int SHD, bool DM, bool TC = false, int CM = TM>
 __device__ void edge_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ attr, const float* __restrict__ send,
                           const float* __restrict__ shin, const uint8_t* __restrict__ mask,
-                          const float* __restrict__ dm, int hd, const TPWeights& W, const TPTables& T, const Dims& d,
-                          int M, int K, int RT, int sum_k, float* __restrict__ out) {
-  const Layout L = make_layout<SHD, CM>(d, T.S, RT);
+                          const float* __restrict__ dm, int hd, const WeightsOf<TC>& W, const TPTables& T,
+                          const Dims& d, int M, int K, int RT, int sum_k, float* __restrict__ out,
+                          uint64_t* bar = nullptr) {
+  const auto L = engine_layout<SHD, TC, CM>(d, T, RT);
+  uint32_t tiles = 0;
+  if constexpr (TC) init_tc(sm, L, T, bar);
   const int m0 = blockIdx.x * RT;
   const int nrows = min(RT, M - m0);
   const size_t e0 = (size_t)m0 * K;
@@ -985,14 +1063,21 @@ __device__ void edge_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__
     if (s.count == 0) break;
     for (int m = threadIdx.x; m < s.count; m += NT) s.slot[m] = s.cand[m] / K;
     fill_given<SHD>(sm, L, d, s, attr + e0 * d.F, send + e0 * d.Din, shin + e0 * SHD);
-    __syncthreads();
-    if constexpr (DM)
-      hidden_layer_dm<CM>(sm, L, d, W, s, dm + e0 * hd, hd);
-    else
-      hidden_layer<CM>(sm, L, d, W);
-    contributions<CM>(sm, L, T);
-    __syncthreads();
-    weighted_tp<CM>(sm, L, d, W, T);
+    if constexpr (TC) {
+      if constexpr (DM)
+        engine_tc_stages<SHD, true>(sm, L, d, W, T, s, bar, tiles, dm + e0 * hd, hd);
+      else
+        engine_tc_stages<SHD>(sm, L, d, W, T, s, bar, tiles);
+    } else {
+      __syncthreads();
+      if constexpr (DM)
+        hidden_layer_dm<CM>(sm, L, d, W, s, dm + e0 * hd, hd);
+      else
+        hidden_layer<CM>(sm, L, d, W);
+      contributions<CM>(sm, L, T);
+      __syncthreads();
+      weighted_tp<CM>(sm, L, d, W, T);
+    }
     if (sum_k) {
       reduce_to_tile(sm, L, d, s);
     } else {

@@ -16,8 +16,9 @@ layout directly:
 * the epilogue items of each column tile: (col_lo, col_hi, x_base, x_step,
   out_col), one per (g, v) segment in the tile and output component c.
 
-The tensor-core stage of the rec, pb, cross_rev, rec_g and row 4 kernels (3xTF32
-``wgmma``) reads w2 split into TF32 parts, ``w2_hi = tf32(w2)`` and
+The tensor-core stage of the rec (with and without the dropout mask), pb,
+cross_rev, rec_g, row 4 and edge-list kernels (3xTF32 ``wgmma``) reads w2
+split into TF32 parts, ``w2_hi = tf32(w2)`` and
 ``w2_lo = tf32(w2 - w2_hi)`` (round to nearest, ties away from zero, as
 ``cvt.rna.tf32.f32``), each cut into TNC-column tiles stored in the layout
 ``wgmma`` reads: per tile [TNC/8][Hp/4][8][4], core matrices of 8 columns x 4

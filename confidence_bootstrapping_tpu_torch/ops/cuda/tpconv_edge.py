@@ -8,9 +8,12 @@ and the mask over pre-gathered edge lists [M, K, *], then the sum over K
 ``msgs_g``), in the canonical irreps layout. It is the forward of every
 training TP-conv but the receptor kNN groups (``ops/cuda/tpconv_train.py``).
 The harmonics come in as input: widths 4, 9 or 20 (``tpconv_common.sh_dim``).
-A layer whose 64-edge layout does not fit a block's shared memory (the ns=48
-ladder's wider layers) runs the kernel's build at 32 edges a chunk
-(``tpconv_common.pick_build``); where neither fits, the wrapper raises.
+A layer with H <= KMAX = 96 whose layout fits (the score model's ns=32
+ladder, its center and torsion convolutions) runs the kernel's tensor-core
+build (3xTF32 ``wgmma``, from the split, tiled w2 fields of
+``pack_weights``); the others run the float32 build at 64 edges a chunk, or
+at 32 where 64 does not fit (the ns=48 ladder's wider layers)
+(``tpconv_common.pick_build``); where no build fits, the wrapper raises.
 
 ``fused_tpconv_edge`` launches the kernel for CUDA tensors and calls
 ``tpconv_edge_plain`` for CPU tensors; ``fused_tpconv_edge.launches`` counts
@@ -24,12 +27,21 @@ import ctypes
 import torch
 
 from . import build
-from .tpconv_common import (Dims, check_inputs, device_tables, edge_messages, launch_weights, pick_build, ptr, sh_dim,
-                            tp_layout)
+from .tpconv_common import (TNC, Dims, check_inputs, device_tables, edge_messages, launch_weights, pick_build, ptr,
+                            sh_dim, tp_layout)
 from .tpconv_g import cross_rows_per_block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] + [_P] * 8 + [_I] * 13 + [_P, _P]
+_TC_ARGTYPES = [_P] * 5 + [_I] + [_P] * 9 + [_I] * 14 + [_P, _P]
+
+
+def edge_build(irreps_in: str, irreps_sh: str, irreps_out: str, F: int, H: int, K: int) -> tuple:
+    """(tensor cores?, edges a chunk): the build the edge-list kernel runs
+    for lists of K edges at this layer (``tpconv_common.pick_build``)."""
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    d = Dims(F, 0, F, H, lay.din, lay.dout)
+    return pick_build("fused_tpconv_edge", irreps_in, irreps_out, irreps_sh, d, cross_rows_per_block(K), True)
 
 
 def tpconv_edge_plain(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, dmask=None,
@@ -69,20 +81,28 @@ def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_
             or tuple(w1.shape) != (F, H) or tuple(w2.shape) != (H, lay.weight_numel)
             or (dmask is not None and (dmask.shape[:2] != (M, K) or hd not in (1, H)))):
         raise ValueError("fused_tpconv_edge: inconsistent shapes")
-    cm = pick_build("fused_tpconv_edge", irreps_in, irreps_out, irreps_sh, Dims(F, 0, F, H, lay.din, lay.dout),
-                    cross_rows_per_block(K), False)[1]
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)[:4]
+    tc, cm = edge_build(irreps_in, irreps_sh, irreps_out, F, H, K)
+    pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     shape = (M, lay.dout) if sum_k else (M, K, lay.dout)
     out = (torch.empty if sum_k else torch.zeros)(shape, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_edge")
-    fn = lib.cbt_tpconv_edge
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(edge_attr), ptr(sender), ptr(sh), ptr(mask), ptr(dmask), hd, ptr(w1c), ptr(b1c), ptr(w2p), ptr(b2p),
-        ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, M, K, F, H, lay.din, lay.dout,
-        dsh, cross_rows_per_block(K, cm), int(sum_k), cm, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    inputs = (ptr(edge_attr), ptr(sender), ptr(sh), ptr(mask), ptr(dmask), hd)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tc:
+        tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
+        fn = lib.cbt_tpconv_edge_tc
+        fn.argtypes, fn.restype = _TC_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), M, K, F, H,
+                  lay.din, lay.dout, dsh, cross_rows_per_block(K), int(sum_k), ptr(out), stream)
+    else:
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
+        fn = lib.cbt_tpconv_edge
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi),
+                  ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, M, K, F, H, lay.din, lay.dout, dsh,
+                  cross_rows_per_block(K, cm), int(sum_k), cm, ptr(out), stream)
     build.check(lib, code, "tpconv_edge")
     return out
 

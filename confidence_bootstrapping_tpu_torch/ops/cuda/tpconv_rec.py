@@ -19,9 +19,9 @@ cores (3xTF32 ``wgmma``), reading the split, tiled w2 fields of
 ``pack_weights`` and the tables of TNC-column tiles; a layer that stage does
 not take (H > KMAX = 96, or a layout over a block's shared memory: the
 ns=48 ladder) runs its float32 build at TM_WIDE edges a chunk.
-``fused_tpconv_cross`` runs the same tensor-core stage where its layer fits
-it, and otherwise the float32 stage at TM edges a chunk or TM_WIDE where TM
-does not fit; ``fused_tpconv_rec``'s training variant keeps the float32 stage
+``fused_tpconv_cross`` and ``fused_tpconv_rec``'s training variant run the
+same tensor-core stage where their layer fits it, and otherwise the float32
+stage at TM edges a chunk or TM_WIDE where TM does not fit
 (``tpconv_common.pick_build``). Where no build fits a layer the wrapper
 raises.
 
@@ -29,8 +29,9 @@ raises.
 ``tpconv_rec_plain`` for CPU tensors; ``fused_tpconv_rec.launches`` counts
 launches of the inference kernel. In training, ``dmask`` (the hidden-layer
 dropout mask of every neighbour slot) selects the kernel's training variant
-(``tpconv_rec_dm_kernel``), counted apart in ``fused_tpconv_rec.dm_launches``;
-without it the inference kernel runs as before.
+(``tpconv_rec_dm_tc_kernel``, or a float32 build), counted apart in
+``fused_tpconv_rec.dm_launches``; without it the inference kernel runs as
+before.
 """
 
 from __future__ import annotations
@@ -51,6 +52,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 _WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
 _DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 13 + [_P, _P]
+_DM_TC_ARGTYPES = [_P] * 7 + [_I] + [_P] * 9 + [_I] * 14 + [_P, _P]
+
+
+def rec_build(irreps_in: str, irreps_out: str, Fe: int, ns: int, H: int, dropout: bool) -> tuple:
+    """(tensor cores?, edges a chunk): the build ``fused_tpconv_rec`` runs at
+    this layer, with (``dropout``) or without the dropout mask
+    (``tpconv_common.pick_build``; the inference kernel's float32 build
+    takes 32 edges a chunk only)."""
+    lay = tp_layout(irreps_in, irreps_out)
+    d = Dims(Fe, ns, Fe + 2 * ns, H, lay.din, lay.dout)
+    return pick_build("fused_tpconv_rec", irreps_in, irreps_out, SH_IRREPS, d, RT, True,
+                      (TM, TM_WIDE) if dropout else (TM_WIDE,))
 
 
 def tpconv_rec_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns, dmask=None):
@@ -98,9 +111,7 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    d = Dims(Fe, ns, Fe + 2 * ns, H, Din, lay.dout)
-    tc, cm = pick_build("fused_tpconv_rec", irreps_in, irreps_out, SH_IRREPS, d, RT, dm is None,
-                        (TM_WIDE,) if dm is None else (TM, TM_WIDE))
+    tc, cm = rec_build(irreps_in, irreps_out, Fe, ns, H, dm is not None)
     pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec")
@@ -110,11 +121,16 @@ def _launch(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in,
     if tc:
         tcl = tp_layout(irreps_in, irreps_out, tn=TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, tn=TNC)[:4]
-        fn = lib.cbt_tpconv_rec
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims,
-                  ptr(out), stream)
+        tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg), ptr(epi),
+                  ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+        if dm is None:
+            fn = lib.cbt_tpconv_rec
+            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+            code = fn(*inputs, *tables, ptr(out), stream)
+        else:
+            fn = lib.cbt_tpconv_rec_dm_tc
+            fn.argtypes, fn.restype = _DM_TC_ARGTYPES, ctypes.c_int
+            code = fn(*inputs, ptr(dm), dm.shape[-1], *tables, ptr(out), stream)
     else:
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev)[:4]
         tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start),

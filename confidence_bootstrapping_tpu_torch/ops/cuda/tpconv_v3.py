@@ -12,8 +12,9 @@ Replaces ``confidence_bootstrapping_tpu/ops/pallas/tpconv_v3.py``:
 The v3 Pallas kernels are the TPU's build of ``tpconv_g._call_g`` for the
 score model's irreps ladder at 4 harmonic components (the JAX tests pin the
 two equal), so both wrappers launch the edge-list kernel's inference
-instance (``tpconv_edge_kernel<4, false>``) that the training forward
-already uses. Each counts its own launches (``fused_tpconv_nbr.launches``,
+instance that the training forward already uses (``tpconv_edge_tc_kernel<4,
+false>`` where the layer fits the tensor-core stage, otherwise a float32
+build). Each counts its own launches (``fused_tpconv_nbr.launches``,
 ``fused_tpconv_msgs.launches``), apart from ``fused_tpconv_edge.launches``.
 The score model reaches them when its ladder-path gates fail: the ligand
 pairs when L % 8 != 0, the receptor kNN groups when N % 32 != 0 (``nbr``),

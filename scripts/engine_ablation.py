@@ -32,6 +32,15 @@ replayed at each RT of a list (the wrapper's rule ``cross_rows_per_block``
 gives RT=1 at K=100; pb's one-wave rule RT=6 at B=32), at B=32 and cut or
 doubled to B=8 and B=64, as for pb.
 
+Then the edge-list kernel's rows a block (RT) on its tensor-core build:
+every row-6 call (``fused_tpconv_msgs``, K=100) of one phase-8 evaluator
+sample and every edge-list call of one B=16 phase-7 training step (ligand
+pairs and bonds, ligand <-> receptor, the center and torsion convolutions,
+with the dropout mask), replayed at each RT of a list: mean ms per call by
+list (K, sums or per-edge messages) and RT, each RT's first calls against
+the plain version; the wrapper's rule ``cross_rows_per_block``
+marked. ``--edge-rows`` runs this part alone.
+
 Then where the edge backward's tensor-core build spends its time: copies of
 ``csrc/tpconv_bwd.cu`` whose per-edge kernel has one stage cut out each
 (d_w to scratch, the d_X epilogue, the sender and harmonic gradients, the
@@ -83,7 +92,7 @@ def variants(src: str) -> dict:
         "no_epilogue": src[:loop] + cut(src[loop:], epi),
         "no_tiles": no_tiles,
         "no_contributions": no_contrib,
-        "no_hidden": cut(no_contrib, "  hidden_layer_tc(sm, L, d, W);\n"),
+        "no_hidden": cut(no_contrib, "    hidden_layer_tc(sm, L, d, W);\n", "    ;\n"),
     }
 
 
@@ -93,6 +102,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("engine_ablation: no CUDA device")
     sys.path.insert(0, ROOT)
+    if "--edge-rows" in sys.argv[1:]:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+        edge_rows(torch.device("cuda"))
+        return
     from confidence_bootstrapping_tpu_torch.ops.cuda import build, tpconv_rec
     from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import pack_weights
     from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
@@ -166,6 +180,7 @@ def main() -> None:
     print(f"compaction, fill, receiver sums and output: {ms['no_hidden']:.4f} ms", flush=True)
     pb_rows(dev)
     cross_rows(dev)
+    edge_rows(dev)
     bwd_stages(dev)
 
 
@@ -332,6 +347,95 @@ def cross_rows_at(calls, dev) -> None:
 
 
 PB_RT = (2, 3, 4, 6, 8, 12, 24)
+EDGE_RT = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def edge_rows(dev) -> None:
+    """The edge-list kernel's time per call by rows a block (see the module
+    docstring): row 6's calls of one evaluator sample, then the edge-list
+    calls of one training step."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_v3
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, sample, with_derived_plan
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    cfg = dataclasses.replace(ScoreModelConfig(lm_embedding_dim=chip_smoke.LM_DIM), cross_cap=chip_smoke.EVAL_CAP,
+                              cross_cap_frac=0.0)
+    padded = chip_smoke.host_complex(chip_smoke.LM_DIM)[0]
+    scfg = with_derived_plan(cfg, SamplerConfig(inference_steps=chip_smoke.STEPS), padded["rec_pos"],
+                             padded["rec_mask"])
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    b0 = randomize_position(replicate_complex(padded, chip_smoke.B_POSES, device=dev),
+                            torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run = lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    calls = chip_smoke.record_calls(run, ("tpconv_msgs",))["tpconv_msgs"]
+    edge_rows_at("row 6 (evaluator sample)", [(a, kw, False) for a, kw in calls], tpconv_v3.fused_tpconv_msgs,
+                 lambda a, kw: tpconv_v3.tpconv_msgs_plain(*a))
+    del calls, model, b0
+    torch.cuda.empty_cache()
+
+    tcfg = TrainConfig()
+    model = TensorProductScoreModel(ScoreModelConfig(lm_embedding_dim=chip_smoke.LM_DIM), device=dev, seed=0)
+    state = train_loop.init_train_state(model, tcfg)
+    batch = replicate_complex(padded, tcfg.batch_size, device=dev)
+    step = train_loop.make_train_step(model.cfg, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    step(state, batch, gen)
+    calls = chip_smoke.record_train_calls(lambda: step(state, batch, gen))["tpconv_edge"]
+    kernel = lambda *a, **kw: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12])
+    edge_rows_at("edge lists (training step)", [(a, {}, a[12]) for a, _ in calls], kernel,
+                 lambda a, kw: tpconv_edge.tpconv_edge_plain(*a))
+
+
+def edge_rows_at(what: str, calls, kernel, plain) -> None:
+    """Replay edge-list calls (args, kwargs, sum_k) at each RT of EDGE_RT,
+    grouped by list (K, sums or per edge): the first call of each group
+    against the plain version, then every call timed (CUDA events), twice."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge
+
+    groups = {}
+    for args, kw, sum_k in calls:
+        M, K = args[0].shape[:2]
+        groups.setdefault((K, "sums" if sum_k else "per edge"), []).append((args, kw))
+    rule = tpconv_edge.cross_rows_per_block
+    try:
+        for (K, kind), group in groups.items():
+            edges = sum(int(a[3].sum()) for a, _ in group) / len(group)
+            rows = sum(a[0].shape[0] for a, _ in group) / len(group)
+            print(f"{what}: {len(group)} calls at K={K} ({kind}), {rows:.0f} rows and {edges:.0f} valid edges a call; "
+                  f"the wrapper's rule RT={rule(K)}", flush=True)
+            times = {rt: [] for rt in EDGE_RT}
+            for _ in range(2):
+                for rt in EDGE_RT:
+                    tpconv_edge.cross_rows_per_block = lambda K, chunk=64, rt=rt: rt
+                    args, kw = group[0]
+                    with torch.no_grad():
+                        got, want = kernel(*args, **kw), plain(args, kw)
+                    err, scale = float((got - want).abs().max()), float(want.abs().max())
+                    if err > 2e-4 * max(1.0, scale):
+                        sys.exit(f"{what} at K={K}, RT={rt} disagrees with its plain version: {err:.3g}")
+                    torch.cuda.synchronize()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for args, kw in group:
+                        kernel(*args, **kw)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[rt].append(start.elapsed_time(end) / len(group))
+            for rt, ts in times.items():
+                print(f"  K={K} {kind} RT={rt:2d}: {', '.join(f'{t:.4f}' for t in ts)} ms a call"
+                      f"{'  (rule)' if rt == rule(K) else ''}", flush=True)
+    finally:
+        tpconv_edge.cross_rows_per_block = rule
 
 
 def crystal_pb_edges() -> None:

@@ -10,10 +10,13 @@ and without a dropout mask, rec and rec_g with one, the edge backward) and
 the autograd ops over them, the composed route's kernels (the one-direction
 cross kernel at K off the 16-grid, the edge-list kernel's inference instance
 for sums and per-edge messages, the v1 API over it, and TPConv's routing to
-them), and the wrappers' input checks. The rec, pb, cross_rev and rec_g
-kernels run the H -> W product on the tensor cores (3xTF32): their cases
-include the full-width 100 -> 100 layer, H not a multiple of 8, and rec's,
-pb's and rec_g's outputs bit for bit across two launches. Layers that stage
+them), and the wrappers' input checks. The rec (with and without the
+dropout mask), pb, cross_rev, rec_g, row 4 and edge-list kernels run the
+H -> W product on the tensor cores (3xTF32) at the score model's ns=32
+layers: their cases include the full-width 100 -> 100 layer, H not a
+multiple of 8, the torsion head's 20-wide harmonics, dropout masks of one
+value per hidden unit and per edge, and the outputs of rec, pb, rec_g, row 4
+and the edge-list kernel bit for bit across two launches. Layers that stage
 does not take (H above 96, a layout over a block's shared memory, the
 ns=48/nv=10 ladder) run the float32 builds at 32 edges a chunk, rec_g's
 too, and so do the training kernels' layers whose 64-edge layout
@@ -464,14 +467,24 @@ def _edge_inputs(g, irreps_in, irreps_sh, irreps_out, M, K, F, dev, dropout, H=9
     (tpconv_common.TOR_SH_IRREPS, TOR_OUT, 33, 24, True),  # the torsion head's 20-wide harmonics
 ])
 def test_edge_kernel_matches_plain(dev, irreps_sh, irreps_out, M, K, dropout, sum_k):
+    """The edge-list kernel's tensor-core build (H=96): with the dropout mask
+    at one value per hidden unit and per edge, the same bits on a second
+    launch, exact zeros on masked edges and on rows with no valid edge."""
     inputs, weights, dmask = _edge_inputs(_gen(7), FLAGSHIP, irreps_sh, irreps_out, M, K, 96, dev, dropout)
-    before = tpconv_edge.fused_tpconv_edge.launches
-    got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask=dmask, sum_k=sum_k)
-    torch.cuda.synchronize()
-    assert tpconv_edge.fused_tpconv_edge.launches == before + 1
-    want = tpconv_edge.tpconv_edge_plain(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask, sum_k)
-    _close(got, want)
-    assert float(got[:3].abs().max()) == 0.0
+    assert tpconv_edge.edge_build(FLAGSHIP, irreps_sh, irreps_out, 96, 96, K) == (True, tpconv_common.TM)
+    for dm in ((dmask, dmask[..., :1].contiguous()) if dropout else (None,)):
+        before = tpconv_edge.fused_tpconv_edge.launches
+        got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask=dm, sum_k=sum_k)
+        again = tpconv_edge.fused_tpconv_edge(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dmask=dm,
+                                              sum_k=sum_k)
+        torch.cuda.synchronize()
+        assert tpconv_edge.fused_tpconv_edge.launches == before + 2
+        want = tpconv_edge.tpconv_edge_plain(*inputs, *weights, FLAGSHIP, irreps_sh, irreps_out, dm, sum_k)
+        _close(got, want)
+        assert torch.equal(got, again)
+        assert float(got[:3].abs().max()) == 0.0
+        if not sum_k:
+            assert float(got[~inputs[3]].abs().max()) == 0.0
 
 
 def test_training_and_composed_kernels_at_the_wide_ladder(dev):
@@ -520,19 +533,25 @@ def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
                                 torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
                                 torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3)]
     args += _weights(g, irreps, irreps, ns, dev, sh)
+    args[5][1, 8:16] = False  # receivers with no valid edge: zero sums
     wrapper = tpconv_g.fused_tpconv_rec_g if lmax2 else tpconv_rec.fused_tpconv_rec
+    if not lmax2:  # the score model's: on the tensor-core stage (rec_g's training variant keeps the float32 one)
+        assert tpconv_rec.rec_build(irreps, irreps, ns, ns, 3 * ns, True) == (True, tpconv_common.TM)
     before = (wrapper.launches, wrapper.dm_launches)
     for hd in (3 * ns, 1):
         dmask = ((torch.rand(B, N, K, hd, generator=g) > 0.1).float() / 0.9).to(dev)
         if lmax2:
-            got = tpconv_g.fused_tpconv_rec_g(*args, irreps, sh, irreps, ns, dmask=dmask)
+            run = lambda: tpconv_g.fused_tpconv_rec_g(*args, irreps, sh, irreps, ns, dmask=dmask)
             want = tpconv_g.tpconv_rec_g_plain(*args, irreps, sh, irreps, ns, dmask)
         else:
-            got = tpconv_rec.fused_tpconv_rec(*args, irreps, irreps, ns, dmask=dmask)
+            run = lambda: tpconv_rec.fused_tpconv_rec(*args, irreps, irreps, ns, dmask=dmask)
             want = tpconv_rec.tpconv_rec_plain(*args, irreps, irreps, ns, dmask)
+        got, again = run(), run()
         torch.cuda.synchronize()
         _close(got, want)
-    assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 2)  # counted apart from inference
+        assert torch.equal(got, again)
+        assert float(got[1, 8:16].abs().max()) == 0.0
+    assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 4)  # counted apart from inference
 
 
 @pytest.mark.parametrize("irreps_in,irreps_sh,irreps_out,T,masked,hd,H", [
@@ -683,15 +702,19 @@ def test_v3_edge_list_kernels_match_plain(dev, irreps_in, irreps_out, M, K):
     mask[:3] = False
     weights = [torch.randn(s, generator=g) * 0.2 for s in ((F, F), (F,), (F, tp.weight_numel), (tp.weight_numel,))]
     args = [t.to(dev) for t in (attr, send, sh, mask, *weights)]
+    assert tpconv_edge.edge_build(irreps_in, SH1, irreps_out, F, F, K) == (True, tpconv_common.TM)
     before = (tpconv_v3.fused_tpconv_nbr.launches, tpconv_v3.fused_tpconv_msgs.launches,
               tpconv_edge.fused_tpconv_edge.launches)
     got_sum = tpconv_v3.fused_tpconv_nbr(*args, irreps_in, irreps_out, tile_m=8, interpret=True, use_bf16=False)
     got_msg = tpconv_v3.fused_tpconv_msgs(*args, irreps_in, irreps_out)
+    again_sum = tpconv_v3.fused_tpconv_nbr(*args, irreps_in, irreps_out)
+    again_msg = tpconv_v3.fused_tpconv_msgs(*args, irreps_in, irreps_out)
     torch.cuda.synchronize()
     assert (tpconv_v3.fused_tpconv_nbr.launches, tpconv_v3.fused_tpconv_msgs.launches,
-            tpconv_edge.fused_tpconv_edge.launches) == (before[0] + 1, before[1] + 1, before[2])
+            tpconv_edge.fused_tpconv_edge.launches) == (before[0] + 2, before[1] + 2, before[2])
     _close(got_sum, tpconv_v3.tpconv_nbr_plain(*args, irreps_in, irreps_out))
     _close(got_msg, tpconv_v3.tpconv_msgs_plain(*args, irreps_in, irreps_out))
+    assert torch.equal(got_sum, again_sum) and torch.equal(got_msg, again_msg)
     assert float(got_msg[~args[3]].abs().max()) == 0.0 and float(got_sum[:3].abs().max()) == 0.0
     with pytest.raises(ValueError):  # the v3 wrappers take lmax=1 harmonics only
         tpconv_v3.fused_tpconv_nbr(args[0], args[1], torch.zeros(M, K, 9, device=dev), *args[3:], irreps_in,
