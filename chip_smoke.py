@@ -10,8 +10,9 @@ Phases (each one fails the script when it fails):
   2. build every TP-conv kernel from csrc/ with nvcc for sm_90a (timed), with
      each kernel's ptxas line and each library's count of HGMMA (wgmma)
      instructions from cuobjdump -sass: rec (with and without the dropout
-     mask), pb, cross_rev, rec_g, row 4 (tpconv_cross) and the edge-list
-     kernel (tpconv_edge), whose H -> W product runs on the tensor cores, and
+     mask), pb, cross_rev, rec_g, cross_g, row 4 (tpconv_cross) and the
+     edge-list kernel (tpconv_edge), whose H -> W product runs on the tensor
+     cores, and
      the edge backward (tpconv_bwd), whose three H x W products do, must have
      some, and their tensor-core kernels no spill;
   3. per kernel, on every call of one sample of phase 5's path (recorded,
@@ -35,8 +36,9 @@ Phases (each one fails the script when it fails):
      the crop's kept residues and atoms, launches of rec_g and cross_g against
      the config), the card against the CPU on 2 of them, every rec_g and
      cross_g call of the timed forward replayed through kernel and plain
-     version as in phase 3 (rec_g bit for bit across two launches), and one
-     forward under torch.profiler;
+     version as in phase 3 (both bit for bit across two launches; every
+     cross_g call on its tensor-core build), and one forward under
+     torch.profiler;
   7. training: one step of the full-width score model at B=2 and dropout 0,
      the card against the CPU (loss, every parameter's gradient, the batch
      statistics after it); then TrainConfig() steps at B=16 (1a0q replicated)
@@ -60,9 +62,10 @@ Phases (each one fails the script when it fails):
      (row 6, ``tpconv_msgs``, then a scatter) instead of cross_rev; the
      phase plan from ``derive_phase_plan``, the cross-cap telemetry, a warm
      and a timed B=32 20-step sample (poses/s, launches against the config),
-     the rerank with phase 6's confidence model, symmetry RMSDs against the
-     crystal pose (card against CPU), centroid and self distances, the
-     metrics dictionary, one sample under torch.profiler;
+     the rerank with phase 6's confidence model (every cross_g call on its
+     tensor-core build), symmetry RMSDs against the crystal pose (card
+     against CPU), centroid and self distances, the metrics dictionary, one
+     sample under torch.profiler;
      8b. row 5 (``tpconv_nbr``): the ligand padded to its own 23 atoms, so
      the pairs leave pb, in a 3-step ODE sample at B=8 and a B=2 forward
      (card against CPU), then phase 8's B=32 20-step sample at this bucket on
@@ -82,6 +85,17 @@ Phases (each one fails the script when it fails):
      without reverse weights; the float32 builds at 32 edges a chunk)
      replayed through kernel and plain version as in phase 3, then one
      timed with its launch counts and one more under torch.profiler.
+ 10. serve from model directories: phase 5's score model and phase 6's
+     confidence model saved as model directories (model_config.yml and a
+     Flax msgpack bundle, ``train.checkpoints.save_model_dir``; bytes and
+     ms printed), loaded back onto the card with
+     ``cli.dock.load_or_init_model`` (every parameter and buffer bit for
+     bit), a model_config.yml with ``tp_weights_layers: 3`` refused; then
+     the dock path from the loaded models, timed once: phase 5's sample
+     (poses, plan, noise), the rerank and the ranking, every kernel's
+     launches against the config, every cross_g call on its tensor-core
+     build, the poses within SAMPLE_ATOL of phase 5's and the confidences
+     within MODEL_RTOL of phase 6's.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's; ``bound_ms`` the tensor-core bound,
@@ -110,7 +124,7 @@ TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accurac
 # {library: its kernels that run H x W products on wgmma, by a part of their mangled names}
 TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel", "23tpconv_rec_dm_tc_kernel"), "tpconv_pb": ("16tpconv_pb_kernel",),
               "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",), "tpconv_rec_g": ("19tpconv_rec_g_kernel",),
-              "tpconv_cross": ("22tpconv_cross_tc_kernel",),
+              "tpconv_cross": ("22tpconv_cross_tc_kernel",), "tpconv_cross_g": ("24tpconv_cross_g_tc_kernel",),
               "tpconv_edge": tuple(f"21tpconv_edge_tc_kernelILi{shd}ELb{dm}E" for shd in (4, 9, 20) for dm in (0, 1)),
               "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
                              "17tn_gemm_tc_kernelILi96ELb1E")}
@@ -276,22 +290,36 @@ def main_path(dev):
     t=1 prior; 20 steps, shared receptor embedding, phase plan 6:256,12:128."""
     import torch
 
-    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
     from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
     from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
-    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, sample
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position
 
     cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM)
     model = TensorProductScoreModel(cfg, device=dev, seed=0)
     batch = replicate_complex(host_complex(LM_DIM)[0], B_POSES, device=dev)
-    N = batch.rec_pos.shape[1]
-    plan = [(s, c) for s, c in PLAN if c < N]
+    b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run, plan = sample_run(model, b0)
+    print(f"main path: B={B_POSES}, {STEPS} steps, lm_dim {LM_DIM}, N={batch.rec_pos.shape[1]}, phase plan {plan}",
+          flush=True)
+    return model, b0, run
+
+
+def sample_run(model, b0) -> tuple:
+    """(phase 5's sample of ``model`` from the poses ``b0`` as a function,
+    its phase plan): STEPS steps, the plan PLAN cut to the receptor's
+    bucket, the noise drawn from seed 1, so that every run draws the same
+    noise and runs the same data as the one phase 3 records."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import sample
+
+    dev = b0.lig_pos.device
+    plan = [(s, c) for s, c in PLAN if c < b0.rec_pos.shape[1]]
     scfg = SamplerConfig(inference_steps=STEPS, rec_phase_steps=tuple(s for s, _ in plan),
                          rec_phase_caps=tuple(c for _, c in plan))
-    b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
-    print(f"main path: B={B_POSES}, {STEPS} steps, lm_dim {LM_DIM}, N={N}, phase plan {plan}", flush=True)
-    # every run draws the same noise, so each runs the same data as the one phase 3 records
-    return model, b0, lambda: sample(model, b0, cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    return lambda: sample(model, b0, model.cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev), plan
 
 
 def record_calls(run, names=KERNELS) -> dict:
@@ -623,7 +651,8 @@ def near_crystal_poses(padded: dict, n: int, seed: int = 2):
 def confidence_phase(dev, final_pos) -> tuple:
     """Phase 6: the confidence rerank (see the module docstring). Returns
     (the replay's JSON rows, the launches of the timed forward, (the
-    confidence model, its B_POSES batch of 1a0q) for phase 8's rerank)."""
+    confidence model, its B_POSES batch of 1a0q, the confidences of phase
+    5's poses) for phases 8 and 10)."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.config import confidence_model_config
@@ -643,7 +672,7 @@ def confidence_phase(dev, final_pos) -> tuple:
           f"N={cfg.crop_res_cap} A={cfg.crop_atom_cap}", flush=True)
 
     # the dock flow: score the sampled poses and rank them as cli/dock.py does
-    conf = score_confidence(model, batch, lig_pos=final_pos.to(dev)).cpu().numpy()
+    conf = conf_sampled = score_confidence(model, batch, lig_pos=final_pos.to(dev)).cpu().numpy()
     order = np.argsort(-np.nan_to_num(conf, nan=-1e9))
     print(f"rerank of phase 5's {len(conf)} poses: top confidences "
           f"{', '.join(f'pose {i}: {conf[i]:.4f}' for i in order[:5])}", flush=True)
@@ -690,15 +719,16 @@ def confidence_phase(dev, final_pos) -> tuple:
 
     calls = record_calls(run, CONF_KERNELS)
     torch.cuda.synchronize()
+    check_tc_builds({"tpconv_cross_g": calls["tpconv_cross_g"]}, "confidence forward")
     kernels = {
         "tpconv_rec_g": (tpconv_g.fused_tpconv_rec_g, tpconv_g.tpconv_rec_g_plain, rec_work,
                          "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
         "tpconv_cross_g": (tpconv_g.fused_tpconv_cross_g, tpconv_g.tpconv_cross_g_plain, cross_g_work,
                            "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:547"),
     }
-    rows = replay(calls, kernels, bitwise=("tpconv_rec_g",))
+    rows = replay(calls, kernels, bitwise=("tpconv_rec_g", "tpconv_cross_g"))
     profile_run(run, secs * 1e3)
-    return rows, launches, (model, batch)
+    return rows, launches, (model, batch, conf_sampled)
 
 
 # ---------------------------------------------------------------------------- phase 7: training
@@ -935,17 +965,21 @@ def replay_train_ops(calls: dict) -> list:
 def edge_builds(calls: dict) -> dict:
     """{kernel: {build: calls}}: the build (``tensor cores``, or ``float32 at``
     64 or 32 edges a chunk) that each recorded call of the edge-list kernel
-    (rows 5-7) and of rec with the dropout mask ran, as its wrapper picks it
-    (``tpconv_edge.edge_build``, ``tpconv_rec.rec_build``)."""
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_rec
+    (rows 5-7), of rec with the dropout mask and of the cross kernels (rows 4
+    and 9) ran, as its wrapper picks it (``tpconv_edge.edge_build``,
+    ``tpconv_rec.rec_build``, ``tpconv_g.cross_build``)."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_g, tpconv_rec
 
     def name(tc_cm):
         return "tensor cores" if tc_cm[0] else f"float32 at {tc_cm[1]}"
 
     out = {}
-    for kernel in ("tpconv_edge", "tpconv_nbr", "tpconv_msgs", "tpconv_rec_dm"):
+    for kernel in ("tpconv_edge", "tpconv_nbr", "tpconv_msgs", "tpconv_rec_dm", "tpconv_cross", "tpconv_cross_g"):
         for a, _ in calls.get(kernel, ()):
-            if kernel == "tpconv_rec_dm":
+            if kernel in ("tpconv_cross", "tpconv_cross_g"):  # row 4 names no harmonics: lmax=1
+                ir_in, sh, ir_out, ns = (a[11], SH1, a[12], a[13]) if kernel == "tpconv_cross" else a[11:15]
+                b = tpconv_g.cross_build(kernel, ir_in, ir_out, sh, a[5].shape[-1], ns, a[9].shape[0], a[4].shape[2])
+            elif kernel == "tpconv_rec_dm":
                 b = tpconv_rec.rec_build(a[10], a[11], a[3].shape[-1], a[12], a[8].shape[0], True)
             else:  # the training calls name their harmonics; rows 5 and 6 take lmax=1
                 sh, ir_out = (a[9], a[10]) if kernel == "tpconv_edge" else (SH1, a[9])
@@ -957,11 +991,12 @@ def edge_builds(calls: dict) -> dict:
 
 def check_tc_builds(calls: dict, what: str) -> None:
     """Prints ``edge_builds`` and fails unless every call ran a tensor-core
-    kernel (the score model's ns=32 ladder: every layer fits the stage)."""
+    kernel (the score model's ns=32 ladder and the confidence model's ns=24
+    one: every layer fits the stage)."""
     builds = edge_builds(calls)
     print(f"{what}: builds {builds}", flush=True)
     if any(set(b) != {"tensor cores"} for b in builds.values()):
-        fail(f"{what}: an edge-list or rec-with-mask call of the ns=32 ladder ran a float32 build")
+        fail(f"{what}: a call of the ns=32 or ns=24 ladder ran a float32 build")
 
 
 def replay_train_kernels(calls: dict) -> list:
@@ -1289,10 +1324,14 @@ def eval_phase(dev, rerank) -> tuple:
     if launches != want:
         fail("the evaluator path did not run the composed cross route through rows 4 and 6")
 
-    conf_model, conf_batch = rerank
+    conf_model, conf_batch, _ = rerank
+    out = {}
     t0 = time.perf_counter()
-    conf = score_confidence(conf_model, conf_batch, lig_pos=final.lig_pos).cpu().numpy()
+    rerank_calls = record_calls(lambda: out.update(conf=score_confidence(conf_model, conf_batch, lig_pos=final.lig_pos)),
+                                ("tpconv_cross_g",))
+    conf = out["conf"].cpu().numpy()
     t_conf = time.perf_counter() - t0
+    check_tc_builds(rerank_calls, "evaluator rerank")
 
     n = len(hc.lig_f)
     t0 = time.perf_counter()
@@ -1604,6 +1643,106 @@ def wide_phase(dev) -> None:
     profile_run(run, secs * 1e3)
 
 
+# ---------------------------------------------------------------------------- phase 10: serve from model directories
+
+
+MODEL_DIRS = os.path.join(ROOT, "build", "model_dirs")  # written and removed by phase 10
+
+
+def state_equal(a, b) -> bool:
+    """Every parameter and buffer of two modules: the same names, the same bits."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k].to(sa[k].device)) for k in sa)
+
+
+def model_dir_phase(dev, model, b0, final_pos, rerank) -> None:
+    """Phase 10: the dock path from files. Phase 5's score model and phase
+    6's confidence model saved as model directories (``save_model_dir``:
+    model_config.yml and a Flax msgpack bundle), loaded back onto the card
+    with ``cli.dock.load_or_init_model`` (every parameter and buffer bit for
+    bit), a config the port does not implement refused, then phase 5's
+    sample (its poses, plan and noise) and the rerank from the loaded models,
+    timed once, with every kernel's launches against the config and every
+    cross_g call on its tensor-core build; the poses held against phase 5's
+    within SAMPLE_ATOL (cross_rev sums with atomics) and the confidences
+    against phase 6's of phase 5's poses within MODEL_RTOL."""
+    import shutil
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch import yaml_io
+    from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    conf_model, conf_batch, conf_want = rerank
+    shutil.rmtree(MODEL_DIRS, ignore_errors=True)
+    try:
+        loaded = {}
+        for name, m in (("score", model), ("confidence", conf_model)):
+            d = os.path.join(MODEL_DIRS, name)
+            t0 = time.perf_counter()
+            checkpoints.save_model_dir(d, m.cfg, m)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded[name], cfg = load_or_init_model(d, "last_model", device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            same = state_equal(m, loaded[name]) and cfg == m.cfg
+            print(f"model dir {name}: {size} bytes ({len(m.state_dict())} tensors), save {t_save * 1e3:.1f} ms, load "
+                  f"onto the card {t_load * 1e3:.1f} ms; parameters and buffers bit for bit: {same}", flush=True)
+            if not same:
+                fail(f"the {name} model directory did not load back bit for bit")
+
+        bad = os.path.join(MODEL_DIRS, "unsupported")
+        os.makedirs(bad)
+        with open(os.path.join(MODEL_DIRS, "score", checkpoints.CONFIG_NAME)) as f:
+            fields = yaml_io.load(f.read())
+        with open(os.path.join(bad, checkpoints.CONFIG_NAME), "w") as f:
+            f.write(yaml_io.dump(dict(fields, tp_weights_layers=3)))
+        try:
+            load_or_init_model(bad, "last_model", device=dev)
+            fail("a model_config.yml with tp_weights_layers: 3 was not refused")
+        except ValueError as e:
+            print(f"tp_weights_layers: 3 refused: {e}", flush=True)
+    finally:
+        shutil.rmtree(MODEL_DIRS, ignore_errors=True)
+
+    run = sample_run(loaded["score"], b0)[0]
+    counters = {"tpconv_rec_g": tpconv_g.fused_tpconv_rec_g, "tpconv_cross_g": tpconv_g.fused_tpconv_cross_g}
+    out = {}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    (final, _), launches = counted(run)
+    calls = record_calls(lambda: out.update(conf=score_confidence(loaded["confidence"], conf_batch,
+                                                                   lig_pos=final.lig_pos)), ("tpconv_cross_g",))
+    conf = out["conf"].cpu().numpy()
+    order = np.argsort(-np.nan_to_num(conf, nan=-1e9))
+    secs = time.perf_counter() - t0
+    launches.update({name: fn.launches for name, fn in counters.items()})
+    want = dict(expected_launches(loaded["score"], STEPS), **expected_conf_launches(loaded["confidence"]))
+    err = (final.lig_pos - final_pos.to(dev)).abs().max().item()
+    conf_err, peak = float(np.abs(conf - conf_want).max()), float(np.abs(conf_want).max())
+    print(f"dock path from the model directories: sample and rerank of {B_POSES} poses {secs:.4f} s, "
+          f"{B_POSES / secs:.3f} poses/s; top confidences "
+          f"{', '.join(f'pose {i}: {conf[i]:.4f}' for i in order[:5])}; launches {launches}; expected from the "
+          f"config {want}", flush=True)
+    print(f"against the in-memory models: poses max_abs_err {err:.3g} A (tolerance {SAMPLE_ATOL} A), confidences "
+          f"max_abs_err {conf_err:.3g} (max |in memory| {peak:.3g}, tolerance {MODEL_RTOL} x max(1, max |in memory|))",
+          flush=True)
+    check_tc_builds(calls, "dock path rerank")
+    if launches != want:
+        fail("the dock path from the model directories did not run every TP-conv through its kernel")
+    if not (err <= SAMPLE_ATOL and conf_err <= MODEL_RTOL * max(1.0, peak) and np.isfinite(conf).all()):
+        fail("the dock path from the model directories disagrees with the in-memory models")
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -1683,6 +1822,8 @@ def main() -> None:
     replay_v1(calls)
     torch.cuda.synchronize()
     wide_phase(dev)
+    torch.cuda.synchronize()
+    model_dir_phase(dev, model, b0, final_pos, rerank)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)

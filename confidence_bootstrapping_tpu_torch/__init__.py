@@ -2,8 +2,8 @@
 
 The JAX package ``confidence_bootstrapping_tpu`` stays the reference; this
 package mirrors its module paths (``config``, ``ops/irreps``,
-``models/layers``, ``sampler/sampling``, ...) and never imports it, JAX, flax
-or yaml. The TP-conv kernels that the JAX package writes in Pallas for the TPU
+``models/layers``, ``sampler/sampling``, ...) and never imports it, JAX, flax,
+msgpack or yaml. The TP-conv kernels that the JAX package writes in Pallas for the TPU
 are CUDA C++ kernels for Hopper here (``csrc/``, bound in ``ops/cuda``).
 
 Numerics: float32 end to end. TF32 is switched off for matmuls and cuDNN so

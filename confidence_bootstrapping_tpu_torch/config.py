@@ -1,18 +1,24 @@
 """Typed configuration of the score and confidence models and the sampler.
 
-Port of ``confidence_bootstrapping_tpu/config.py`` for the fields the port
-reads (score mode, the all-atom confidence model, sampling, the training
-step), and of ``models/factory.py:confidence_model_config``. No yaml: the
-machine that runs the port need not have it. Field names and defaults equal
-the JAX package's, so a config can be carried over with
-``ScoreModelConfig(**fields)``.
+Port of ``confidence_bootstrapping_tpu/config.py`` (``ScoreModelConfig``
+with all of the JAX package's fields; the sampler's and the training
+step's fields that the port reads) and of
+``models/factory.py:confidence_model_config``, with the yaml round trip of a
+model directory's ``model_config.yml`` (``to_dict``, ``from_dict``,
+``save_yaml``, ``load_yaml``, ``load_score_config``). The yaml goes through
+the port's own reader and writer (``yaml_io``): the machine that runs the
+port need not have PyYAML. Field names and defaults equal the JAX package's,
+so a config can be carried over with ``ScoreModelConfig(**fields)``; which
+fields the port's models implement, ``models.factory.get_model`` checks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+from . import yaml_io
 from .ops.schedules import SigmaParams
 
 
@@ -29,6 +35,7 @@ class ScoreModelConfig:
     num_conv_layers: int = 5
     num_prot_emb_layers: int = 3
     embed_also_ligand: bool = True
+    use_second_order_repr: bool = False
     reduce_pseudoscalars: bool = True
     batch_norm: bool = True
     dropout: float = 0.1  # training only: the edge MLPs, embeddings and heads
@@ -49,20 +56,39 @@ class ScoreModelConfig:
     embedding_scale: int = 1000
     scale_by_sigma: bool = True
     no_torsion: bool = False
+    smooth_edges: bool = False
     odd_parity: bool = False
     differentiate_convolutions: bool = True
+    tp_weights_layers: int = 2
+    fixed_center_conv: bool = True
+    depthwise_convolution: bool = False
+    sidechain_pred: bool = False
+
+    # the legacy architectures and their knobs (the JAX package's
+    # models/legacy.py; the port refuses them, models.factory.get_model)
+    old_score_model: bool = False
+    separate_noise_schedule: bool = False
+    use_old_atom_encoder: bool = False
+    no_aminoacid_identities: bool = False
+    parallel: int = 1
+    parallel_aggregators: str = "mean max min std"
 
     # confidence-mode heads
     confidence_mode: bool = False
     num_confidence_outputs: int = 1
+    affinity_prediction: bool = False
     atom_confidence: bool = False
     atom_num_confidence_outputs: int = 1
+    confidence_dropout: float = 0.0  # training only
     confidence_no_batchnorm: bool = False
 
     # all-atom variant
     all_atoms: bool = False
     atom_radius: float = 5.0
     atom_max_neighbors: int = 8
+
+    # receptor graph (featurization only)
+    c_alpha_max_neighbors: int = 24
     # crop: residues farther than crop_beyond from every ligand atom are
     # dropped with their atoms; score_confidence packs what is kept into
     # (crop_res_cap, crop_atom_cap) buckets, the nearest first on overflow
@@ -148,3 +174,53 @@ class TrainConfig:
     # CB time floor / mixing
     minimum_t: float = 0.0
     sampling_mixing_coeff: float = 0.0
+
+
+def to_dict(cfg) -> dict:
+    """A config dataclass as plain data: nested dicts, lists for tuples
+    (``sigma`` as a dict), as the JAX package's ``to_dict`` gives it."""
+
+    def clean(v):
+        if isinstance(v, dict):
+            return {k: clean(x) for k, x in v.items()}
+        if hasattr(v, "_asdict"):  # a NamedTuple (SigmaParams)
+            return {k: clean(x) for k, x in v._asdict().items()}
+        if isinstance(v, tuple):
+            return list(v)
+        return v
+
+    return clean(dataclasses.asdict(cfg))
+
+
+def from_dict(cls, d: dict):
+    """The config dataclass ``cls`` from a dict, as the JAX package rebuilds
+    it: unknown keys are ignored, ``sigma`` may be a dict or a list, and a
+    tuple field may come as a list."""
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if k == "sigma" and isinstance(v, dict):
+            v = SigmaParams(**v)
+        elif k == "sigma" and isinstance(v, (list, tuple)):
+            v = SigmaParams(*v)
+        elif str(names[k].type).startswith("Tuple") and isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def save_yaml(cfg, path: str) -> None:
+    """Write ``to_dict(cfg)`` as ``yaml.safe_dump(..., sort_keys=True)`` writes it."""
+    with open(path, "w") as f:
+        f.write(yaml_io.dump(to_dict(cfg)))
+
+
+def load_yaml(cls, path: str):
+    with open(path) as f:
+        return from_dict(cls, yaml_io.load(f.read()))
+
+
+def load_score_config(path: str) -> ScoreModelConfig:
+    return load_yaml(ScoreModelConfig, path)

@@ -1,0 +1,157 @@
+"""Model factory: a config to the port's score or all-atom model, and the
+translation of a reference ``model_parameters.yml`` manifest.
+
+Port of ``confidence_bootstrapping_tpu/models/factory.py``. ``get_model``
+refuses, with a ``ValueError`` naming every such field, a config whose
+non-default values ask for what the port's models do not implement (the JAX
+models read them: ``score_model.py``, ``all_atom_model.py``, ``legacy.py``):
+
+* the legacy architectures: ``old_score_model`` and their knobs
+  ``separate_noise_schedule``, ``use_old_atom_encoder``,
+  ``no_aminoacid_identities``, ``smooth_edges`` and ``parallel != 1``;
+* ``use_second_order_repr``, ``tp_weights_layers != 2``,
+  ``depthwise_convolution``, ``sidechain_pred``, ``affinity_prediction``,
+  ``fixed_center_conv = false`` (the JAX package too runs only the fixed
+  center convolution);
+* what the port has not ported yet: the residue-level model's confidence
+  mode, its ``crop_beyond`` mask and ``sh_lmax != 1``, the all-atom model's
+  score mode, and an all-atom model with protein-embedding layers but
+  ``embed_also_ligand = false``.
+
+Fields only training or the host reads pass through whatever their value:
+``dropout`` and ``confidence_dropout`` (training), ``parallel_aggregators``
+(read only with ``parallel > 1``) and ``c_alpha_max_neighbors``
+(featurization).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from ..config import ScoreModelConfig
+from ..ops.schedules import SigmaParams
+from ..runtime import resolve_device
+from .all_atom_model import AllAtomScoreModel
+from .score_model import TensorProductScoreModel
+
+# (field, true where the config asks for what the port does not implement, what that is)
+_UNSUPPORTED = (
+    ("old_score_model", lambda c: c.old_score_model, "the legacy architectures"),
+    ("separate_noise_schedule", lambda c: c.separate_noise_schedule, "a legacy model's per-manifold sigma embedding"),
+    ("use_old_atom_encoder", lambda c: c.use_old_atom_encoder, "a legacy model's atom encoder"),
+    ("no_aminoacid_identities", lambda c: c.no_aminoacid_identities, "a legacy model's zeroed residue features"),
+    ("smooth_edges", lambda c: c.smooth_edges, "a legacy model's smoothed edge weights"),
+    ("parallel", lambda c: c.parallel != 1, "the affinity model's pose groups"),
+    ("use_second_order_repr", lambda c: c.use_second_order_repr, "the second-order irreps ladder"),
+    ("tp_weights_layers", lambda c: c.tp_weights_layers != 2, "edge MLPs of other than 2 layers"),
+    ("depthwise_convolution", lambda c: c.depthwise_convolution, "the depthwise tensor product"),
+    ("sidechain_pred", lambda c: c.sidechain_pred, "the side-chain head"),
+    ("affinity_prediction", lambda c: c.affinity_prediction, "the affinity output"),
+    ("fixed_center_conv", lambda c: not c.fixed_center_conv, "a center convolution that is not fixed"),
+    ("confidence_mode", lambda c: c.confidence_mode and not c.all_atoms, "the residue-level model's confidence mode"),
+    ("crop_beyond", lambda c: c.crop_beyond is not None and not c.all_atoms, "the residue-level model's crop mask"),
+    ("sh_lmax", lambda c: c.sh_lmax != 1 and not c.all_atoms, "the residue-level model at lmax != 1"),
+    ("all_atoms", lambda c: c.all_atoms and not c.confidence_mode, "the all-atom model's score mode"),
+    ("embed_also_ligand", lambda c: c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
+     "protein-embedding layers without the ligand's"),
+)
+
+
+def unsupported_fields(cfg: ScoreModelConfig) -> list:
+    """The fields of ``cfg`` whose values the port's models do not implement,
+    each as "field=value (what it asks for)"."""
+    return [f"{name}={getattr(cfg, name)!r} ({what})" for name, test, what in _UNSUPPORTED if test(cfg)]
+
+
+def get_model(cfg: ScoreModelConfig, device=None, seed: int = 0):
+    """The model ``cfg`` describes, ``AllAtomScoreModel`` or
+    ``TensorProductScoreModel``, with weights drawn from ``seed``, on
+    ``device`` (default: the GPU; ``runtime.resolve_device``). Raises
+    ``ValueError`` for a config the port does not implement."""
+    bad = unsupported_fields(cfg)
+    if bad:
+        raise ValueError("the port does not implement this model config: " + "; ".join(bad))
+    device = resolve_device(device)
+    if cfg.all_atoms:
+        return AllAtomScoreModel(cfg, device=device, seed=seed)
+    return TensorProductScoreModel(cfg, device=device, seed=seed)
+
+
+# reference flag -> our field; the inverted "no_*"/"not_*" flags below; flags
+# absent from a manifest keep our defaults (the reference's back-compat behavior)
+_DIRECT = {
+    "ns": "ns",
+    "nv": "nv",
+    "sh_lmax": "sh_lmax",
+    "num_conv_layers": "num_conv_layers",
+    "num_prot_emb_layers": "num_prot_emb_layers",
+    "embed_also_ligand": "embed_also_ligand",
+    "use_second_order_repr": "use_second_order_repr",
+    "reduce_pseudoscalars": "reduce_pseudoscalars",
+    "dropout": "dropout",
+    "sigma_embed_dim": "sigma_embed_dim",
+    "distance_embed_dim": "distance_embed_dim",
+    "cross_distance_embed_dim": "cross_distance_embed_dim",
+    "max_radius": "lig_max_radius",
+    "receptor_radius": "rec_max_radius",
+    "cross_max_distance": "cross_max_distance",
+    "dynamic_max_cross": "dynamic_max_cross",
+    "embedding_type": "embedding_type",
+    "embedding_scale": "embedding_scale",
+    "scale_by_sigma": "scale_by_sigma",
+    "no_torsion": "no_torsion",
+    "smooth_edges": "smooth_edges",
+    "odd_parity": "odd_parity",
+    "tp_weights_layers": "tp_weights_layers",
+    "depthwise_convolution": "depthwise_convolution",
+    "all_atoms": "all_atoms",
+    "atom_radius": "atom_radius",
+    "atom_max_neighbors": "atom_max_neighbors",
+    "c_alpha_max_neighbors": "c_alpha_max_neighbors",
+    "crop_beyond": "crop_beyond",
+    "confidence_dropout": "confidence_dropout",
+    "confidence_no_batchnorm": "confidence_no_batchnorm",
+    "affinity_prediction": "affinity_prediction",
+    "separate_noise_schedule": "separate_noise_schedule",
+    "use_old_atom_encoder": "use_old_atom_encoder",
+    "no_aminoacid_identities": "no_aminoacid_identities",
+    "parallel": "parallel",
+    "parallel_aggregators": "parallel_aggregators",
+}
+
+_INVERTED = {
+    "no_batch_norm": "batch_norm",
+    "no_differentiate_convolutions": "differentiate_convolutions",
+    "not_fixed_center_conv": "fixed_center_conv",
+}
+
+_SIGMAS = ("tr_sigma_min", "tr_sigma_max", "rot_sigma_min", "rot_sigma_max", "tor_sigma_min", "tor_sigma_max")
+# the reference keys ESM features off an embeddings path or model flag, not a width; 1280: esm2_t33_650M
+_ESM_KEYS = ("esm_embeddings_path", "moad_esm_embeddings_path", "pdbbind_esm_embeddings_path",
+             "pdbsidechain_esm_embeddings_path", "esm_embeddings_model")
+
+
+def config_from_reference_manifest(manifest: Dict[str, Any]) -> ScoreModelConfig:
+    """A reference ``model_parameters.yml`` (an argparse dump) as our config,
+    as the JAX package translates it: unknown flags are ignored, missing
+    flags keep our defaults."""
+    kwargs: Dict[str, Any] = {}
+    for src, dst in _DIRECT.items():
+        if manifest.get(src) is not None:
+            kwargs[dst] = manifest[src]
+    for src, dst in _INVERTED.items():
+        if manifest.get(src) is not None:
+            kwargs[dst] = not manifest[src]
+    sig = {p: float(manifest[p]) for p in _SIGMAS if manifest.get(p) is not None}
+    if sig:
+        kwargs["sigma"] = SigmaParams(**sig)
+    kwargs["lm_embedding_dim"] = 1280 if any(manifest.get(k) for k in _ESM_KEYS) else 0
+    # confidence ("filtering") manifests carry classification flags
+    if manifest.get("rmsd_classification_cutoff") is not None or manifest.get("confidence_mode"):
+        kwargs["confidence_mode"] = True
+        cut = manifest.get("rmsd_classification_cutoff")
+        if isinstance(cut, (list, tuple)):
+            kwargs["num_confidence_outputs"] = len(cut) + 1
+        if manifest.get("atom_confidence_loss_weight"):
+            kwargs["atom_confidence"] = True
+    return ScoreModelConfig(**kwargs)

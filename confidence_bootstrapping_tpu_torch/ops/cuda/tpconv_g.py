@@ -18,12 +18,12 @@ The Pallas kernels take any mul-1 harmonics up to l=2; these take
 input and output irreps of l <= 1. Positions stay float32 (the Pallas
 kernels split them into bf16 halves, about 1e-4 from a float32 composition).
 What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
-``fused_tpconv_rec_g``'s inference kernel runs the H -> W product on the
-tensor cores (3xTF32 ``wgmma``) from the split, tiled w2 fields of
-``pack_weights``, and a layer that stage does not take its float32 build at
-TM_WIDE edges a chunk; its training variant and ``fused_tpconv_cross_g`` keep
-the float32 stage at TM edges a chunk (``tpconv_common.pick_build``; where
-no build fits a layer the wrapper raises). Each wrapper launches its kernel
+Both inference kernels run the H -> W product on the tensor cores (3xTF32
+``wgmma``) from the split, tiled w2 fields of ``pack_weights``; a layer that
+stage does not take runs a float32 build (rec_g at TM_WIDE edges a chunk,
+cross_g at TM, else TM_WIDE), and ``fused_tpconv_rec_g``'s training variant
+keeps the float32 stage at TM edges a chunk (``tpconv_common.pick_build``;
+where no build fits a layer the wrapper raises). Each wrapper launches its kernel
 for CUDA tensors, calls its ``*_plain`` version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
 training, ``fused_tpconv_rec_g``'s ``dmask`` (the hidden-layer dropout mask)
 selects the kernel's training variant (``tpconv_rec_g_dm_kernel``), counted
@@ -179,15 +179,28 @@ def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask,
                         irreps_in, irreps_sh, irreps_out, ns, packed)
 
 
+def cross_build(kernel: str, irreps_in: str, irreps_out: str, irreps_sh: str, Fe: int, ns: int, H: int,
+                K: int) -> tuple:
+    """(tensor cores?, edges a chunk): the build ``launch_cross`` runs for
+    ``kernel`` at this layer and K senders a receiver
+    (``tpconv_common.pick_build``)."""
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    d = Dims(Fe, ns, Fe + 2 * ns, H, lay.din, lay.dout)
+    return pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, cross_rows_per_block(K), True)
+
+
 def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                  irreps_in, irreps_sh, irreps_out, ns, packed):
     """Launch ``csrc/<kernel>.cu``, a one-direction cross kernel of the
-    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2, on the float32
-    stage; ``tpconv_cross``: lmax=1, on the tensor-core stage where the
-    layer fits it; both ``cross_tile`` of the engine), after checking its
-    inputs; receivers a block: ``cross_rows_per_block`` (one at the
-    evaluator's K=100, the fastest of RT 1-12 at B = 8 and 32 on an H100,
-    scripts/engine_ablation.py). Returns the sums [B, L, Dout]."""
+    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2; ``tpconv_cross``:
+    lmax=1; both ``cross_tile`` of the engine), after checking its inputs, on
+    the build ``cross_build`` picks: the tensor-core stage where the layer
+    fits it, else the float32 build at TM, then TM_WIDE edges a chunk.
+    Receivers a block: ``cross_rows_per_block`` (by scripts/engine_ablation.py
+    on an H100 at 700 W: row 4's RT=1 at the evaluator's K=100 the fastest
+    of RT 1-12 at B = 8 and 32; cross_g's RT=2 at the rerank's K=32 within 2%
+    of the fastest RT and its RT=1 at K=64 within 4%, at B=32). Returns the
+    sums [B, L, Dout]."""
     dev = recv_attr.device
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     B, L, D = recv_attr.shape
@@ -197,39 +210,28 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
             or idx.shape != (B, L, K) or edge_emb.shape[:3] != (B, L, K) or mask.shape != (B, L, K)
             or tuple(w1.shape) != (Fe + 2 * ns, H) or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError(f"{kernel}: inconsistent shapes")
-    # row 4 (lmax=1) has a tensor-core build, and one at TM_WIDE edges a chunk for the layers TM does not fit;
-    # cross_g has the float32 build at TM only
-    d = Dims(Fe, ns, Fe + 2 * ns, H, D, lay.dout)
-    tms = (TM, TM_WIDE) if kernel == "tpconv_cross" else (TM,)
-    tc = False
-    if kernel == "tpconv_cross":
-        rt = cross_rows_per_block(K)
-        tc = pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, rt, True, tms)[0]
+    tc, cm = cross_build(kernel, irreps_in, irreps_out, irreps_sh, Fe, ns, H, K)
+    rt = cross_rows_per_block(K, cm)
     pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, L, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load(kernel)
     inputs = (ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask))
+    dims = (B, L, N, K, Fe, ns, H, D, lay.dout, rt)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if tc:
         tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
         fn = getattr(lib, "cbt_" + kernel + "_tc")
         fn.argtypes, fn.restype = _CROSS_TC_ARGTYPES, ctypes.c_int
         code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), B, L, N, K, Fe,
-                  ns, H, D, lay.dout, rt, ptr(out), torch.cuda.current_stream(dev).cuda_stream)
-        build.check(lib, code, kernel)
-        return out
-    cm = pick_build(kernel, irreps_in, irreps_out, irreps_sh, d, cross_rows_per_block(K), False, tms)[1]
-    rt = cross_rows_per_block(K, cm)
-    xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
-    w1c, b1c, w2p, b2p = pw[:4]
-    fn = getattr(lib, "cbt_" + kernel)
-    fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
-    code = fn(
-        ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask), ptr(w1c),
-        ptr(b1c), ptr(w2p), ptr(b2p), ptr(xtab), ptr(cg), ptr(epi), ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad,
-        B, L, N, K, Fe, ns, H, D, lay.dout, rt, cm, ptr(out), torch.cuda.current_stream(dev).cuda_stream,
-    )
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims,
+                  ptr(out), stream)
+    else:
+        xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
+        fn = getattr(lib, "cbt_" + kernel)
+        fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
+        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi),
+                  ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, *dims, cm, ptr(out), stream)
     build.check(lib, code, kernel)
     return out
 

@@ -32,6 +32,13 @@ replayed at each RT of a list (the wrapper's rule ``cross_rows_per_block``
 gives RT=1 at K=100; pb's one-wave rule RT=6 at B=32), at B=32 and cut or
 doubled to B=8 and B=64, as for pb.
 
+Then cross_g's receivers a block on its tensor-core build: every
+``fused_tpconv_cross_g`` call of one of chip_smoke.py's phase-6 confidence
+forwards (B=32 poses near the crystal pose, 10 calls), by list (ligand <-
+receptor at K=64, ligand <- atom at K=32), replayed at each RT of the same
+list as row 4's (the rule gives RT=1 and 2). ``--cross-g-rows`` runs this
+part alone.
+
 Then the edge-list kernel's rows a block (RT) on its tensor-core build:
 every row-6 call (``fused_tpconv_msgs``, K=100) of one phase-8 evaluator
 sample and every edge-list call of one B=16 phase-7 training step (ligand
@@ -102,11 +109,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("engine_ablation: no CUDA device")
     sys.path.insert(0, ROOT)
-    if "--edge-rows" in sys.argv[1:]:
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-        edge_rows(torch.device("cuda"))
-        return
+    alone = {"--edge-rows": edge_rows, "--cross-g-rows": cross_g_rows}
+    for flag, part in alone.items():
+        if flag in sys.argv[1:]:
+            print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                 capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+            part(torch.device("cuda"))
+            return
     from confidence_bootstrapping_tpu_torch.ops.cuda import build, tpconv_rec
     from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import pack_weights
     from confidence_bootstrapping_tpu_torch.ops.irreps import WeightedTensorProduct
@@ -180,6 +189,7 @@ def main() -> None:
     print(f"compaction, fill, receiver sums and output: {ms['no_hidden']:.4f} ms", flush=True)
     pb_rows(dev)
     cross_rows(dev)
+    cross_g_rows(dev)
     edge_rows(dev)
     bwd_stages(dev)
 
@@ -305,18 +315,45 @@ def cross_rows(dev) -> None:
                       dev)
 
 
-def cross_rows_at(calls, dev) -> None:
-    """Replay row 4's calls at each RT of CROSS_RT: the first three against
-    the plain version, then all of them timed (CUDA events), twice."""
+def cross_g_rows(dev) -> None:
+    """cross_g's time per call by receivers a block, on the calls of one
+    B=32 confidence forward of chip_smoke.py's phase 6, list by list."""
+    import torch
+
+    import chip_smoke
+    from confidence_bootstrapping_tpu_torch.config import confidence_model_config
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+
+    cfg = confidence_model_config(lm_embedding_dim=chip_smoke.LM_DIM)
+    padded, hc, _ = chip_smoke.host_complex(chip_smoke.LM_DIM, all_atoms=True)
+    padded["lig_pos"][: len(hc.orig_lig_pos)] = hc.orig_lig_pos  # the crystal pose
+    model = AllAtomScoreModel(cfg, device=dev, seed=0)
+    batch = replicate_complex(padded, chip_smoke.B_POSES, device=dev)
+    poses = chip_smoke.near_crystal_poses(padded, chip_smoke.B_POSES).to(dev)
+    calls = chip_smoke.record_calls(lambda: score_confidence(model, batch, lig_pos=poses),
+                                    ("tpconv_cross_g",))["tpconv_cross_g"]
+    for K in sorted({a[4].shape[2] for a, _ in calls}):
+        cross_rows_at([c for c in calls if c[0][4].shape[2] == K], dev, "cross_g", tpconv_g.fused_tpconv_cross_g,
+                      tpconv_g.tpconv_cross_g_plain, "confidence forward")
+
+
+def cross_rows_at(calls, dev, what: str = "row 4", fn=None, plain=None, source: str = "evaluator sample") -> None:
+    """Replay a cross kernel's calls (row 4's by default) at each RT of
+    CROSS_RT: the first three against the plain version, then all of them
+    timed (CUDA events), twice."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g, tpconv_lig, tpconv_rec
 
+    fn, plain = fn or tpconv_rec.fused_tpconv_cross, plain or tpconv_rec.tpconv_cross_plain
     B, L = calls[0][0][0].shape[:2]
     K = calls[0][0][4].shape[2]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     edges = sum(int(a[6].sum()) for a, _ in calls) / len(calls)
-    print(f"row 4: {len(calls)} calls of one evaluator sample, B={B} L={L} K={K}, {edges:.0f} valid edges a call; "
+    print(f"{what}: {len(calls)} calls of one {source}, B={B} L={L} K={K}, {edges:.0f} valid edges a call; "
           f"the wrapper's rule RT={tpconv_g.cross_rows_per_block(K)}, one wave RT="
           f"{tpconv_lig.pb_rows_per_block(B, L, n_sm)}", flush=True)
     rule = tpconv_g.cross_rows_per_block  # launch_cross's receivers a block
@@ -326,15 +363,15 @@ def cross_rows_at(calls, dev) -> None:
             for rt in CROSS_RT:
                 tpconv_g.cross_rows_per_block = lambda K, chunk=64, rt=rt: rt
                 for args, kw in calls[:3]:
-                    got, want = tpconv_rec.fused_tpconv_cross(*args, **kw), tpconv_rec.tpconv_cross_plain(*args)
+                    got, want = fn(*args, **kw), plain(*args)
                     err, scale = float((got - want).abs().max()), float(want.abs().max())
                     if err > 2e-4 * max(1.0, scale):
-                        sys.exit(f"row 4 at B={B}, RT={rt} disagrees with its plain version: {err:.3g}")
+                        sys.exit(f"{what} at B={B}, RT={rt} disagrees with its plain version: {err:.3g}")
                 torch.cuda.synchronize()
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
                 for args, kw in calls:
-                    tpconv_rec.fused_tpconv_cross(*args, **kw)
+                    fn(*args, **kw)
                 end.record()
                 torch.cuda.synchronize()
                 times[rt].append(start.elapsed_time(end) / len(calls))
@@ -342,7 +379,7 @@ def cross_rows_at(calls, dev) -> None:
         tpconv_g.cross_rows_per_block = rule
     for rt, ts in times.items():
         blocks = B * -(-L // rt)
-        print(f"row 4 B={B} RT={rt:2d}: {blocks:4d} blocks, {-(-blocks // n_sm)} wave(s): "
+        print(f"{what} B={B} K={K} RT={rt:2d}: {blocks:4d} blocks, {-(-blocks // n_sm)} wave(s): "
               f"{', '.join(f'{t:.4f}' for t in ts)} ms a call", flush=True)
 
 

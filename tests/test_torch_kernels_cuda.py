@@ -376,10 +376,15 @@ def test_rec_g_float32_build_matches_plain(dev, irreps, H):
     (CONF_TRUNK, 2, 13, 19, 5),
     (CONF_TRUNK, 2, 24, 256, 64),  # the ligand <- receptor group after the crop
     (CONF_TRUNK, 2, 24, 300, 32),  # the ligand <- atom group: two receivers per block
+    (CONF_TRUNK, 32, 24, 256, 64),  # the rerank's full batch, ligand <- receptor
+    (CONF_TRUNK, 32, 24, 2048, 32),  # and ligand <- atom
     ("24x0e + 6x1o", 3, 7, 50, 1),  # K = 1
     ("24x0e", 1, 5, 20, 130),  # one receiver's edges span several 64-edge chunks
 ])
 def test_cross_g_kernel_matches_plain(dev, irreps, B, L, N, K):
+    """cross_g on its tensor-core build (every layer of the confidence
+    model's ns=24 ladder takes it) against the plain version, bit for bit
+    across two launches, exact zeros where every sender is masked."""
     g = _gen(6)
     ns = _ns(irreps)
     D = WeightedTensorProduct(irreps, SH2, irreps).irreps_in.dim
@@ -393,10 +398,68 @@ def test_cross_g_kernel_matches_plain(dev, irreps, B, L, N, K):
     idx[0, 0], mask[0, 0] = 0, False  # cropped senders: index 0, false mask
     mask[-1] = False  # a wholly masked batch element: zero sums
     args = [t.to(dev) for t in (recv, rpos, src, spos, idx, emb, mask)] + _weights(g, irreps, irreps, ns, dev, SH2)
+    assert tpconv_g.cross_build("tpconv_cross_g", irreps, irreps, SH2, ns, ns, 3 * ns, K) == (True, tpconv_common.TM)
+    before = tpconv_g.fused_tpconv_cross_g.launches
     got = tpconv_g.fused_tpconv_cross_g(*args, irreps, SH2, irreps, ns)
+    again = tpconv_g.fused_tpconv_cross_g(*args, irreps, SH2, irreps, ns)
     torch.cuda.synchronize()
+    assert tpconv_g.fused_tpconv_cross_g.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits on every launch
     _close(got, tpconv_g.tpconv_cross_g_plain(*args, irreps, SH2, irreps, ns))
     assert float(got[-1].abs().max()) == 0.0 and float(got[0, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("irreps,H,K,cm", [
+    (CONF_TRUNK, 120, 64, 64),  # H above the tensor-core stage's 96: the float32 build at 64 edges a chunk
+    (CONF_TRUNK, 120, 32, 64),
+    (WIDE, 144, 64, 32),  # the ns=48/nv=10 trunk layer with lmax=2 harmonics: only 32 edges a chunk fit
+    (WIDE, 144, 32, 32),
+])
+def test_cross_g_float32_builds_match_plain(dev, irreps, H, K, cm):
+    """cross_g at layers the tensor-core stage does not take: the float32
+    builds at 64 and 32 edges a chunk, against the plain version, bit for
+    bit across two launches."""
+    g = _gen(17)
+    ns = _ns(irreps)
+    assert tpconv_g.cross_build("tpconv_cross_g", irreps, irreps, SH2, ns, ns, H, K) == (False, cm)
+    args = [t.to(dev) for t in _cross_inputs(g, irreps, 2, 11, 90, K, ns)]
+    args += _weights(g, irreps, irreps, ns, dev, SH2, H)
+    got = tpconv_g.fused_tpconv_cross_g(*args, irreps, SH2, irreps, ns)
+    again = tpconv_g.fused_tpconv_cross_g(*args, irreps, SH2, irreps, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, tpconv_g.tpconv_cross_g_plain(*args, irreps, SH2, irreps, ns))
+
+
+def test_cross_g_build_choice_matches_the_library(dev):
+    """The build ``cross_build`` picks for cross_g, from the host mirror of
+    the layouts, is the first one that fits by the library's own bytes
+    (``cbt_smem_bytes`` plus ``cbt_static_smem_bytes``): at the confidence
+    model's ladder (both lists), at H=120 and at the ns=48 ladder."""
+    import ctypes
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import build
+
+    lib = build.load("tpconv_cross_g")
+    smem, static = lib.cbt_smem_bytes, lib.cbt_static_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 14, ctypes.c_longlong
+    static.argtypes, static.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    TM, TMW = tpconv_common.TM, tpconv_common.TM_WIDE
+    seq24 = ("24x0e", "24x0e + 6x1o", "24x0e + 6x1o + 6x1e", CONF_TRUNK)
+    layers = [(a, b, 72) for a, b in zip(seq24, seq24[1:] + seq24[3:])] + [(CONF_TRUNK, CONF_TRUNK, 120)]
+    layers += [(a, b, 144) for a, b in zip(WIDE_SEQ, WIDE_SEQ[1:] + WIDE_SEQ[3:])]
+    for a, b, H in layers:
+        ns = _ns(a)
+        for K in (64, 32):
+            rt = tpconv_g.cross_rows_per_block(K)
+            fits = []
+            for tc, cm in ((True, TM), (False, TM), (False, TMW)):
+                lay = tpconv_common.tp_layout(a, b, SH2, tpconv_common.TNC if tc else tpconv_common.TN)
+                d = tpconv_common.Dims(ns, ns, 3 * ns, H, lay.din, lay.dout)
+                dyn = smem(int(tc), cm, 9, *d, lay.n_x, lay.n_tiles, len(lay.epi), len(lay.cg), rt)
+                if dyn + static(int(tc), cm) <= tpconv_common.SMEM_LIMIT and (H <= tpconv_common.KMAX or not tc):
+                    fits.append((tc, cm))
+            assert tpconv_g.cross_build("tpconv_cross_g", a, b, SH2, ns, ns, H, K) == fits[0], (a, b, H, K)
 
 
 def test_tpconv_lmax2_weight_cache_and_kernels(dev):
