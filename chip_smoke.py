@@ -96,6 +96,22 @@ Phases (each one fails the script when it fails):
      launches against the config, every cross_g call on its tensor-core
      build, the poses within SAMPLE_ATOL of phase 5's and the confidences
      within MODEL_RTOL of phase 6's.
+ 11. the Confidence Bootstrapping loop (``bootstrapping/finetune``) at full
+     width: phase 5's score model and phase 6's confidence model on 1a0q in
+     its all-atom bucket, the CB defaults (8 samples x 20 steps a round,
+     batch 16, fixed_length 100, at most 5 complexes a receptor, lr 1e-3, EMA
+     rollouts) cut to 2 epochs with a rollout round each, the cutoff the
+     median confidence of a round drawn with the loop's seed: no failed
+     round and the cutoff applied; launches per round, confidence call and
+     fine-tune step, and over the loop, against the config; epoch 1's
+     rollout model against a fresh model with the EMA and the buffers;
+     epoch 1's rollout and the last fine-tune step replayed through kernel
+     and plain version on the moved weights; round 0's confidences and
+     RMSDs against the CPU; the workdir's msgpack files and a train-state
+     bundle back bit for bit and one more step from it; the offline cache
+     written and read back; per round and epoch its walls and rates, then
+     one more epoch under torch.profiler. Every line carries the card's name
+     and power limit.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's; ``bound_ms`` the tensor-core bound,
@@ -392,14 +408,15 @@ def kernel_phase(model, run) -> list:
     return replay_sample(model, run, "sample")
 
 
-def replay(calls: dict, kernels: dict, rtols: dict = None, bitwise=()) -> list:
+def replay(calls: dict, kernels: dict, rtols: dict = None, bitwise=(), timed: bool = True) -> list:
     """Replay every recorded call through its kernel and its plain version:
     error against the stated tolerance, both timed, both bounds (``bounds``)
     from the call's own data. Prints per shape and as means over the calls;
     returns one JSON row per kernel (without ``launches``). ``rtols``: per
     kernel, a tolerance per output (default KERNEL_RTOL for each), each
     output held to it times max(1, max |its plain value|). The kernels named
-    in ``bitwise`` must give the same bits on a second launch."""
+    in ``bitwise`` must give the same bits on a second launch. Without
+    ``timed`` the checks alone (times nan)."""
     import torch
 
     def outputs(o):
@@ -422,11 +439,11 @@ def replay(calls: dict, kernels: dict, rtols: dict = None, bitwise=()) -> list:
             shapes.setdefault(tag, []).append(dict(
                 err=err, rel=err / max(scale, 1e-30),
                 ok=all(e <= t * max(1.0, sc) for e, t, sc in zip(errs, tols, scales)),
-                ms=cuda_time(lambda: fn(*args, **kwargs), reps=5, warmup=1),
-                plain_ms=cuda_time(lambda: plain(*args), reps=2, warmup=0),
+                ms=cuda_time(lambda: fn(*args, **kwargs), reps=5, warmup=1) if timed else float("nan"),
+                plain_ms=cuda_time(lambda: plain(*args), reps=2, warmup=0) if timed else float("nan"),
                 bound=b["tc"], bound_fp32=b["fp32"], bound_bytes=b["bytes"], flops=flops, mm=mm))
         every = [m for ms in shapes.values() for m in ms]
-        for tag, ms in list(shapes.items()) + [("all", every)]:
+        for tag, ms in (list(shapes.items()) if timed else []) + [("all", every)]:
             mean = {k: float(np.mean([m[k] for m in ms]))
                     for k in ("ms", "plain_ms", "bound", "bound_fp32", "bound_bytes", "flops", "mm")}
             ok = all(m["ok"] for m in ms)
@@ -591,15 +608,18 @@ def sample_phase(model, b0, run):
     return launches, pos
 
 
-def profile_run(run, timed_ms: float) -> None:
+def profile_run(run, timed_ms: float, host_ops: bool = True) -> None:
     """One more run under torch.profiler: device time by kernel and the
     device's idle share of the wall time, of this run and of the unprofiled
-    timed run (same kernels, less host overhead). A measurement, not a check."""
+    timed run (same kernels, less host overhead). A measurement, not a check.
+    Without ``host_ops`` the host's operators are not traced (the device's
+    events alone: a long run's trace is read in far less time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -881,7 +901,7 @@ def record_train_calls(run) -> dict:
     return calls
 
 
-def replay_train_ops(calls: dict) -> list:
+def replay_train_ops(calls: dict, timed: bool = True) -> list:
     """Rows 11 and 12: every recorded call of the two autograd ops, forward
     and backward against a random cotangent, through the kernels and through
     autograd of the plain composition on the card: outputs and every
@@ -945,8 +965,8 @@ def replay_train_ops(calls: dict) -> list:
             b = bounds(nbytes(*(t for t in args if torch.is_tensor(t)), *got), fwd_flops + bwd_flops, mm)
             ms.append(dict(err=max(errs), ok=ok, bound=b["tc"], bound_fp32=b["fp32"], by=b["by"],
                            guarded=int((near & mask0).sum()), edges=int(mask0.sum()),
-                           ms=cuda_time(lambda: fwd_bwd(kernel, cot), reps=3, warmup=1),
-                           plain_ms=cuda_time(lambda: fwd_bwd(plain, cot), reps=1, warmup=0)))
+                           ms=cuda_time(lambda: fwd_bwd(kernel, cot), reps=3, warmup=1) if timed else float("nan"),
+                           plain_ms=cuda_time(lambda: fwd_bwd(plain, cot), reps=1, warmup=0) if timed else float("nan")))
             if not ok:
                 fail(f"{name}: the autograd op through the kernels disagrees with autograd of the plain version "
                      f"(errors {errs})")
@@ -999,11 +1019,12 @@ def check_tc_builds(calls: dict, what: str) -> None:
         fail(f"{what}: a call of the ns=32 or ns=24 ladder ran a float32 build")
 
 
-def replay_train_kernels(calls: dict) -> list:
+def replay_train_kernels(calls: dict, timed: bool = True) -> list:
     """The training kernels' recorded calls (``record_train_calls``) replayed
     through kernel and plain version; the edges at the ReLU
     (``near_relu_boundary``) get no cotangent in the backward's replay.
-    Returns their JSON rows."""
+    Returns their JSON rows. Without ``timed`` the checks alone (no times,
+    no stage profile of the edge backward)."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
@@ -1030,12 +1051,24 @@ def replay_train_kernels(calls: dict) -> list:
     }
     with torch.no_grad():
         rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4},
-                      bitwise=("tpconv_bwd", "tpconv_edge", "tpconv_rec_dm"))
+                      bitwise=("tpconv_bwd", "tpconv_edge", "tpconv_rec_dm"), timed=timed)
         for r in rows:
             r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
-            if r["name"] == "tpconv_bwd":
+            if r["name"] == "tpconv_bwd" and timed:
                 r.update(bwd_stages(calls["tpconv_bwd"]))
+            elif r["name"] == "tpconv_bwd":
+                check_masked_edges(calls["tpconv_bwd"])
     return rows
+
+
+def check_masked_edges(bwd_calls: list) -> None:
+    """Fails unless the edge backward gives every edge marked masked exact zeros."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd
+
+    for a, kw in bwd_calls:
+        valid = kw.get("valid")
+        if valid is not None and not all(bool((t[~valid] == 0).all()) for t in tpconv_bwd.edge_bwd(*a, **kw)[:3]):
+            fail("the edge backward gave a masked edge a gradient")
 
 
 def bwd_stages(bwd_calls: list) -> dict:
@@ -1057,10 +1090,7 @@ def bwd_stages(bwd_calls: list) -> dict:
 
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd
 
-    for a, kw in bwd_calls:
-        valid = kw.get("valid")
-        if valid is not None and not all(bool((t[~valid] == 0).all()) for t in tpconv_bwd.edge_bwd(*a, **kw)[:3]):
-            fail("the edge backward gave a masked edge a gradient")
+    check_masked_edges(bwd_calls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for a, kw in bwd_calls:
             tpconv_bwd.edge_bwd(*a, **kw)
@@ -1743,6 +1773,464 @@ def model_dir_phase(dev, model, b0, final_pos, rerank) -> None:
         fail("the dock path from the model directories disagrees with the in-memory models")
 
 
+# ---------------------------------------------------------------------------- phase 11: the CB loop
+
+
+CB_SEED = 21  # the loop's generator; the cutoff's round draws from the same seed
+CB_EPOCHS, CB_SAMPLES, CB_BATCH, CB_FIXED = 2, 8, 16, 100  # fixed_length 100 / batch 16: 6 fine-tune steps an epoch
+RMSD_CPU_ATOL = 1e-5  # the loop's symmetry RMSDs against the CPU's, in A
+CB_DIR = os.path.join(ROOT, "build", "cb")  # the loop's workdir, a train-state bundle and an offline cache; removed
+
+
+class Tagged:
+    """A stdout that ends every line with the card's name and power limit."""
+
+    def __init__(self, out, tag: str):
+        self.out, self.tag, self.buf = out, tag, ""
+
+    def write(self, text: str) -> int:
+        self.buf += text
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.out.write(f"{line} [{self.tag}]\n" if line.strip() else "\n")
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def all_counters() -> dict:
+    """name -> (wrapper, attribute) of every kernel launch counter."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+
+    out = {name: (fn, "launches") for name, fn in score_counters().items()}
+    out.update(tpconv_rec_g=(tpconv_g.fused_tpconv_rec_g, "launches"),
+               tpconv_rec_g_dm=(tpconv_g.fused_tpconv_rec_g, "dm_launches"),
+               tpconv_cross_g=(tpconv_g.fused_tpconv_cross_g, "launches"))
+    out.update(train_counters())
+    return out
+
+
+def read_counters() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in all_counters().items()}
+
+
+def launch_diff(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+def cb_confidence_fn(conf_model, record: list = None):
+    """The CB CLI's confidence function (``cli/finetune.py:147-157``): the
+    target replicated, the poses set, ``score_confidence``; each call's
+    poses and confidences appended to ``record``, and its launches."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+
+    def fn(target, poses):
+        before = read_counters()
+        batch = replicate_complex(target.padded, len(poses), device=poses.device)
+        lp = batch.lig_pos.clone()
+        lp[:, : poses.shape[1]] = poses
+        conf = score_confidence(conf_model, batch, lig_pos=lp)
+        torch.cuda.synchronize()
+        if record is not None:
+            record.append(dict(poses=poses.clone(), conf=conf.clone(), launches=launch_diff(before, read_counters())))
+        return conf
+
+    return fn
+
+
+def snapshot(state) -> tuple:
+    """Copies of a TrainState's parameters, buffers, EMA, Adam state and step."""
+    return ({n: p.detach().clone() for n, p in state.model.named_parameters()},
+            {n: b.clone() for n, b in state.model.named_buffers()},
+            {n: e.clone() for n, e in state.ema.items()},
+            {n: {k: v.clone() for k, v in state.optimizer.state.get(p, {}).items()}
+             for n, p in state.model.named_parameters()},
+            state.step, state.lr_scale)
+
+
+def same_snapshot(a: tuple, b: tuple) -> bool:
+    import torch
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        return torch.equal(x, y.to(x.device)) if torch.is_tensor(x) else x == y
+
+    return all(same(x, y) for x, y in zip(a, b))
+
+
+def load_weights(model, params: dict, buffers: dict):
+    """``model`` with ``params`` and ``buffers`` copied in (``copy_`` under
+    no_grad, so each weight's version moves); returns it."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+        for n, b in model.named_buffers():
+            b.copy_(buffers[n])
+    return model
+
+
+def tpconvs(model) -> list:
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    return [m for m in model.modules() if isinstance(m, TPConv)]
+
+
+def stale_packs(model) -> tuple:
+    """(stale, packs): how many of the model's cached TP-conv weight packs
+    differ, bit for bit, from a pack made now of the edge MLP's weights,
+    out of how many there are."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import pack_weights
+
+    stale = packs = 0
+    for m in tpconvs(model):
+        for (group, sh), (_, packed, _) in m._packed.items():
+            now = pack_weights(*m.mlp_weights(group), m.in_irreps, m.out_irreps, sh)
+            stale += not all(torch.equal(a, b) for a, b in zip(packed, now))
+            packs += 1
+    return stale, packs
+
+
+def keep_stale_packs(model) -> None:
+    """Make each cached TP-conv pack look current to ``packed_weights``
+    while it holds the weights it was made from: the fault a weight copy
+    that leaves the versions as they were would make."""
+    for m in tpconvs(model):
+        for (group, sh), (_, packed, weights) in list(m._packed.items()):
+            key = tuple((w.data_ptr(), w._version) for w in m.mlp_weights(group))
+            m._packed[(group, sh)] = (key, packed, weights)
+
+
+def cb_phase(dev, conf_model, card: str) -> None:
+    """Phase 11: the Confidence Bootstrapping loop (``bootstrapping/
+    finetune.inference_finetune``) at full width: phase 5's score model
+    (seed 0) rolls out 8 poses of 1a0q (the all-atom bucket, seeded atoms)
+    per round, phase 6's confidence model filters them at a cutoff set to
+    the median confidence of a round drawn with the loop's first seed, the
+    buffer keeps at most 5, and each epoch fine-tunes on 6 batches of 16
+    from it; 2 epochs, a rollout round each, epoch 1's from the EMA weights.
+    Checks: no failed round and the cutoff applied; every kernel's launches
+    per round, confidence call and fine-tune step against the config, and
+    over the whole loop; the rollout model against a fresh model loaded with
+    the EMA and the training model's buffers, its TP-conv packs against
+    packs made now of its weights, and a control that keeps epoch 0's
+    packs (the stale-pack fault); epoch 1's rollout and one
+    fine-tune step replayed through kernel and plain version on the moved
+    weights; a round's confidences and RMSDs against the CPU; the workdir's
+    msgpack files and a train-state bundle back bit for bit, one more step
+    from the loaded state; the offline cache written and read back. Then
+    one more epoch under torch.profiler. Every line printed carries ``card``."""
+    import contextlib
+    import shutil
+
+    with contextlib.redirect_stdout(Tagged(sys.stdout, card)):
+        shutil.rmtree(CB_DIR, ignore_errors=True)
+        try:
+            cb_run(dev, conf_model)
+        finally:
+            shutil.rmtree(CB_DIR, ignore_errors=True)
+
+
+def cb_run(dev, conf_model) -> None:
+    import dataclasses
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.bootstrapping import finetune, offline_dataset
+    from confidence_bootstrapping_tpu_torch.config import CBConfig, ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.eval import rmsd
+    from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+    from confidence_bootstrapping_tpu_torch.train import checkpoints, train_loop
+
+    marks = [("start", time.perf_counter())]
+    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM)
+    model = get_model(cfg, device=dev, seed=0)
+    _, hc, mol = host_complex(LM_DIM, all_atoms=True)
+    target = finetune.CBTarget(hc, mol, lm_dim=LM_DIM)
+    cb = CBConfig(n_epochs=CB_EPOCHS, cb_inference_freq=1, initial_iterations=1, inference_iterations=1,
+                  inference_samples=CB_SAMPLES, inference_steps=STEPS, batch_size=CB_BATCH, fixed_length=CB_FIXED)
+    print(f"CB loop: 1a0q ({target.bucket}), score model ns={cfg.ns} lm {LM_DIM}, confidence model "
+          f"ns={conf_model.cfg.ns} lmax={conf_model.cfg.sh_lmax}; {cb.inference_samples} samples x {cb.inference_steps} "
+          f"steps a round, batch {cb.batch_size}, fixed_length {cb.fixed_length}, max_complexes_per_couple "
+          f"{cb.max_complexes_per_couple}, lr {cb.lr}, EMA rollouts {cb.use_ema_for_rollouts}; cut: {cb.n_epochs} "
+          f"epochs, cb_inference_freq 1, initial_iterations 1, inference_iterations 1, a one-complex cluster",
+          flush=True)
+
+    # the cutoff: the median confidence of a round drawn with the loop's first seed
+    record = []
+    t0 = time.perf_counter()
+    finetune.inference_epoch(model, [target], torch.Generator(device=dev).manual_seed(CB_SEED), cfg,
+                             dataclasses.replace(cb, confidence_cutoff=-1e9), cb_confidence_fn(conf_model, record),
+                             device=dev)
+    cutoff = float(np.median(record[0]["conf"].cpu().numpy()))
+    cb = dataclasses.replace(cb, confidence_cutoff=cutoff)
+    print(f"cutoff round (warm-up): {time.perf_counter() - t0:.3f} s; confidences "
+          f"{np.round(np.sort(record[0]['conf'].cpu().numpy()), 4).tolist()}; cutoff (their median) {cutoff:.6f}",
+          flush=True)
+
+    marks.append(("cutoff round", time.perf_counter()))
+    # the loop, instrumented: launches per round, confidence call and step;
+    # the rollout model and the training state around each round; epoch 1's
+    # rollout and one fine-tune step recorded for the replay
+    rounds, conf_calls, steps, rolls = [], [], [], []
+    recorded = {}
+    real_epoch, real_weights, real_make_step = finetune.inference_epoch, finetune.rollout_weights, \
+        train_loop.make_train_step
+
+    def rollout_weights(roll, state, use_ema=True):
+        out = real_weights(roll, state, use_ema)
+        rolls.append(dict(model=roll, ema={n: e.clone() for n, e in state.ema.items()},
+                          buffers={n: b.clone() for n, b in state.model.named_buffers()}, state=state))
+        return out
+
+    def inference_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn=None, device=None):
+        state = rolls[-1]["state"]
+        before, counts = snapshot(state), read_counters()
+        calls = {}
+        out = []
+        run = lambda: out.append(real_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn, device=device))
+        if len(rounds) == CB_EPOCHS - 1:  # epoch 1's rollout: on the weights the fine-tune moved
+            calls = record_calls(run)
+        else:
+            run()
+        torch.cuda.synchronize()
+        rounds.append(dict(launches=launch_diff(counts, read_counters()), untouched=same_snapshot(before, snapshot(state)),
+                           metrics=dict(out[0][1]), confidences=conf_calls[-1]["conf"].cpu().numpy(), kept=out[0][0]))
+        recorded["rollout"] = calls or recorded.get("rollout")
+        return out[0]
+
+    def make_train_step(model_cfg, tcfg):
+        real = real_make_step(model_cfg, tcfg)
+
+        def step(state, batch, generator, mark=None, grad_mask=None):
+            counts = read_counters()
+            out = []
+            run = lambda: out.append(real(state, batch, generator, mark, grad_mask))
+            if len(steps) == CB_EPOCHS * (CB_FIXED // CB_BATCH) - 1:  # the last step
+                recorded["step"] = record_train_calls(run)
+            else:
+                run()
+            torch.cuda.synchronize()
+            steps.append(dict(launches=launch_diff(counts, read_counters())))
+            return out[0]
+
+        return step
+
+    finetune.inference_epoch, finetune.rollout_weights, train_loop.make_train_step = \
+        inference_epoch, rollout_weights, make_train_step
+    try:
+        for fn, attr in all_counters().values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        state, history = finetune.inference_finetune(model, [target], cfg, cb,
+                                                     torch.Generator(device=dev).manual_seed(CB_SEED),
+                                                     cb_confidence_fn(conf_model, conf_calls), workdir=CB_DIR,
+                                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        totals = read_counters()
+    finally:
+        finetune.inference_epoch, finetune.rollout_weights, train_loop.make_train_step = \
+            real_epoch, real_weights, real_make_step
+
+    marks.append(("loop", time.perf_counter()))
+    # 1. every round: no failure, the cutoff applied, round 0 keeps and drops
+    for r, h in zip(rounds, history):
+        m = h["inference"]
+        print(f"round {h['epoch']}: kept {m['n_kept']}/{m['n_sampled']}, rollout {m['wall_rollout']:.4f} s "
+              f"({m['n_sampled'] / m['wall_rollout']:.3f} poses/s), RMSD {m['wall_rmsd']:.4f} s, confidence "
+              f"{m['wall_confidence']:.4f} s; mean RMSD {m['mean_rmsd']:.3f} A, rmsds<2A {m['rmsds_lt2']:.3f}, mean "
+              f"confidence {m['mean_confidence']:.4f}; failures {m['failures']}", flush=True)
+        if m["failures"] != 0 or m["n_kept"] != int((r["confidences"] > cutoff).sum()) or m["n_sampled"] != CB_SAMPLES:
+            fail(f"CB round {h['epoch']}: a failed target, or the cutoff not applied")
+    if not 0 < history[0]["inference"]["n_kept"] < CB_SAMPLES:
+        fail("CB round 0 must keep some poses and drop some")
+    for h in history:
+        n = len([s for s in steps]) // CB_EPOCHS
+        print(f"epoch {h['epoch']}: {n} fine-tune steps, {h['wall_train']:.4f} s ({n * CB_BATCH / h['wall_train']:.3f} "
+              f"training poses/s), loss {h['train']['loss']:.4f}; epoch wall {h['wall']:.4f} s; buffer "
+              f"{h['buffer']['size']} complexes, mean confidence {h['buffer']['mean_confidence']:.4f}", flush=True)
+    print(f"CB loop: {wall:.3f} s for {CB_EPOCHS} epochs ({len(rounds)} rounds, {len(steps)} fine-tune steps)",
+          flush=True)
+
+    # 2. launches per round, confidence call and fine-tune step, and in all
+    zero = {k: 0 for k in totals}
+    per_round = dict(zero, **{k: v for k, v in expected_launches(model, STEPS).items()},
+                     **expected_conf_launches(conf_model))
+    per_conf = dict(zero, **expected_conf_launches(conf_model))
+    per_step = dict(zero, **expected_train_launches(model))
+    print(f"launches per rollout round (its confidence call included): {rounds[0]['launches']}; per confidence call: "
+          f"{conf_calls[0]['launches']}; per fine-tune step: {steps[0]['launches']}", flush=True)
+    if (any(r["launches"] != per_round for r in rounds) or any(c["launches"] != per_conf for c in conf_calls)
+            or any(s["launches"] != per_step for s in steps)):
+        fail("the CB loop did not run a round, a confidence call or a fine-tune step through the kernels its "
+             "config implies")
+    want = {k: len(rounds) * per_round[k] + len(steps) * per_step[k] for k in zero}
+    print(f"launches over the loop: {totals}; expected from the config: {want}", flush=True)
+    if totals != want or any(want[k] and not totals[k] for k in want):
+        fail("the CB loop's launch counts disagree with its config")
+
+    # 3. the EMA rollout: epoch 1's rollout model against a fresh model with the EMA and the buffers
+    if len(rolls) != CB_EPOCHS or not all(r["untouched"] for r in rounds):
+        fail("a rollout changed the training model, its optimizer or its EMA")
+    # the control: a model that runs epoch 1's weights through epoch 0's packs; both the output comparison and
+    # the pack check must see it
+    roll = rolls[-1]
+    fresh = load_weights(get_model(cfg, device=dev, seed=1), roll["ema"], roll["buffers"])
+    control = load_weights(get_model(cfg, device=dev, seed=1), rolls[0]["ema"], roll["buffers"])
+    batch = replicate_complex(target.padded, 2, device=dev)
+    batch = batch.replace(lig_pos=torch.as_tensor(near_crystal_poses(target.padded, 2), device=dev)).set_time(0.5, 0.5, 0.5)
+    with torch.no_grad():
+        control(batch)  # packs epoch 0's EMA
+        keep_stale_packs(load_weights(control, roll["ema"], roll["buffers"]))
+        got, ref, ctl = roll["model"](batch), fresh(batch), control(batch)
+    limit = [MODEL_RTOL * max(1.0, w.abs().max().item()) for w in ref]
+    err = max((g - w).abs().max().item() / lim for g, w, lim in zip(got, ref, limit))
+    ctl_err = max((c - w).abs().max().item() / lim for c, w, lim in zip(ctl, ref, limit))
+    (stale, packs), (ctl_stale, ctl_packs) = stale_packs(roll["model"]), stale_packs(control)
+    moved = max((roll["ema"][n] - rolls[0]["ema"][n]).abs().max().item() for n in roll["ema"] if roll["ema"][n].numel())
+    print(f"EMA rollout model (epoch 1) against a fresh model with the EMA and the buffers: max_abs_err {err:.3g} of "
+          f"the tolerance ({MODEL_RTOL} x max(1, max |fresh|)); its TP-conv packs against packs made now: {stale} of "
+          f"{packs} stale. Control, epoch 1's weights through epoch 0's packs: {ctl_err:.3g} of the tolerance, "
+          f"{ctl_stale} of {ctl_packs} packs stale. EMA moved {moved:.3g} since epoch 0", flush=True)
+    if not (err <= 1.0 and packs > 0 and stale == 0 and ctl_err > 1.0 and ctl_stale > 0 and moved > 0):
+        fail("the rollout model does not run the EMA weights the training produced, or the checks cannot see stale "
+             "packs")
+    del fresh, control
+
+    marks.append(("checks 1-3", time.perf_counter()))
+    # 4. epoch 1's rollout and the last fine-tune step, replayed on the moved weights
+    calls = recorded["rollout"]
+    counts = {name: len(calls[name]) for name in KERNELS}
+    print(f"epoch 1 rollout replay: calls {counts}", flush=True)
+    replay(calls, sample_kernels(), bitwise=("tpconv_rec", "tpconv_pb"), timed=False)
+    calls = recorded["step"]
+    check_tc_builds(calls, "CB fine-tune step")
+    replay_train_kernels(calls, timed=False)
+    replay_train_ops(calls, timed=False)
+    del calls, recorded["rollout"], recorded["step"]
+    torch.cuda.empty_cache()
+
+    marks.append(("replays", time.perf_counter()))
+    # 5. round 0 against the CPU: confidences, RMSDs, the kept set
+    c0 = conf_calls[0]
+    t0 = time.perf_counter()
+    cpu_model = AllAtomScoreModel(conf_model.cfg, device="cpu", seed=0)
+    b = replicate_complex(target.padded, CB_SAMPLES, device="cpu")
+    lp = b.lig_pos.clone()
+    lp[:, : c0["poses"].shape[1]] = c0["poses"].cpu()
+    cpu_conf = score_confidence(cpu_model, b, lig_pos=lp).numpy()
+    card_conf = c0["conf"].cpu().numpy()
+    gt = rmsd.ground_truth_poses(target.hc)
+    cpu_rmsd = rmsd.symmetry_rmsd(gt, c0["poses"].cpu().numpy(), mol.atomic_nums, mol.bonds)
+    n0 = history[0]["inference"]["n_kept"]
+    kept_rmsd = np.load(os.path.join(CB_DIR, "final_filtered_rmsds.npy"))[:n0]
+    conf_err, peak = float(np.abs(card_conf - cpu_conf).max()), float(np.abs(cpu_conf).max())
+    tol = MODEL_RTOL * max(1.0, peak)
+    # the poses the loop kept, found by their coordinates among the round's
+    host0 = c0["poses"].cpu().numpy()
+    items = rounds[0]["kept"]
+    kept_loop = np.array([sum(np.array_equal(it[0]["lig_pos"][: host0.shape[1]], pose) for it in items) == 1
+                          for pose in host0])
+    kept_cpu = cpu_conf > cutoff
+    near = np.abs(cpu_conf - cutoff) <= tol
+    rmsd_err = max(float(np.abs(kept_rmsd - cpu_rmsd[kept_loop]).max()) if n0 else 0.0,
+                   abs(history[0]["inference"]["mean_rmsd"] - float(cpu_rmsd.mean())))
+    print(f"round 0 on the CPU ({time.perf_counter() - t0:.1f} s): confidences max_abs_err {conf_err:.3g} (max |cpu| "
+          f"{peak:.3g}, tolerance {MODEL_RTOL} x max(1, max |cpu|)); symmetry RMSDs max_abs_err {rmsd_err:.3g} A "
+          f"(tolerance {RMSD_CPU_ATOL}); the loop kept {kept_loop.astype(int).tolist()}, the CPU keeps "
+          f"{kept_cpu.astype(int).tolist()}: compared on {int((~near).sum())} of {len(host0)} poses ({int(near.sum())} "
+          f"within the tolerance of the cutoff)", flush=True)
+    if not (len(items) == n0 == int(kept_loop.sum()) and np.array_equal(kept_loop, card_conf > cutoff)
+            and conf_err <= tol and rmsd_err <= RMSD_CPU_ATOL and np.array_equal(kept_loop[~near], kept_cpu[~near])):
+        fail("CB round 0: the card disagrees with the CPU")
+    del cpu_model
+
+    marks.append(("round 0 on the CPU", time.perf_counter()))
+    # 6. the workdir's weights and a train-state bundle back bit for bit
+    for name, params in (("last_model", None), ("ema_model", state.ema)):
+        loaded = checkpoints.load_params(os.path.join(CB_DIR, f"{name}.msgpack"), get_model(cfg, device=dev, seed=1))
+        want_p = params or {n: p.detach() for n, p in state.model.named_parameters()}
+        ok = (all(torch.equal(p, want_p[n]) for n, p in loaded.named_parameters())
+              and all(torch.equal(b, state.model.get_buffer(n)) for n, b in loaded.named_buffers()))
+        print(f"workdir {name}.msgpack ({os.path.getsize(os.path.join(CB_DIR, f'{name}.msgpack'))} bytes) back bit for "
+              f"bit: {ok}", flush=True)
+        if not ok:
+            fail(f"the CB workdir's {name}.msgpack did not load back bit for bit")
+    tcfg = finetune.finetune_config(cb)
+    t0 = time.perf_counter()
+    checkpoints.save_train_state(os.path.join(CB_DIR, "state"), state, epoch=CB_EPOCHS)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, epoch = checkpoints.load_train_state(os.path.join(CB_DIR, "state"),
+                                                 train_loop.init_train_state(get_model(cfg, device=dev, seed=1), tcfg))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = loaded is not None and epoch == CB_EPOCHS and same_snapshot(snapshot(state), snapshot(loaded))
+    print(f"train-state bundle: {os.path.getsize(os.path.join(CB_DIR, 'state', 'last_state.msgpack'))} bytes, save "
+          f"{t_save * 1e3:.1f} ms, load onto the card {t_load * 1e3:.1f} ms; parameters, buffers, EMA, Adam state, step "
+          f"{state.step} and lr_scale {state.lr_scale} bit for bit: {same}", flush=True)
+    if not same:
+        fail("the train-state bundle did not load back bit for bit")
+    # 7. the offline dataset: generated with the final EMA model, then read from its cache
+    ema_model = finetune.rollout_weights(get_model(cfg, device=dev, seed=1).requires_grad_(False), state, True)
+    args = dict(samples_per_target=CB_SAMPLES, inference_steps=STEPS, confidence_fn=cb_confidence_fn(conf_model),
+                confidence_cutoff=cutoff, cache_path=os.path.join(CB_DIR, "offline"), device=dev)
+    t0 = time.perf_counter()
+    made = offline_dataset.generate_bootstrapping_complexes(ema_model, [target],
+                                                            torch.Generator(device=dev).manual_seed(CB_SEED + 2), cfg,
+                                                            **args)
+    t_gen = time.perf_counter() - t0
+    again = offline_dataset.generate_bootstrapping_complexes(None, [target], None, cfg, **args)
+    equal = len(made) == len(again) and all(
+        n == m and c == d and p.keys() == q.keys() and all(np.array_equal(p[k], q[k]) for k in p)
+        for (p, n, c), (q, m, d) in zip(made, again))
+    print(f"offline bootstrapping dataset: {len(made)} of {CB_SAMPLES} poses kept in {t_gen:.3f} s, read back from "
+          f"its cache equal: {equal}", flush=True)
+    if not equal:
+        fail("the offline bootstrapping cache did not read back what was written")
+
+    # 6, continued: one more step from the loaded state and from the original (same noise)
+    step = train_loop.make_train_step(cfg, tcfg)
+    sb = replicate_complex(target.padded, 4, device=dev)
+    res = []
+    for s in (state, loaded):
+        m = step(s, sb, torch.Generator(device=dev).manual_seed(CB_SEED + 1))
+        res.append((m["loss"].detach(), {n: p.detach() for n, p in s.model.named_parameters()},
+                    dict(s.ema), dict(s.model.named_buffers())))
+    (l0, p0, e0, b0), (l1, p1, e1, b1) = res
+    checks = [("loss", l1, l0)] + [(f"param {n}", p1[n], p0[n]) for n in p0] + [(f"ema {n}", e1[n], e0[n]) for n in e0] \
+        + [(f"stat {n}", b1[n], b0[n]) for n in b0]
+    checks = [c for c in checks if c[2].numel()]  # irreps without scalars have empty batch-norm weights and statistics
+    worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
+    print(f"one more step from the loaded state against the original's: loss {l1.item():.6f} vs {l0.item():.6f}; worst "
+          f"error {worst[0]:.3g} of its tolerance ({MODEL_RTOL} x max(1, max |original|)) at {worst[1]}", flush=True)
+    if not worst[0] <= 1.0:
+        fail("a step from the loaded train state differs from the original's")
+
+    marks.append(("files, bundle, offline cache", time.perf_counter()))
+    # one more epoch of the loop under torch.profiler
+    one = dataclasses.replace(cb, n_epochs=1)
+    profile_run(lambda: finetune.inference_finetune(state.model, [target], cfg, one,
+                                                    torch.Generator(device=dev).manual_seed(CB_SEED + 3),
+                                                    cb_confidence_fn(conf_model), device=dev),
+                history[-1]["wall"] * 1e3, host_ops=False)
+    marks.append(("profiled epoch", time.perf_counter()))
+    print("phase 11 walls: " + ", ".join(f"{name} {t - t_prev:.1f} s" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+          + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -1824,6 +2312,8 @@ def main() -> None:
     wide_phase(dev)
     torch.cuda.synchronize()
     model_dir_phase(dev, model, b0, final_pos, rerank)
+    torch.cuda.synchronize()
+    cb_phase(dev, rerank[0], card)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)

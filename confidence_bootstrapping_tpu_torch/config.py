@@ -1,10 +1,10 @@
 """Typed configuration of the score and confidence models and the sampler.
 
 Port of ``confidence_bootstrapping_tpu/config.py`` (``ScoreModelConfig``
-with all of the JAX package's fields; the sampler's and the training
-step's fields that the port reads) and of
-``models/factory.py:confidence_model_config``, with the yaml round trip of a
-model directory's ``model_config.yml`` (``to_dict``, ``from_dict``,
+and ``CBConfig`` with all of the JAX package's fields; the sampler's and the
+training step's fields that the port reads) and of
+``models/factory.py:confidence_model_config``, with the yaml round trip
+of a model directory's ``model_config.yml`` (``to_dict``, ``from_dict``,
 ``save_yaml``, ``load_yaml``, ``load_score_config``). The yaml goes through
 the port's own reader and writer (``yaml_io``): the machine that runs the
 port need not have PyYAML. Field names and defaults equal the JAX package's,
@@ -158,7 +158,8 @@ class SamplerConfig:
 class TrainConfig:
     """Training-step knobs (the fields ``train/train_loop`` and
     ``train/diffusion`` read, and the batch a caller makes, as
-    ``chip_smoke.py``'s timed steps do), defaults as the JAX package's."""
+    ``chip_smoke.py``'s timed steps and the CB fine-tune do), defaults as the
+    JAX package's."""
 
     lr: float = 1e-3
     w_decay: float = 0.0
@@ -174,6 +175,45 @@ class TrainConfig:
     # CB time floor / mixing
     minimum_t: float = 0.0
     sampling_mixing_coeff: float = 0.0
+
+
+@dataclass(frozen=True)
+class CBConfig:
+    """Confidence-Bootstrapping loop knobs (``bootstrapping/finetune.py``):
+    every field and default of the JAX package's ``CBConfig``, the
+    reference's recipe (10 epochs, 8 samples, cutoff -4, fixed_length 100).
+    The loop reads every field but ``cb_cluster``, ``inference_batch_size``
+    and ``total_trainset_size``, which the JAX package's loop does not read
+    either (its command line sets them)."""
+
+    cb_cluster: str = ""
+    n_epochs: int = 10
+    cb_inference_freq: int = 5
+    inference_samples: int = 8
+    inference_steps: int = 20
+    inference_batch_size: int = 8
+    num_inference_complexes: Optional[int] = 100
+    confidence_cutoff: float = -4.0
+    oracle_confidence: bool = False  # -RMSD instead of the confidence model's score
+    initial_iterations: int = 5
+    inference_iterations: int = 4
+    limit_failures: int = 5
+    # buffer
+    max_complexes_per_couple: Optional[int] = 5
+    fixed_length: Optional[int] = 100
+    temperature: float = 1.0
+    buffer_decay: float = 0.0
+    reset_buffer: bool = False
+    # fine-tune time sampling
+    minimum_t: float = 0.0
+    sampling_mixing_coeff: float = 0.0
+    sampling_alpha: float = 2.0
+    sampling_beta: float = 1.0
+    keep_original_train: bool = False
+    total_trainset_size: int = 100
+    batch_size: int = 16
+    lr: float = 1e-3
+    use_ema_for_rollouts: bool = True
 
 
 def to_dict(cfg) -> dict:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import pickle
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -140,9 +140,31 @@ class HostComplex(NamedTuple):
     alt_orig_lig_pos: Optional[np.ndarray] = None
 
 
+@dataclass
 class Molecule:
-    """Plain stand-in for the JAX package's ``data.mol_io.Molecule`` so that a
-    featurization cache unpickles; its attributes are kept as they were."""
+    """Minimal in-memory molecule: atoms, 3D coordinates, bonds with orders
+    (bond order 4 is aromatic). The fields and properties of the JAX
+    package's ``data.mol_io.Molecule``, so that a featurization cache
+    unpickles into it and a test can build one; the symmetry RMSD reads
+    ``atomic_nums`` and ``bonds``."""
+
+    atomic_nums: np.ndarray  # [n] int
+    pos: np.ndarray  # [n, 3] float
+    bonds: List[Tuple[int, int, int]]  # (i, j, order)
+    charges: np.ndarray  # [n] int formal charges
+    name: str = ""
+
+    @property
+    def num_atoms(self):
+        return len(self.atomic_nums)
+
+    def heavy_indices(self):
+        return np.nonzero(self.atomic_nums != 1)[0]
+
+    def replace_pos(self, pos: np.ndarray) -> "Molecule":
+        """Same topology with new coordinates (conformer swap)."""
+        assert pos.shape == self.pos.shape, (pos.shape, self.pos.shape)
+        return Molecule(self.atomic_nums, np.asarray(pos, dtype=self.pos.dtype), self.bonds, self.charges, self.name)
 
 
 class _CacheUnpickler(pickle.Unpickler):

@@ -76,36 +76,60 @@ def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
     return model
 
 
-def flax_from_state_dict(model: nn.Module) -> dict:
+def flax_path(model: nn.Module, key: str) -> tuple:
+    """(Flax path, whether the value is transposed) of a parameter or
+    buffer name of ``model``: ``layers.i`` to ``Dense_i``, ``embeddings.i`` to
+    ``Embed_i``, ``norms.i`` to ``MaskedBatchNorm1d_i``, another ``name.i`` to
+    ``name_i``; a Linear's ``weight`` to ``kernel`` (transposed), an
+    Embedding's to ``embedding``. The path ends with the leaf's name."""
+    parts, path, mod = key.split("."), [], model
+    k = 0
+    while k < len(parts) - 1:
+        if k + 1 < len(parts) - 1 and parts[k + 1].isdigit():
+            path.append(f"{_UNRENAME.get(parts[k], parts[k])}_{parts[k + 1]}")
+            mod = getattr(mod, parts[k])[int(parts[k + 1])]
+            k += 2
+        else:
+            path.append(parts[k])
+            mod = getattr(mod, parts[k])
+            k += 1
+    leaf = parts[-1]
+    if leaf == "weight" and isinstance(mod, nn.Linear):
+        return tuple(path) + ("kernel",), True
+    if leaf == "weight" and isinstance(mod, nn.Embedding):
+        return tuple(path) + ("embedding",), False
+    return tuple(path) + (leaf,), False
+
+
+def flax_tree(model: nn.Module, values: dict) -> dict:
+    """A ``{name: tensor}`` dict over ``model``'s parameter or buffer names
+    (the parameters themselves, their EMA copy, Adam's moments) as one Flax
+    tree of float32 numpy arrays, keys in the module's order."""
+    out = {}
+    for key, value in values.items():
+        path, transpose = flax_path(model, key)
+        a = value.detach().to("cpu", torch.float32).numpy()
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(a.T if transpose else a, order="C")  # a copy: no memory shared with the module
+    return out
+
+
+def flax_from_state_dict(model: nn.Module, params: dict = None) -> dict:
     """``model``'s parameters and buffers as Flax variables: ``{"params":
     ..., "batch_stats": ...}`` of float32 numpy arrays in Flax's names and
-    nesting, the inverse of ``state_dict_from_flax`` (parameters to
-    ``params``, buffers to ``batch_stats``; ``layers.i`` to ``Dense_i``,
-    ``embeddings.i`` to ``Embed_i``, ``norms.i`` to ``MaskedBatchNorm1d_i``,
-    another ``name.i`` to ``name_i``; a Linear's ``weight`` to ``kernel``
-    [in, out], transposed back, an Embedding's to ``embedding``)."""
-    params = {k for k, _ in model.named_parameters()}
-    out = {"params": {}, "batch_stats": {}}
-    for key, value in model.state_dict().items():
-        parts, path, mod = key.split("."), [], model
-        k = 0
-        while k < len(parts) - 1:
-            if k + 1 < len(parts) - 1 and parts[k + 1].isdigit():
-                path.append(f"{_UNRENAME.get(parts[k], parts[k])}_{parts[k + 1]}")
-                mod = getattr(mod, parts[k])[int(parts[k + 1])]
-                k += 2
-            else:
-                path.append(parts[k])
-                mod = getattr(mod, parts[k])
-                k += 1
-        a = value.detach().to("cpu", torch.float32).numpy()
-        leaf = parts[-1]
-        if leaf == "weight" and isinstance(mod, nn.Linear):
-            leaf, a = "kernel", a.T
-        elif leaf == "weight" and isinstance(mod, nn.Embedding):
-            leaf = "embedding"
-        node = out["params" if key in params else "batch_stats"]
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = np.array(a, order="C")  # a copy: the tree does not share the module's memory
+    nesting (``flax_path``), the inverse of ``state_dict_from_flax``
+    (parameters to ``params``, buffers to ``batch_stats``). ``params``, a
+    ``{name: tensor}`` dict over every parameter (e.g. an EMA copy), stands
+    in for the module's own parameters."""
+    sd = model.state_dict()
+    names = [k for k, _ in model.named_parameters()]
+    buffers = {k: v for k, v in sd.items() if k not in set(names)}
+    if params is not None:
+        if set(params) != set(names):
+            raise ValueError("params must hold a value for every parameter of the model, and nothing else")
+        sd.update(params)
+    out = {"params": flax_tree(model, {k: sd[k] for k in names}),
+           "batch_stats": flax_tree(model, buffers)}
     return {c: tree for c, tree in out.items() if tree}

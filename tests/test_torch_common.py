@@ -116,3 +116,12 @@ def install_jax_tables(monkeypatch):
     table = torch.as_tensor(np.array(jtorus.SCORE_TABLE))
     monkeypatch.setattr(so3, "_grids", lambda device: (cdf.to(device), score.to(device)))
     monkeypatch.setattr(torus, "_score_table", lambda device: table.to(device))
+
+
+def assert_port_fields(d: dict, jd: dict, jdefaults: dict, every: bool) -> None:
+    """The port's config dict ``d`` equals the JAX one ``jd`` on the port's
+    fields, in the JAX order; the JAX fields the port lacks (none when
+    ``every``) are at their defaults, so the port drops no setting."""
+    assert list(d) == [k for k in jd if k in d] and d == {k: jd[k] for k in d}
+    rest = [k for k in jd if k not in d]
+    assert not (every and rest) and {k: jd[k] for k in rest} == {k: jdefaults[k] for k in rest}
