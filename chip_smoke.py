@@ -112,9 +112,31 @@ Phases (each one fails the script when it fails):
      written and read back; per round and epoch its walls and rates, then
      one more epoch under torch.profiler. Every line carries the card's name
      and power limit.
+ 12. confidence training (``confidence/``) at the pretrained confidence
+     architecture's full width (phase 6's model, dropout 0.1): a filtering
+     cache of 1a0q in its all-atom bucket rolled out by phase 5's score
+     model (4 samples x 20 steps, timed; back from its pickle bit for bit),
+     with near-crystal poses added as positives (random weights roll out no
+     pose within the cutoff); the CLI's batch (16, lr 3e-4, cutoff 2 A, the
+     2-4 A band left out, balanced); one warm-up and 5 timed
+     ``make_confidence_train_step`` calls (median ms, training poses/s, the
+     split into crop + forward, backward and optimiser + EMA by CUDA events,
+     every kernel's launches per step against the config); every kernel
+     call of one more step replayed through kernel and plain version (rec_g
+     with the dropout mask on its tensor-core build, and timed on its
+     float32 build too; the edge-list forward and the edge backward at
+     lmax=2, each backward call's build printed; both autograd ops against
+     plain autograd), one step under torch.profiler; one B=2 step card
+     against CPU (loss, every gradient, the batch statistics; the dropout
+     masks drawn on the card and moved); the eval step leaving the batch
+     statistics as they were; a short ``train_confidence`` (2 epochs x 8
+     batches, validation on 2 fixed batches) whose validation loss must
+     fall, its ROC-AUC printed. Every line carries the card's name and power
+     limit.
 Then one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
-6's, per training step for phase 7's; ``bound_ms`` the tensor-core bound,
+6's, per training step for phase 7's and per confidence training step for
+phase 12's rec_g with the mask; ``bound_ms`` the tensor-core bound,
 ``bound_fp32_ms`` the float32 one), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -139,7 +161,8 @@ PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accuracy
 # {library: its kernels that run H x W products on wgmma, by a part of their mangled names}
 TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel", "23tpconv_rec_dm_tc_kernel"), "tpconv_pb": ("16tpconv_pb_kernel",),
-              "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",), "tpconv_rec_g": ("19tpconv_rec_g_kernel",),
+              "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",),
+              "tpconv_rec_g": ("19tpconv_rec_g_kernel", "25tpconv_rec_g_dm_tc_kernel"),
               "tpconv_cross": ("22tpconv_cross_tc_kernel",), "tpconv_cross_g": ("24tpconv_cross_g_tc_kernel",),
               "tpconv_edge": tuple(f"21tpconv_edge_tc_kernelILi{shd}ELb{dm}E" for shd in (4, 9, 20) for dm in (0, 1)),
               "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
@@ -760,6 +783,7 @@ RELU_GUARD = 1e-5  # a hidden pre-activation within this of zero, relative to su
 TRAIN_KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "tpconv_edge": ("csrc/tpconv_edge.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:303"),
     "tpconv_rec_dm": ("csrc/tpconv_rec.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
+    "tpconv_rec_g_dm": ("csrc/tpconv_rec_g.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
     "tpconv_bwd": ("csrc/tpconv_bwd.cu", "confidence_bootstrapping_tpu/ops/pallas/tpconv_bwd.py:151"),
 }
 TRAIN_OPS = {  # the autograd ops over them
@@ -850,13 +874,14 @@ def record_train_calls(run) -> dict:
     """Run ``run()`` with the training kernels' wrappers, as the autograd
     ops call them, wrapped to keep every call's inputs in the plain
     versions' positional order; and the autograd ops, as the conv layers
-    call them."""
+    call them. rec with the mask is ``tpconv_rec_dm`` at lmax=1 and
+    ``tpconv_rec_g_dm`` at lmax=2."""
     from confidence_bootstrapping_tpu_torch.models import layers
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_train as tt
 
     calls = {name: [] for name in list(TRAIN_KERNELS) + list(TRAIN_OPS) + ["bwd_kind"]}
-    orig = {"edge": tt.fused_tpconv_edge, "rec": tt.fused_tpconv_rec, "bwd": tt.edge_bwd,
-            "op": layers.fused_tpconv_train, "rec_op": layers.fused_tpconv_rec_train,
+    orig = {"edge": tt.fused_tpconv_edge, "rec": tt.fused_tpconv_rec, "rec_g": tt.fused_tpconv_rec_g,
+            "bwd": tt.edge_bwd, "op": layers.fused_tpconv_train, "rec_op": layers.fused_tpconv_rec_train,
             "rec_bwd": tt._RecTrain.backward}
 
     def edge(*a, dmask=None, sum_k=True, packed=None):
@@ -866,6 +891,10 @@ def record_train_calls(run) -> dict:
     def rec(*a, packed=None, dmask=None):
         calls["tpconv_rec_dm"].append((a + (dmask,), {}))
         return orig["rec"](*a, packed=packed, dmask=dmask)
+
+    def rec_g(*a, packed=None, dmask=None):
+        calls["tpconv_rec_g_dm"].append((a + (dmask,), {}))
+        return orig["rec_g"](*a, packed=packed, dmask=dmask)
 
     kind = []  # set while the receptor op's backward runs: its edge backward is a receptor group's
 
@@ -890,12 +919,13 @@ def record_train_calls(run) -> dict:
         return orig["rec_op"](*a, **kw)
 
     try:
-        tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = edge, rec, bwd
+        tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.fused_tpconv_rec_g, tt.edge_bwd = edge, rec, rec_g, bwd
         layers.fused_tpconv_train, layers.fused_tpconv_rec_train = op, rec_op
         tt._RecTrain.backward = staticmethod(rec_backward)
         run()
     finally:
         tt.fused_tpconv_edge, tt.fused_tpconv_rec, tt.edge_bwd = orig["edge"], orig["rec"], orig["bwd"]
+        tt.fused_tpconv_rec_g = orig["rec_g"]
         layers.fused_tpconv_train, layers.fused_tpconv_rec_train = orig["op"], orig["rec_op"]
         tt._RecTrain.backward = staticmethod(orig["rec_bwd"])
     return calls
@@ -909,8 +939,13 @@ def replay_train_ops(calls: dict, timed: bool = True) -> list:
     the call's forward and backward bounds."""
     import torch
 
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_rec, tpconv_train as tt
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_g, tpconv_rec, tpconv_train as tt
     from confidence_bootstrapping_tpu_torch.ops.graph_builders import gather_nodes
+
+    def rec_plain(a, dmask):  # the receptor op's plain version at its harmonics
+        if a[11] == SH2:
+            return tpconv_g.tpconv_rec_g_plain(*a[:14], dmask)
+        return tpconv_rec.tpconv_rec_plain(*a[:10], a[10], a[12], a[13], dmask)
 
     rows = []
     for name, replaces in TRAIN_OPS.items():
@@ -937,11 +972,11 @@ def replay_train_ops(calls: dict, timed: bool = True) -> list:
                 args[5] = mask0 & ~near
                 grad_at = [0, 1, 3, 4, 6, 7, 8, 9]  # node_attr, pos, edge_emb, sig, w1, b1, w2, b2
                 kernel = lambda a: tt.fused_tpconv_rec_train(*a, dmask=kw.get("dmask"))
-                plain = lambda a: tpconv_rec.tpconv_rec_plain(*a[:10], a[10], a[12], a[13], kw.get("dmask"))
+                plain = lambda a: rec_plain(a, kw.get("dmask"))
                 mask, H = args[5], args[8].shape[0]
                 ir = (args[10], args[11], args[12])
                 F = args[3].shape[-1] + 2 * args[13]
-                fwd_flops, fwd_mm, _ = rec_work(tuple(args[:10]) + (args[10], args[12], args[13]))
+                fwd_flops, fwd_mm, _ = rec_work(tuple(args[:14]))
                 bwd_flops = int(mask.sum()) * bwd_flops_per_edge(ir[0], ir[2], F, H, ir[1])
                 mm = fwd_mm + int(mask.sum()) * bwd_mm_flops_per_edge(ir[0], ir[2], F, H, ir[1])
             leaves = [args[i].detach().clone().requires_grad_(True) for i in grad_at]
@@ -985,22 +1020,26 @@ def replay_train_ops(calls: dict, timed: bool = True) -> list:
 def edge_builds(calls: dict) -> dict:
     """{kernel: {build: calls}}: the build (``tensor cores``, or ``float32 at``
     64 or 32 edges a chunk) that each recorded call of the edge-list kernel
-    (rows 5-7), of rec with the dropout mask and of the cross kernels (rows 4
-    and 9) ran, as its wrapper picks it (``tpconv_edge.edge_build``,
-    ``tpconv_rec.rec_build``, ``tpconv_g.cross_build``)."""
+    (rows 5-7), of rec and rec_g with the dropout mask and of the cross
+    kernels (rows 4 and 9) ran, as its wrapper picks it
+    (``tpconv_edge.edge_build``, ``tpconv_rec.rec_build``,
+    ``tpconv_g.rec_g_build``, ``tpconv_g.cross_build``)."""
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_g, tpconv_rec
 
     def name(tc_cm):
         return "tensor cores" if tc_cm[0] else f"float32 at {tc_cm[1]}"
 
     out = {}
-    for kernel in ("tpconv_edge", "tpconv_nbr", "tpconv_msgs", "tpconv_rec_dm", "tpconv_cross", "tpconv_cross_g"):
+    for kernel in ("tpconv_edge", "tpconv_nbr", "tpconv_msgs", "tpconv_rec_dm", "tpconv_rec_g_dm", "tpconv_cross",
+                   "tpconv_cross_g"):
         for a, _ in calls.get(kernel, ()):
             if kernel in ("tpconv_cross", "tpconv_cross_g"):  # row 4 names no harmonics: lmax=1
                 ir_in, sh, ir_out, ns = (a[11], SH1, a[12], a[13]) if kernel == "tpconv_cross" else a[11:15]
                 b = tpconv_g.cross_build(kernel, ir_in, ir_out, sh, a[5].shape[-1], ns, a[9].shape[0], a[4].shape[2])
             elif kernel == "tpconv_rec_dm":
                 b = tpconv_rec.rec_build(a[10], a[11], a[3].shape[-1], a[12], a[8].shape[0], True)
+            elif kernel == "tpconv_rec_g_dm":
+                b = tpconv_g.rec_g_build(a[10], a[11], a[12], a[3].shape[-1], a[13], a[8].shape[0], True)
             else:  # the training calls name their harmonics; rows 5 and 6 take lmax=1
                 sh, ir_out = (a[9], a[10]) if kernel == "tpconv_edge" else (SH1, a[9])
                 b = tpconv_edge.edge_build(a[8], sh, ir_out, a[0].shape[-1], a[6].shape[0], a[0].shape[1])
@@ -1027,7 +1066,7 @@ def replay_train_kernels(calls: dict, timed: bool = True) -> list:
     no stage profile of the edge backward)."""
     import torch
 
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_rec
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_edge, tpconv_g, tpconv_rec
 
     guarded = 0
     for i, (a, kw) in enumerate(calls["tpconv_bwd"]):
@@ -1046,12 +1085,15 @@ def replay_train_kernels(calls: dict, timed: bool = True) -> list:
                         tpconv_edge.tpconv_edge_plain, edge_work, TRAIN_KERNELS["tpconv_edge"][1]),
         "tpconv_rec_dm": (lambda *a: tpconv_rec.fused_tpconv_rec(*a[:13], dmask=a[13]), tpconv_rec.tpconv_rec_plain,
                           lambda a: rec_work(a[:13]), TRAIN_KERNELS["tpconv_rec_dm"][1]),
+        "tpconv_rec_g_dm": (lambda *a: tpconv_g.fused_tpconv_rec_g(*a[:14], dmask=a[14]), tpconv_g.tpconv_rec_g_plain,
+                            lambda a: rec_work(a[:14]), TRAIN_KERNELS["tpconv_rec_g_dm"][1]),
         "tpconv_bwd": (tpconv_bwd.edge_bwd, tpconv_bwd.edge_bwd_plain, bwd_kind_work,
                        TRAIN_KERNELS["tpconv_bwd"][1]),
     }
+    kernels = {name: k for name, k in kernels.items() if calls[name]}  # rec with the mask at one lmax a model
     with torch.no_grad():
         rows = replay(calls, kernels, rtols={"tpconv_bwd": (KERNEL_RTOL,) * 3 + (SUM_RTOL,) * 4},
-                      bitwise=("tpconv_bwd", "tpconv_edge", "tpconv_rec_dm"), timed=timed)
+                      bitwise=("tpconv_bwd", "tpconv_edge", "tpconv_rec_dm", "tpconv_rec_g_dm"), timed=timed)
         for r in rows:
             r["source"] = "confidence_bootstrapping_tpu_torch/" + TRAIN_KERNELS[r["name"]][0]
             if r["name"] == "tpconv_bwd" and timed:
@@ -2231,6 +2273,335 @@ def cb_run(dev, conf_model) -> None:
           + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------- phase 12: confidence training
+
+
+CONF_B, CONF_LR, CONF_SAMPLES = 16, 3e-4, 4  # cli/confidence_train.py's defaults: batch, lr, samples a complex
+CONF_CUTOFF, CONF_UPPER = 2.0, 4.0  # its RMSD cutoff, and the upper edge of the band left out of training
+CONF_NEAR = 8  # near-crystal poses added to the cache (random weights roll out no pose within the cutoff)
+CONF_STEPS, CONF_EPOCHS, CONF_BATCHES, CONF_VAL = 5, 2, 8, 2  # timed steps; the short train_confidence
+CONF_CPU_B = 2  # the card-against-CPU step's batch
+CONF_SEED = 31
+CONF_DIR = os.path.join(ROOT, "build", "confidence")  # the filtering cache; removed
+
+
+def expected_conf_train_launches(model) -> dict:
+    """Kernel launches of one confidence training step of the all-atom
+    model (the JAX package's training routing): per receptor-embedding layer
+    the residue and atom kNN groups on rec_g with the dropout mask and the
+    two membership groups on the edge-list kernel; per ligand-embedding
+    layer its pairs and bonds; per trunk layer the pairs, the bonds and the
+    ligand <- residue and ligand <- atom lists on the edge-list kernel, and
+    per trunk layer but the last the two kNN groups on rec_g with the mask
+    and the four groups that scatter to residues and atoms on the edge-list
+    kernel; one edge backward per op. No inference kernel runs."""
+    P_rec, P_lig, C = len(model.rec_emb_layers), len(model.lig_emb_layers), len(model.conv_layers)
+    edge = 2 * P_rec + 2 * P_lig + 4 * C + 4 * (C - 1)
+    rec = 2 * P_rec + 2 * (C - 1)
+    want = {name: 0 for name in all_counters()}
+    want.update(tpconv_edge=edge, tpconv_rec_g_dm=rec, tpconv_bwd=edge + rec)
+    return want
+
+
+def bwd_builds(calls: dict) -> dict:
+    """{call kind: {build: calls}}: the build of the edge backward each
+    recorded call ran (``tpconv_bwd.bwd_on_tensor_cores``: ``tensor cores``
+    or ``float32``), with its layer."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import sh_dim, tp_layout
+
+    out = {}
+    for (a, _), kind in zip(calls["tpconv_bwd"], calls["bwd_kind"]):
+        ir_in, ir_sh, ir_out = a[9:12]
+        lay = tp_layout(ir_in, ir_out, ir_sh)
+        tc = tpconv_bwd.bwd_on_tensor_cores(a[0].shape[1], a[7].shape[0], lay.din, sh_dim(ir_sh), lay.dout, lay.n_x,
+                                            len(lay.cg), len(tpconv_bwd.bwd_layout(ir_in, ir_out, ir_sh).vtab))
+        key = f"{'tensor cores' if tc else 'float32'} ({lay.din} -> {lay.dout})"
+        out.setdefault(kind, {}).setdefault(key, 0)
+        out[kind][key] += 1
+    return out
+
+
+def float32_rec_g_dm(rec_calls: list) -> dict:
+    """rec_g's training variant on its float32 build (``tpconv_rec_g_dm_kernel``,
+    the build every lmax=2 call with the mask took before the tensor-core
+    one) over the recorded calls: each against the plain version, timed as
+    ``replay`` times it. -> {"ms": mean ms a call, "max_abs_err"}."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_common import TM
+
+    pick = tpconv_g.rec_g_build
+    tpconv_g.rec_g_build = lambda *a: (False, TM)
+    ms, errs = [], []
+    try:
+        with torch.no_grad():
+            for a, _ in rec_calls:
+                run = lambda: tpconv_g.fused_tpconv_rec_g(*a[:14], dmask=a[14])
+                got, want = run(), tpconv_g.tpconv_rec_g_plain(*a)
+                torch.cuda.synchronize()
+                errs.append((got - want).abs().max().item())
+                if errs[-1] > KERNEL_RTOL * max(1.0, want.abs().max().item()):
+                    fail("rec_g's float32 build with the mask disagrees with its plain version")
+                ms.append(cuda_time(run, reps=5, warmup=1))
+    finally:
+        tpconv_g.rec_g_build = pick
+    out = {"ms": float(np.mean(ms)), "max_abs_err": max(errs)}
+    print(f"kernel tpconv_rec_g_dm on its float32 build (tpconv_rec_g_dm_kernel), the same {len(ms)} calls: "
+          f"max_abs_err {out['max_abs_err']:.3g} ok; mean {out['ms']:.4f} ms", flush=True)
+    return out
+
+
+class FixedDraws:
+    """A dataset that serves the same batches every time round: ``n``
+    batches drawn once from ``dataset`` (the validation set of the short
+    training run, so that every epoch is held to the same poses)."""
+
+    def __init__(self, dataset, cache, n: int, batch_size: int):
+        self.draws = [dataset.sample_batch(cache, batch_size) for _ in range(n)]
+        self.i = 0
+
+    def sample_batch(self, cache, batch_size: int):
+        out = self.draws[self.i % len(self.draws)]
+        self.i += 1
+        return out
+
+
+def conf_step_card_vs_cpu(dev, cfg, batch, labels) -> None:
+    """One confidence training step's loss, every gradient and the batch
+    statistics after it, the card against the CPU: the same seeded weights,
+    the same batch, and the dropout masks drawn once on the card and moved
+    to the CPU (``layers.dropout_mask`` recorded, then replayed)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.confidence import train as ctrain
+    from confidence_bootstrapping_tpu_torch.models import layers
+    from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel
+
+    draw = layers.dropout_mask
+    masks, res = [], []
+
+    def recorded(*a):
+        m = draw(*a)
+        masks.append(m.cpu())
+        return m
+
+    replay_masks = iter(masks)
+    for device, mask_fn in ((dev, recorded), (torch.device("cpu"), lambda shape, p, gen, d: next(replay_masks))):
+        model = AllAtomScoreModel(cfg, device=device, seed=0)
+        model.requires_grad_(True)
+        b = batch.map(lambda t: t.to(device))
+        layers.dropout_mask = mask_fn
+        try:
+            labels_d = ctrain._label_tensors(labels, device)
+            bc = ctrain._maybe_compact(model, b)
+            out = model(bc, deterministic=False, use_running_average=False,
+                        generator=torch.Generator(device=device).manual_seed(CONF_SEED))
+            loss = ctrain._losses(out, labels_d, bc.lig_mask, False, 1.0, 0.0, True)[0]
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()], allow_unused=True)
+        finally:
+            layers.dropout_mask = draw
+        res.append((loss.detach().cpu(), {n: (torch.zeros(()) if g is None else g.cpu()) for n, g in zip(names, grads)},
+                    {n: b_.cpu() for n, b_ in model.named_buffers()}))
+    (lg, gg, bg), (lc, gc, bc_) = res
+    checks = [("loss", lg, lc)] + [(f"grad {n}", gg[n], gc[n]) for n in gc] + [(f"stat {n}", bg[n], bc_[n])
+                                                                               for n in bc_]
+    checks = [c for c in checks if c[2].numel()]
+    worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
+    print(f"confidence training step card vs CPU (B={batch.batch_size}, dropout {cfg.dropout}, {len(masks)} masks "
+          f"drawn on the card): loss {lg.item():.6f} vs {lc.item():.6f}; {len(gc)} gradients and {len(bc_)} batch "
+          f"statistics; worst error {worst[0]:.3g} of its tolerance ({MODEL_RTOL} x max(1, max |cpu|)) at {worst[1]}",
+          flush=True)
+    if not (worst[0] <= 1.0 and torch.isfinite(lg)):
+        fail("confidence training step: the card disagrees with the CPU")
+
+
+def conf_train_phase(dev, score_model, card: str) -> tuple:
+    """Phase 12: confidence training (``confidence/``) at the pretrained
+    confidence architecture's full width, phase 6's model with dropout 0.1:
+    a filtering cache of 1a0q (its all-atom bucket) rolled out by phase 5's
+    score model (4 samples x 20 steps, timed, back from its pickle bit for
+    bit) with near-crystal poses added as positives; the CLI's batch (16,
+    lr 3e-4, cutoff 2 A, the 2-4 A band left out, balanced); one warm-up and
+    5 timed ``make_confidence_train_step`` calls (median, training poses/s,
+    the split into crop + forward, backward and optimiser + EMA by CUDA
+    events, the launches of every kernel per step against the config);
+    every kernel call of one more step replayed through kernel and plain
+    version (rec_g with the mask on its tensor-core build, the edge-list
+    forward, the edge backward at lmax=2, and both autograd ops against
+    plain autograd), one step under torch.profiler; one step card against
+    CPU; the eval step leaving the batch statistics as they were; a short
+    ``train_confidence`` whose validation loss must fall, its ROC-AUC
+    printed. Every line printed carries ``card``. Returns (the replay's
+    JSON rows, launches per step by kernel)."""
+    import contextlib
+    import shutil
+
+    with contextlib.redirect_stdout(Tagged(sys.stdout, card)):
+        shutil.rmtree(CONF_DIR, ignore_errors=True)
+        try:
+            return conf_train_run(dev, score_model)
+        finally:
+            shutil.rmtree(CONF_DIR, ignore_errors=True)
+
+
+def conf_train_run(dev, score_model) -> tuple:
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.bootstrapping.finetune import CBTarget
+    from confidence_bootstrapping_tpu_torch.config import TrainConfig, confidence_model_config
+    from confidence_bootstrapping_tpu_torch.confidence import dataset, train as ctrain
+    from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    marks = [("start", time.perf_counter())]
+    cfg = confidence_model_config(lm_embedding_dim=LM_DIM, dropout=0.1)
+    tcfg = TrainConfig(batch_size=CONF_B, lr=CONF_LR)
+    _, hc, mol = host_complex(LM_DIM, all_atoms=True)
+    target = CBTarget(hc, mol, lm_dim=LM_DIM)
+    L = len(hc.lig_f)
+
+    # the filtering cache: phase 5's score model rolls out 1a0q, then the pickle is read back
+    kw = dict(samples_per_complex=CONF_SAMPLES, inference_steps=STEPS, cache_path=CONF_DIR, cache_id="chip_smoke",
+              device=dev)
+    t0 = time.perf_counter()
+    rollouts = dataset.generate_filtering_cache(score_model, [target], torch.Generator(device=dev).manual_seed(CONF_SEED),
+                                                score_model.cfg, **kw)
+    secs = time.perf_counter() - t0
+    back = dataset.generate_filtering_cache(None, [target], None, None, **kw)
+    same = back.keys() == rollouts.keys() and all(np.array_equal(back[k][i], rollouts[k][i]) and
+                                                   back[k][i].dtype == rollouts[k][i].dtype
+                                                   for k in rollouts for i in (0, 1))
+    pos, rmsds = rollouts[target.name]
+    print(f"phase 12 filtering cache: {CONF_SAMPLES} samples x {STEPS} steps of phase 5's score model on 1a0q "
+          f"(N={target.bucket.N}, A={target.bucket.A}) in {secs:.3f} s; RMSDs {np.round(rmsds, 2).tolist()} A; "
+          f"back from its pickle bit for bit: {same}", flush=True)
+    if not (same and pos.shape == (CONF_SAMPLES, L, 3) and np.isfinite(pos).all()):
+        fail("the filtering cache is not finite, or does not come back from its pickle bit for bit")
+    crystal = dict(target.padded, lig_pos=target.padded["lig_pos"].copy())
+    crystal["lig_pos"][:L] = hc.orig_lig_pos
+    near = near_crystal_poses(crystal, CONF_NEAR).numpy()[:, :L]
+    near_rmsd = np.sqrt(((near - hc.orig_lig_pos[None]) ** 2).sum(-1).mean(-1)).astype(np.float32)
+    cache = dataset.combine_caches([rollouts, {target.name: (near, near_rmsd)}])
+    ds = dataset.FilteringDataset([target], cache, CONF_CUTOFF, CONF_UPPER, balance=True, seed=0, device=dev)
+    st = ds.statistics()
+    print(f"filtering dataset: the rollouts and {CONF_NEAR} near-crystal poses (RMSDs {np.round(near_rmsd, 2).tolist()} "
+          f"A); cutoff {CONF_CUTOFF} A, {CONF_CUTOFF}-{CONF_UPPER} A left out, balanced: {st}", flush=True)
+    if not (st["positives"] and st["negatives"]):
+        fail("the filtering dataset lacks a class")
+    marks.append(("cache", time.perf_counter()))
+
+    # timed steps at the CLI's batch
+    model = AllAtomScoreModel(cfg, device=dev, seed=0)
+    state = train_loop.init_train_state(model, tcfg)
+    step = ctrain.make_confidence_train_step(model, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(CONF_SEED + 1)
+    batches = [ds.sample_batch(cache, CONF_B) for _ in range(CONF_STEPS + 3)]
+    print(f"confidence training: the pretrained confidence architecture (ns={cfg.ns}, nv={cfg.nv}, lmax={cfg.sh_lmax}, "
+          f"{cfg.num_conv_layers} trunk layers, lm_dim {LM_DIM}, dropout {cfg.dropout}, crop {cfg.crop_beyond} A into "
+          f"N={cfg.crop_res_cap} A={cfg.crop_atom_cap}), B={CONF_B}, lr {CONF_LR}, Adam, EMA {tcfg.ema_rate}; labels "
+          f"of the steps' batches {[int(b[1]['y'].sum()) for b in batches]} positives of {CONF_B}", flush=True)
+    t0 = time.perf_counter()
+    step(state, *batches[0], gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"confidence training warm-up step: {time.perf_counter() - t0:.3f} s", flush=True)
+    counters = all_counters()
+    walls, parts, loss_vals, launches = [], [], [], []
+    for batch, labels in batches[1: CONF_STEPS + 1]:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, batch, labels, gen, mark)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts.append((start.elapsed_time(events["forward"]), events["forward"].elapsed_time(events["backward"]),
+                      events["backward"].elapsed_time(events["update"])))
+        loss_vals.append(metrics["loss"].item())
+        launches.append(read_counters())
+    med = float(np.median(walls))
+    fwd, bwd, upd = (float(np.median([p[i] for p in parts])) for i in range(3))
+    print(f"confidence training step: median {med:.2f} ms over {CONF_STEPS} steps "
+          f"({', '.join(f'{w:.1f}' for w in walls)}), {CONF_B / med * 1e3:.3f} training poses/s; CUDA events: crop + "
+          f"forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimiser + EMA {upd:.2f} ms; losses "
+          f"{', '.join(f'{v:.4f}' for v in loss_vals)}", flush=True)
+    want = expected_conf_train_launches(model)
+    print(f"launches per confidence training step: {({k: v for k, v in launches[-1].items() if v})}; expected from the "
+          f"config: {({k: v for k, v in want.items() if v})}, every other kernel 0", flush=True)
+    if any(n != want for n in launches):
+        fail("a confidence training step did not run every TP-conv through its kernels")
+    if not all(np.isfinite(loss_vals)):
+        fail("confidence training: a loss is not finite")
+    marks.append(("steps", time.perf_counter()))
+
+    # one step's kernel calls, replayed through kernel and plain version
+    calls = record_train_calls(lambda: step(state, *batches[-2], gen))
+    torch.cuda.synchronize()
+    check_tc_builds(calls, "confidence training step")
+    print(f"confidence training step: edge backward builds {bwd_builds(calls)}", flush=True)
+    rows = replay_train_kernels(calls)
+    rows += replay_train_ops(calls)
+    f32 = float32_rec_g_dm(calls["tpconv_rec_g_dm"])
+    for r in rows:
+        if r["name"] == "tpconv_rec_g_dm":
+            r["float32_build_ms"] = f32["ms"]
+    per_step = dict(launches[-1], **{op: len(calls[op]) for op in TRAIN_OPS})
+    del calls
+    torch.cuda.empty_cache()
+    marks.append(("replay", time.perf_counter()))
+    profile_run(lambda: step(state, *batches[-1], gen), med)
+    marks.append(("profile", time.perf_counter()))
+
+    # the card against the CPU, and the eval step
+    b2, l2 = ds.sample_batch(cache, CONF_CPU_B)
+    conf_step_card_vs_cpu(dev, cfg, b2, l2)
+    marks.append(("card vs CPU", time.perf_counter()))
+    stats = train_loop.batch_stats(model)
+    loss, conf, _ = ctrain.make_confidence_eval_step(model)(state, *batches[0])
+    torch.cuda.synchronize()
+    kept = all(torch.equal(b, stats[n]) for n, b in model.named_buffers())
+    print(f"eval step: loss {loss.item():.4f}, confidences {conf.min().item():.4f} to {conf.max().item():.4f}; batch "
+          f"statistics as they were: {kept}", flush=True)
+    if not (kept and torch.isfinite(loss)):
+        fail("the confidence eval step changed the batch statistics, or its loss is not finite")
+
+    # a short training run: the validation loss must fall
+    fresh = AllAtomScoreModel(cfg, device=dev, seed=0)
+    val = FixedDraws(dataset.FilteringDataset([target], cache, CONF_CUTOFF, CONF_UPPER, balance=True, seed=CONF_SEED,
+                                              device=dev), cache, CONF_VAL, CONF_B)
+    evaluate = ctrain.make_confidence_eval_step(fresh)
+    before = float(np.mean([evaluate(train_loop.TrainState(fresh, None, {}), b, l)[0].item() for b, l in val.draws]))
+    t0 = time.perf_counter()
+    _, history = ctrain.train_confidence(fresh, ds, cache, tcfg, CONF_EPOCHS, CONF_BATCHES,
+                                         torch.Generator(device=dev).manual_seed(CONF_SEED + 2), val_dataset=val,
+                                         val_cache=cache, log=lambda line: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = [h["val"]["loss"] for h in history]
+    print(f"train_confidence: {CONF_EPOCHS} epochs x {CONF_BATCHES} batches in {secs:.2f} s; validation "
+          f"({CONF_VAL} fixed batches) loss {before:.4f} before, then {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"accuracy {[round(h['val']['accuracy'], 4) for h in history]}; ROC-AUC (a measurement) "
+          f"{[round(h['val']['roc_auc'], 4) for h in history]}; train loss "
+          f"{[round(h['train']['loss'], 4) for h in history]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < before):
+        fail("train_confidence: the validation loss did not fall")
+    marks.append(("train_confidence", time.perf_counter()))
+    print("phase 12 walls: " + ", ".join(f"{name} {t - t_prev:.1f} s" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+          + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
+    for r in rows:  # launches per confidence training step
+        print(f"phase 12 row: {json.dumps(dict(r, launches=per_step[r['name']]))}", flush=True)
+    return [r for r in rows if r["name"] == "tpconv_rec_g_dm"], {"tpconv_rec_g_dm": per_step["tpconv_rec_g_dm"]}
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -2315,12 +2686,15 @@ def main() -> None:
     torch.cuda.synchronize()
     cb_phase(dev, rerank[0], card)
     torch.cuda.synchronize()
+    conf_train_rows, conf_train_launches = conf_train_phase(dev, model, card)
+    torch.cuda.synchronize()
 
     launches.update(conf_launches)
     launches.update(train_launches)
+    launches.update(conf_train_launches)
     launches.update(tpconv_cross=eval_launches["tpconv_cross"], tpconv_msgs=eval_launches["tpconv_msgs"],
                     tpconv_nbr=pairs_launches["tpconv_nbr"])
-    rows += conf_rows + train_rows + eval_rows
+    rows += conf_rows + train_rows + conf_train_rows + eval_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

@@ -12,11 +12,18 @@ coarse-grained graph gains an ``atom`` node type, every receptor heavy atom:
   groups that update the ligand;
 * confidence head on the masked mean of the ligand's scalars.
 
-At lmax=2 the kNN groups (rec, atom) go through ``TPConv.conv_rec`` (the
-``rec_g`` kernel) and the ligand's cross groups (lig <- rec, lig <- atom)
-through ``TPConv.conv_cross`` (``cross_g``); every other group is plain
-PyTorch (``TPConv.messages``), as the JAX package leaves it to XLA. Score mode
-of this model is not ported.
+At inference with lmax=2 the kNN groups (rec, atom) go through
+``TPConv.conv_rec`` (the ``rec_g`` kernel) and the ligand's cross groups
+(lig <- rec, lig <- atom) through ``TPConv.conv_cross`` (``cross_g``); every
+other group is plain PyTorch (``TPConv.messages``), as the JAX package leaves
+it to XLA. In training (``deterministic=False``) the JAX package's training
+routing: the kNN groups through ``fused_tpconv_rec_train`` (rec_g with the
+hidden-layer dropout mask), every other group through ``fused_tpconv_train``
+(the edge-list kernel), with dropout (``dropout`` in the edge embeddings and
+the edge MLPs, ``confidence_dropout`` in the heads) drawn from the caller's
+generator; ``use_running_average=False`` normalizes with the batch's
+statistics (the atom head's over the real ligand atoms) and moves the running
+ones. Score mode of this model is not ported.
 
 ``compact_crop`` reproduces the reference's subgraph crop per pose with fixed
 shapes: residues farther than the crop distance from every ligand atom go
@@ -39,7 +46,7 @@ from ..ops.irreps import spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding
 from ..runtime import resolve_device
 from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv
-from .score_model import ConfidenceHead, get_irrep_seq, init_weights
+from .score_model import ConfidenceOutput, add_confidence_heads, confidence_heads, get_irrep_seq, init_weights
 
 
 class AtomRecCache(NamedTuple):
@@ -51,11 +58,6 @@ class AtomRecCache(NamedTuple):
     atom_edge_emb: torch.Tensor  # [B, A, KA, ns]
     ar_edge_emb: torch.Tensor  # [B, A, ns] (atom -> its residue)
     ar_edge_sh: torch.Tensor  # [B, A, sh]
-
-
-class ConfidenceOutput(NamedTuple):
-    confidence: torch.Tensor  # [B] (or [B, num_confidence_outputs])
-    atom_confidence: Optional[torch.Tensor] = None  # [B, L, atom_num_confidence_outputs]
 
 
 def _take(a, idx):
@@ -125,6 +127,18 @@ def compact_crop(batch: ComplexBatch, crop_dist: float, n_res: int, n_atoms: int
     return batch.replace(**rep), stats
 
 
+def crop_to_caps(cfg: ScoreModelConfig, batch: ComplexBatch):
+    """(batch, cropped): with an all-atom config that crops, a batch whose
+    receptor bucket is larger than ``crop_res_cap`` cropped and compacted
+    into the config's (crop_res_cap, crop_atom_cap) buckets
+    (``compact_crop``), as the reference crops before every confidence
+    forward; otherwise the batch as it is."""
+    if (cfg.all_atoms and cfg.crop_beyond is not None and cfg.crop_res_cap > 0 and cfg.crop_atom_cap > 0
+            and batch.atom_f is not None and batch.rec_pos.shape[1] > cfg.crop_res_cap):
+        return compact_crop(batch, float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)[0], True
+    return batch, False
+
+
 class AllAtomScoreModel(nn.Module):
     """The all-atom model in confidence mode; built on ``device`` (default:
     the GPU) with weights drawn from ``seed``. Load trained weights with
@@ -140,16 +154,17 @@ class AllAtomScoreModel(nn.Module):
         sig = c.sigma_embed_dim
         self.timestep_emb = get_timestep_embedding(c.embedding_type, sig, c.embedding_scale)
 
+        p = c.dropout
         self.lig_node_embedding = AtomEncoder(ns, LIG_FEATURE_DIMS, n_scalar=sig)
-        self.lig_edge_embedding = FCBlock(c.in_lig_edge_features + sig + c.distance_embed_dim, ns, ns)
+        self.lig_edge_embedding = FCBlock(c.in_lig_edge_features + sig + c.distance_embed_dim, ns, ns, dropout=p)
         self.rec_node_embedding = AtomEncoder(ns, REC_RESIDUE_FEATURE_DIMS, n_scalar=c.lm_embedding_dim)
-        self.rec_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns)
-        self.rec_sigma_embedding = FCBlock(sig, ns, ns)
+        self.rec_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
+        self.rec_sigma_embedding = FCBlock(sig, ns, ns, dropout=p)
         self.atom_node_embedding = AtomEncoder(ns, REC_ATOM_FEATURE_DIMS)
-        self.atom_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns)
-        self.lr_edge_embedding = FCBlock(sig + c.cross_distance_embed_dim, ns, ns)
-        self.ar_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns)
-        self.la_edge_embedding = FCBlock(sig + c.distance_embed_dim, ns, ns)
+        self.atom_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
+        self.lr_edge_embedding = FCBlock(sig + c.cross_distance_embed_dim, ns, ns, dropout=p)
+        self.ar_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
+        self.la_edge_embedding = FCBlock(sig + c.distance_embed_dim, ns, ns, dropout=p)
         self.lig_distance_expansion = GaussianSmearing(0.0, c.lig_max_radius, c.distance_embed_dim)
         self.rec_distance_expansion = GaussianSmearing(0.0, c.rec_max_radius, c.distance_embed_dim)
         self.cross_distance_expansion = GaussianSmearing(0.0, c.cross_max_distance, c.cross_distance_embed_dim)
@@ -161,19 +176,14 @@ class AllAtomScoreModel(nn.Module):
 
         def conv(i, groups):
             return TPConv(seq[min(i, 3)], sh, seq[min(i + 1, 3)], 3 * ns, num_groups=groups,
-                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True)
+                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p)
 
         groups = (lambda g: g) if c.differentiate_convolutions else (lambda g: 1)
         self.rec_emb_layers = nn.ModuleList(conv(i, groups(4)) for i in range(P))
         self.lig_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P) if c.embed_also_ligand)
         self.conv_layers = nn.ModuleList(conv(i, groups(3 if i == P + C - 1 else 9)) for i in range(P, P + C))
 
-        head_in = ns + (nv if c.reduce_pseudoscalars else ns) if P + C >= 3 else ns
-        if c.atom_confidence:
-            self.atom_confidence_predictor = ConfidenceHead(head_in, ns, c.atom_num_confidence_outputs + ns,
-                                                            not c.confidence_no_batchnorm)
-            head_in = ns
-        self.confidence_predictor = ConfidenceHead(head_in, ns, c.num_confidence_outputs, not c.confidence_no_batchnorm)
+        add_confidence_heads(self, c)
 
         init_weights(self, seed)
         self.requires_grad_(False)
@@ -186,17 +196,20 @@ class AllAtomScoreModel(nn.Module):
     # receptor embedding (t-independent)
     # ------------------------------------------------------------------ #
 
-    def embed_receptor(self, batch: ComplexBatch) -> AtomRecCache:
+    def embed_receptor(self, batch: ComplexBatch, deterministic: bool = True, use_running_average: bool = True,
+                       generator: Optional[torch.Generator] = None) -> AtomRecCache:
         c = self.cfg
         ns = c.ns
+        det, ura, gen = deterministic, use_running_average, generator
         rec_attr = self.rec_node_embedding(batch.rec_f[..., None], batch.rec_lm)
         atom_attr = self.atom_node_embedding(batch.atom_f)
         r_vec = gather_nodes(batch.rec_pos, batch.rec_nbr) - batch.rec_pos[:, :, None, :]
-        rec_edge_emb = self.rec_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(r_vec, dim=-1)))
+        rec_edge_emb = self.rec_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(r_vec, dim=-1)), det, gen)
         a_vec = gather_nodes(batch.atom_pos, batch.atom_nbr) - batch.atom_pos[:, :, None, :]
-        atom_edge_emb = self.atom_edge_embedding(self.lig_distance_expansion(torch.linalg.norm(a_vec, dim=-1)))
+        atom_edge_emb = self.atom_edge_embedding(self.lig_distance_expansion(torch.linalg.norm(a_vec, dim=-1)), det,
+                                                 gen)
         ar_vec = gather_nodes(batch.rec_pos, batch.atom_res) - batch.atom_pos  # atom -> its residue
-        ar_edge_emb = self.ar_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(ar_vec, dim=-1)))
+        ar_edge_emb = self.ar_edge_embedding(self.rec_distance_expansion(torch.linalg.norm(ar_vec, dim=-1)), det, gen)
         ar_edge_sh = spherical_harmonics(c.sh_lmax, ar_vec)
         ar_edge_sh_rev = spherical_harmonics(c.sh_lmax, -ar_vec)
         N = batch.rec_pos.shape[1]
@@ -206,48 +219,54 @@ class AllAtomScoreModel(nn.Module):
             rec_scal, atom_scal = rec_attr[..., :ns], atom_attr[..., :ns]
             res_scal = gather_nodes(rec_scal, batch.atom_res)
             rec_sum, rec_cnt = layer.conv_rec(g[0], rec_attr, batch.rec_pos, batch.rec_nbr, rec_edge_emb, zero_sig,
-                                              batch.rec_nbr_mask)
+                                              batch.rec_nbr_mask, det, gen)
             m1 = layer.messages(g[1], atom_attr, ar_edge_sh, torch.cat([ar_edge_emb, res_scal, atom_scal], -1),
-                                batch.atom_mask)
+                                batch.atom_mask, det, gen)
             s1, c1 = scatter_mean_to_nodes(m1, batch.atom_res, batch.atom_mask, N)
             atom_sum, atom_cnt = layer.conv_rec(g[2], atom_attr, batch.atom_pos, batch.atom_nbr, atom_edge_emb,
-                                                zero_sig, batch.atom_nbr_mask)
+                                                zero_sig, batch.atom_nbr_mask, det, gen)
             m3 = layer.messages(g[3], gather_nodes(rec_attr, batch.atom_res), ar_edge_sh_rev,
-                                torch.cat([ar_edge_emb, atom_scal, res_scal], -1), batch.atom_mask)
-            rec_attr = layer.finalize(rec_attr, rec_sum + s1, rec_cnt + c1, batch.rec_mask)
+                                torch.cat([ar_edge_emb, atom_scal, res_scal], -1), batch.atom_mask, det, gen)
+            rec_attr = layer.finalize(rec_attr, rec_sum + s1, rec_cnt + c1, batch.rec_mask, ura)
             atom_attr = layer.finalize(atom_attr, atom_sum + m3, atom_cnt + batch.atom_mask.to(atom_cnt.dtype),
-                                       batch.atom_mask)
+                                       batch.atom_mask, ura)
         return AtomRecCache(rec_attr, atom_attr, rec_edge_emb, atom_edge_emb, ar_edge_emb, ar_edge_sh)
 
     # ------------------------------------------------------------------ #
     # ligand graph (plain PyTorch at lmax=2: the pb kernel is lmax=1)
     # ------------------------------------------------------------------ #
 
-    def _lig_graph(self, batch: ComplexBatch, sigma_emb):
+    def _lig_graph(self, batch: ComplexBatch, sigma_emb, deterministic: bool = True, generator=None):
         c = self.cfg
+        det, gen = deterministic, generator
         pos = batch.lig_pos
         pair_mask, pair_d = radius_mask(pos, pos, c.lig_max_radius, batch.lig_mask, batch.lig_mask, exclude_self=True)
         pair_sh = spherical_harmonics(c.sh_lmax, pos[:, None, :, :] - pos[:, :, None, :])
         se = sigma_emb[:, None, None, :].expand(pair_d.shape + (sigma_emb.shape[-1],))
         zeros_bond = pair_d.new_zeros(pair_d.shape + (c.in_lig_edge_features,))
-        pair_emb = self.lig_edge_embedding(torch.cat([zeros_bond, se, self.lig_distance_expansion(pair_d)], dim=-1))
+        pair_emb = self.lig_edge_embedding(torch.cat([zeros_bond, se, self.lig_distance_expansion(pair_d)], dim=-1),
+                                           det, gen)
         bvec = gather_nodes(pos, batch.lig_edge_dst) - gather_nodes(pos, batch.lig_edge_src)
         bd = torch.linalg.norm(bvec, dim=-1)
         se_b = sigma_emb[:, None, :].expand(bd.shape + (sigma_emb.shape[-1],))
-        bond_emb = self.lig_edge_embedding(torch.cat([batch.lig_edge_attr, se_b, self.lig_distance_expansion(bd)], -1))
+        bond_emb = self.lig_edge_embedding(torch.cat([batch.lig_edge_attr, se_b, self.lig_distance_expansion(bd)], -1),
+                                           det, gen)
         return dict(pair_mask=pair_mask, pair_sh=pair_sh, pair_emb=pair_emb,
                     bond_sh=spherical_harmonics(c.sh_lmax, bvec), bond_emb=bond_emb)
 
-    def _lig_conv(self, layer: TPConv, group: int, lig_attr, g, batch: ComplexBatch):
+    def _lig_conv(self, layer: TPConv, group: int, lig_attr, g, batch: ComplexBatch, deterministic: bool = True,
+                  generator=None):
         ns = self.cfg.ns
         scal = lig_attr[..., :ns]
         pe = g["pair_emb"]
         eattr = torch.cat([pe, scal[:, :, None, :].expand(pe.shape[:-1] + (ns,)),
                            scal[:, None, :, :].expand(pe.shape[:-1] + (ns,))], dim=-1)
-        msg_pair = layer.messages(group, lig_attr[:, None, :, :], g["pair_sh"], eattr, g["pair_mask"])
+        msg_pair = layer.messages(group, lig_attr[:, None, :, :], g["pair_sh"], eattr, g["pair_mask"], deterministic,
+                                  generator)
         src, dst = batch.lig_edge_src, batch.lig_edge_dst
         eattr_b = torch.cat([g["bond_emb"], gather_nodes(scal, src), gather_nodes(scal, dst)], dim=-1)
-        msg_b = layer.messages(group, gather_nodes(lig_attr, dst), g["bond_sh"], eattr_b, batch.lig_edge_mask)
+        msg_b = layer.messages(group, gather_nodes(lig_attr, dst), g["bond_sh"], eattr_b, batch.lig_edge_mask,
+                               deterministic, generator)
         sum_b, cnt_b = scatter_mean_to_nodes(msg_b, src, batch.lig_edge_mask, lig_attr.shape[1])
         return msg_pair.sum(dim=2) + sum_b, g["pair_mask"].sum(dim=2).to(sum_b.dtype) + cnt_b
 
@@ -255,17 +274,23 @@ class AllAtomScoreModel(nn.Module):
     # forward (confidence mode)
     # ------------------------------------------------------------------ #
 
-    def forward(self, batch: ComplexBatch, rec_cache: Optional[AtomRecCache] = None) -> ConfidenceOutput:
+    def forward(self, batch: ComplexBatch, rec_cache: Optional[AtomRecCache] = None, deterministic: bool = True,
+                use_running_average: bool = True, generator: Optional[torch.Generator] = None) -> ConfidenceOutput:
+        """Confidences of the batch's poses. ``deterministic=False``: the
+        training routing with dropout drawn from ``generator``;
+        ``use_running_average=False``: batch-norm statistics of the batch
+        (the running ones move toward them)."""
         c = self.cfg
-        ns, nv = c.ns, c.nv
+        ns = c.ns
+        det, ura, gen = deterministic, use_running_average, generator
         B, L, _ = batch.lig_pos.shape
         N, A = batch.rec_pos.shape[1], batch.atom_pos.shape[1]
         tr_sigma = batch.t_tr  # confidence mode takes the times as sigmas
         sigma_emb = self.timestep_emb(batch.t_tr)
 
         if rec_cache is None:
-            rec_cache = self.embed_receptor(batch)
-        rec_sig = self.rec_sigma_embedding(sigma_emb)
+            rec_cache = self.embed_receptor(batch, det, ura, gen)
+        rec_sig = self.rec_sigma_embedding(sigma_emb, det, gen)
 
         def add_sig(x):
             return torch.cat([x[..., :ns] + rec_sig[:, None, :], x[..., ns:]], dim=-1)
@@ -284,10 +309,10 @@ class AllAtomScoreModel(nn.Module):
             atom_mask_eff = batch.atom_mask & torch.gather(rec_mask_eff, 1, batch.atom_res)
 
         lig_attr = self.lig_node_embedding(batch.lig_f, sigma_emb[:, None, :].expand(B, L, sigma_emb.shape[-1]))
-        g = self._lig_graph(batch, sigma_emb)
+        g = self._lig_graph(batch, sigma_emb, det, gen)
         for layer in self.lig_emb_layers:
-            s, n = self._lig_conv(layer, 0, lig_attr, g, batch)
-            lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask)
+            s, n = self._lig_conv(layer, 0, lig_attr, g, batch, det, gen)
+            lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask, ura)
 
         # cross neighbour lists: lig <- rec within the dynamic cutoff, lig <- atom within lig_max_radius
         cutoff = (tr_sigma * 3 + 20)[:, None, None] if c.dynamic_max_cross else c.cross_max_distance
@@ -295,69 +320,58 @@ class AllAtomScoreModel(nn.Module):
                                                c.effective_cross_cap(N))
         lr_sh_rev = spherical_harmonics(c.sh_lmax, batch.lig_pos[:, :, None, :] - gather_nodes(batch.rec_pos, lr_idx))
         se_c = sigma_emb[:, None, None, :].expand(lr_d.shape + (sigma_emb.shape[-1],))
-        lr_emb = self.lr_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(lr_d)], dim=-1))
+        lr_emb = self.lr_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(lr_d)], dim=-1), det, gen)
         la_idx, la_mask, la_d = topk_neighbors(batch.lig_pos, batch.atom_pos, c.lig_max_radius, batch.lig_mask,
                                                atom_mask_eff, min(A, c.atom_cross_cap))
         la_sh_rev = spherical_harmonics(c.sh_lmax, batch.lig_pos[:, :, None, :] - gather_nodes(batch.atom_pos, la_idx))
         se_a = sigma_emb[:, None, None, :].expand(la_d.shape + (sigma_emb.shape[-1],))
-        la_emb = self.la_edge_embedding(torch.cat([se_a, self.lig_distance_expansion(la_d)], dim=-1))
+        la_emb = self.la_edge_embedding(torch.cat([se_a, self.lig_distance_expansion(la_d)], dim=-1), det, gen)
 
         G = dict(zip(("lig", "lr", "la", "rec", "rl", "ra", "atom", "al", "ar"), self._groups(9)))
         n_layers = len(self.conv_layers)
         for li, layer in enumerate(self.conv_layers):
             lig_scal, rec_scal, atom_scal = lig_attr[..., :ns], rec_attr[..., :ns], atom_attr[..., :ns]
             # ligand receives: pairs and bonds, then the two cross groups (cross_g)
-            lig_sum, lig_cnt = self._lig_conv(layer, G["lig"], lig_attr, g, batch)
+            lig_sum, lig_cnt = self._lig_conv(layer, G["lig"], lig_attr, g, batch, det, gen)
             for grp, src, spos, idx, emb, mask in (("lr", rec_attr, batch.rec_pos, lr_idx, lr_emb, lr_mask),
                                                    ("la", atom_attr, batch.atom_pos, la_idx, la_emb, la_mask)):
-                s_, c_ = layer.conv_cross(G[grp], lig_attr, batch.lig_pos, src, spos, idx, emb, mask, ns)
+                s_, c_ = layer.conv_cross(G[grp], lig_attr, batch.lig_pos, src, spos, idx, emb, mask, ns, det, gen)
                 lig_sum, lig_cnt = lig_sum + s_, lig_cnt + c_
             if li == n_layers - 1:
-                lig_attr = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask)
+                lig_attr = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura)
                 continue
 
             res_scal = gather_nodes(rec_scal, batch.atom_res)
             # receptor receives: its kNN (rec_g), the reversed lr list, its atoms
             rec_sum, rec_cnt = layer.conv_rec(G["rec"], rec_attr, batch.rec_pos, batch.rec_nbr,
-                                              rec_cache.rec_edge_emb, rec_sig, batch.rec_nbr_mask)
-            s_, c_ = self._reverse_cross(layer, G["rl"], lig_attr, rec_attr, lr_idx, lr_emb, lr_sh_rev, lr_mask, N)
+                                              rec_cache.rec_edge_emb, rec_sig, batch.rec_nbr_mask, det, gen)
+            s_, c_ = self._reverse_cross(layer, G["rl"], lig_attr, rec_attr, lr_idx, lr_emb, lr_sh_rev, lr_mask, N,
+                                         det, gen)
             rec_sum, rec_cnt = rec_sum + s_, rec_cnt + c_
             m_ra = layer.messages(G["ra"], atom_attr, ar_edge_sh, torch.cat([ar_edge_emb, res_scal, atom_scal], -1),
-                                  atom_mask_eff)
+                                  atom_mask_eff, det, gen)
             s_, c_ = scatter_mean_to_nodes(m_ra, batch.atom_res, atom_mask_eff, N)
             rec_sum, rec_cnt = rec_sum + s_, rec_cnt + c_
 
             # atoms receive: their kNN (rec_g), the reversed la list, their residue
             atom_sum, atom_cnt = layer.conv_rec(G["atom"], atom_attr, batch.atom_pos, batch.atom_nbr,
-                                                rec_cache.atom_edge_emb, rec_sig, batch.atom_nbr_mask)
-            s_, c_ = self._reverse_cross(layer, G["al"], lig_attr, atom_attr, la_idx, la_emb, la_sh_rev, la_mask, A)
+                                                rec_cache.atom_edge_emb, rec_sig, batch.atom_nbr_mask, det, gen)
+            s_, c_ = self._reverse_cross(layer, G["al"], lig_attr, atom_attr, la_idx, la_emb, la_sh_rev, la_mask, A,
+                                         det, gen)
             atom_sum, atom_cnt = atom_sum + s_, atom_cnt + c_
             m_ar = layer.messages(G["ar"], gather_nodes(rec_attr, batch.atom_res), ar_edge_sh_rev,
-                                  torch.cat([ar_edge_emb, atom_scal, res_scal], -1), atom_mask_eff)
+                                  torch.cat([ar_edge_emb, atom_scal, res_scal], -1), atom_mask_eff, det, gen)
             atom_sum, atom_cnt = atom_sum + m_ar, atom_cnt + atom_mask_eff.to(atom_cnt.dtype)
 
-            lig_attr, rec_attr, atom_attr = (layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask),
-                                             layer.finalize(rec_attr, rec_sum, rec_cnt, batch.rec_mask),
-                                             layer.finalize(atom_attr, atom_sum, atom_cnt, batch.atom_mask))
+            lig_attr, rec_attr, atom_attr = (layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura),
+                                             layer.finalize(rec_attr, rec_sum, rec_cnt, batch.rec_mask, ura),
+                                             layer.finalize(atom_attr, atom_sum, atom_cnt, batch.atom_mask, ura))
 
-        # confidence head on the pooled ligand scalars [lig[:ns] | lig[-last:]]
-        if c.num_conv_layers + c.num_prot_emb_layers >= 3:
-            scal = torch.cat([lig_attr[..., :ns], lig_attr[..., -(nv if c.reduce_pseudoscalars else ns):]], dim=-1)
-        else:
-            scal = lig_attr[..., :ns]
-        atom_conf = None
-        if c.atom_confidence:
-            out = self.atom_confidence_predictor(scal)
-            atom_conf, scal = out[..., : c.atom_num_confidence_outputs], out[..., c.atom_num_confidence_outputs:]
-        m = batch.lig_mask.to(scal.dtype)[..., None]
-        pooled = torch.sum(scal * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
-        conf = self.confidence_predictor(pooled)
-        if c.num_confidence_outputs == 1:
-            conf = conf[..., 0]
-        return ConfidenceOutput(conf, atom_conf)
+        return confidence_heads(self, lig_attr, batch.lig_mask, det, ura, gen)
 
     @staticmethod
-    def _reverse_cross(layer: TPConv, group: int, lig_attr, node_attr, idx, emb, sh_rev, mask, n_nodes: int):
+    def _reverse_cross(layer: TPConv, group: int, lig_attr, node_attr, idx, emb, sh_rev, mask, n_nodes: int,
+                       deterministic: bool = True, generator=None):
         """node <- ligand messages over a capped ligand <- node list, scattered
         onto the nodes: (sums [B, n, out], counts [B, n])."""
         ns = emb.shape[-1]
@@ -365,6 +379,7 @@ class AllAtomScoreModel(nn.Module):
         sender_scal = gather_nodes(node_attr[..., :ns], idx)
         lig_scal = lig_attr[:, :, None, :ns].expand(emb.shape[:-1] + (ns,))
         lig_bc = lig_attr[:, :, None, :].expand(emb.shape[:-1] + (lig_attr.shape[-1],))
-        msg = layer.messages(group, lig_bc, sh_rev, torch.cat([emb, sender_scal, lig_scal], dim=-1), mask)
+        msg = layer.messages(group, lig_bc, sh_rev, torch.cat([emb, sender_scal, lig_scal], dim=-1), mask,
+                             deterministic, generator)
         return scatter_mean_to_nodes(msg.reshape(B, -1, msg.shape[-1]), idx.reshape(B, -1), mask.reshape(B, -1),
                                      n_nodes)

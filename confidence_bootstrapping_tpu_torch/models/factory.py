@@ -13,10 +13,9 @@ models read them: ``score_model.py``, ``all_atom_model.py``, ``legacy.py``):
   ``depthwise_convolution``, ``sidechain_pred``, ``affinity_prediction``,
   ``fixed_center_conv = false`` (the JAX package too runs only the fixed
   center convolution);
-* what the port has not ported yet: the residue-level model's confidence
-  mode, its ``crop_beyond`` mask and ``sh_lmax != 1``, the all-atom model's
-  score mode, and an all-atom model with protein-embedding layers but
-  ``embed_also_ligand = false``.
+* what the port has not ported yet: the residue-level model at
+  ``sh_lmax != 1``, the all-atom model's score mode, and an all-atom model
+  with protein-embedding layers but ``embed_also_ligand = false``.
 
 Fields only training or the host reads pass through whatever their value:
 ``dropout`` and ``confidence_dropout`` (training), ``parallel_aggregators``
@@ -48,8 +47,6 @@ _UNSUPPORTED = (
     ("sidechain_pred", lambda c: c.sidechain_pred, "the side-chain head"),
     ("affinity_prediction", lambda c: c.affinity_prediction, "the affinity output"),
     ("fixed_center_conv", lambda c: not c.fixed_center_conv, "a center convolution that is not fixed"),
-    ("confidence_mode", lambda c: c.confidence_mode and not c.all_atoms, "the residue-level model's confidence mode"),
-    ("crop_beyond", lambda c: c.crop_beyond is not None and not c.all_atoms, "the residue-level model's crop mask"),
     ("sh_lmax", lambda c: c.sh_lmax != 1 and not c.all_atoms, "the residue-level model at lmax != 1"),
     ("all_atoms", lambda c: c.all_atoms and not c.confidence_mode, "the all-atom model's score mode"),
     ("embed_also_ligand", lambda c: c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,

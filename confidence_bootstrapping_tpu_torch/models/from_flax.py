@@ -14,8 +14,9 @@ module tree mirrors the Flax one, so each path maps mechanically:
 * batch statistics ``mean``/``var``/``norm`` become buffers of the same names;
   other parameters (batch norms' ``weight``/``bias``/``scale``) keep theirs.
 
-This covers the score model and the all-atom confidence model (its 4- and
-9-group ``TPConv``s and its ``ConfidenceHead``). Training adds no parameter
+This covers the score model (in score mode, and in confidence mode with its
+``ConfidenceHead``s) and the all-atom confidence model (its 4- and 9-group
+``TPConv``s and its ``ConfidenceHead``s). Training adds no parameter
 or buffer (dropout rates are plain attributes), so the same map carries a
 JAX training state's parameters and batch statistics into the trainable
 model, and its gradients into parameter names

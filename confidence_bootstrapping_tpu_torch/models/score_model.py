@@ -23,9 +23,14 @@ applies dropout in the edge embeddings, the edge MLPs and the heads
 (``score_model.py:504-584``). Parameters are frozen at construction
 (inference); ``train.train_loop.init_train_state`` unfreezes them.
 
-``ConfidenceHead`` and ``MaskedBatchNorm1d`` (running statistics) serve the
-all-atom confidence model (``models/all_atom_model.py``). Confidence mode of
-this residue-level model and ``torsional_forward`` are not ported.
+Confidence mode (``confidence_mode``): the batch's times are taken as the
+sigmas (the confidence model sees poses at t=0), the cross lists are cut by
+the ``crop_beyond`` mask (a fixed cutoff; in score mode 3 sigma_tr +
+``crop_beyond``), and in place of the score heads the confidence heads
+(``ConfidenceHead``, ``MaskedBatchNorm1d``) read the pooled ligand scalars,
+as in the all-atom confidence model (``models/all_atom_model.py``), which
+shares them (``add_confidence_heads``, ``confidence_heads``).
+``torsional_forward`` is not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from ..config import ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
 from ..data.vocab import LIG_FEATURE_DIMS, REC_RESIDUE_FEATURE_DIMS
 from ..ops import so3, torus
-from ..ops.graph_builders import gather_nodes, radius_mask, scatter_mean_to_nodes, topk_neighbors
+from ..ops.graph_builders import gather_nodes, pairwise_dist, radius_mask, scatter_mean_to_nodes, topk_neighbors
 from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
@@ -64,6 +69,11 @@ class ScoreOutput(NamedTuple):
     tr_pred: torch.Tensor  # [B, 3]
     rot_pred: torch.Tensor  # [B, 3]
     tor_pred: torch.Tensor  # [B, R], zero on padded torsion slots
+
+
+class ConfidenceOutput(NamedTuple):
+    confidence: torch.Tensor  # [B] (or [B, num_confidence_outputs])
+    atom_confidence: Optional[torch.Tensor] = None  # [B, L, atom_num_confidence_outputs]
 
 
 class FinalNormMLP(nn.Module):
@@ -130,6 +140,16 @@ class TensorProductScoreModel(nn.Module):
         )
         self.final_irreps = seq[min(P + C, 3)]
 
+        if c.confidence_mode:
+            add_confidence_heads(self, c)
+        else:
+            self._add_score_heads(c, sh, sig, p)
+        init_weights(self, seed)
+        self.requires_grad_(False)
+        self.to(resolve_device(device))
+
+    def _add_score_heads(self, c: ScoreModelConfig, sh: str, sig: int, p: float):
+        ns = c.ns
         self.center_distance_expansion = GaussianSmearing(0.0, c.center_max_distance, c.distance_embed_dim)
         self.center_edge_embedding = FCBlock(c.distance_embed_dim + sig, ns, ns, dropout=p)
         self.final_conv = TPConv(self.final_irreps, sh, "2x1o + 2x1e" if not c.odd_parity else "1x1o + 1x1e",
@@ -143,10 +163,6 @@ class TensorProductScoreModel(nn.Module):
             self.tor_bond_conv = TPConv(self.final_irreps, str(self.final_tp_tor.irreps_out), tor_out, 3 * ns,
                                         batch_norm=c.batch_norm, residual=False, dropout=p)
             self.tor_final_layer = TorFinalMLP(Irreps(tor_out).dim, ns, p)
-
-        init_weights(self, seed)
-        self.requires_grad_(False)
-        self.to(resolve_device(device))
 
     # ------------------------------------------------------------------ #
     # receptor embedding (t-independent)
@@ -225,17 +241,21 @@ class TensorProductScoreModel(nn.Module):
     # ------------------------------------------------------------------ #
 
     def forward(self, batch: ComplexBatch, rec_cache: Optional[RecCache] = None, deterministic: bool = True,
-                use_running_average: bool = True, generator: Optional[torch.Generator] = None) -> ScoreOutput:
-        """Scores of the batch's poses. ``deterministic=False``: the training
-        composition with dropout drawn from ``generator``;
-        ``use_running_average=False``: batch-norm statistics of the batch
-        (the running ones move toward them)."""
+                use_running_average: bool = True, generator: Optional[torch.Generator] = None):
+        """Scores of the batch's poses (``ScoreOutput``), or in confidence
+        mode their confidences (``ConfidenceOutput``).
+        ``deterministic=False``: the training composition with dropout drawn
+        from ``generator``; ``use_running_average=False``: batch-norm
+        statistics of the batch (the running ones move toward them)."""
         c = self.cfg
         ns = c.ns
         det, ura, gen = deterministic, use_running_average, generator
         B, L, _ = batch.lig_pos.shape
         N = batch.rec_pos.shape[1]
-        tr_sigma, rot_sigma, tor_sigma = t_to_sigma(batch.t_tr, batch.t_rot, batch.t_tor, c.sigma)
+        if c.confidence_mode:  # the confidence model takes the times as the sigmas
+            tr_sigma, rot_sigma, tor_sigma = batch.t_tr, batch.t_rot, batch.t_tor
+        else:
+            tr_sigma, rot_sigma, tor_sigma = t_to_sigma(batch.t_tr, batch.t_rot, batch.t_tor, c.sigma)
         sigma_emb = self.timestep_emb(batch.t_tr)
 
         if rec_cache is None:
@@ -251,7 +271,13 @@ class TensorProductScoreModel(nn.Module):
             lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask, ura)
 
         cutoff = (tr_sigma * 3 + 20)[:, None, None] if c.dynamic_max_cross else c.cross_max_distance
-        cr_idx, cr_mask, cr_d = topk_neighbors(batch.lig_pos, batch.rec_pos, cutoff, batch.lig_mask, batch.rec_mask,
+        rec_mask_eff = batch.rec_mask
+        if c.crop_beyond is not None:  # receptor residues beyond the crop distance of every ligand atom leave the lists
+            big = torch.tensor(1e9, device=batch.lig_pos.device)
+            d_lr = torch.where(batch.lig_mask[:, :, None], pairwise_dist(batch.lig_pos, batch.rec_pos), big).amin(dim=1)
+            crop_cut = c.crop_beyond if c.confidence_mode else (tr_sigma * 3 + c.crop_beyond)[:, None]
+            rec_mask_eff = batch.rec_mask & (d_lr < crop_cut)
+        cr_idx, cr_mask, cr_d = topk_neighbors(batch.lig_pos, batch.rec_pos, cutoff, batch.lig_mask, rec_mask_eff,
                                                c.effective_cross_cap(N))
         se_c = sigma_emb[:, None, None, :].expand(cr_d.shape + (sigma_emb.shape[-1],))
         cr_emb = self.cross_edge_embedding(torch.cat([se_c, self.cross_distance_expansion(cr_d)], dim=-1), det, gen)
@@ -294,6 +320,9 @@ class TensorProductScoreModel(nn.Module):
                 lig_attr = new_lig
             else:
                 lig_attr = layer.finalize(lig_attr, lig_sum, lig_cnt, batch.lig_mask, ura)
+
+        if c.confidence_mode:
+            return confidence_heads(self, lig_attr, batch.lig_mask, det, ura, gen)
 
         # center convolution: translational / rotational pseudo-vectors
         m = batch.lig_mask.to(lig_attr.dtype)[..., None]
@@ -355,36 +384,96 @@ class TensorProductScoreModel(nn.Module):
 
 
 class MaskedBatchNorm1d(nn.Module):
-    """Plain batch norm over the last axis at inference (running statistics):
-    (x - mean) / sqrt(var + eps) * scale + bias."""
+    """Plain batch norm over the last axis: (x - mean) / sqrt(var + eps) *
+    scale + bias. With ``use_running_average`` the running statistics;
+    otherwise the statistics of the batch over every leading axis, over the
+    rows ``mask`` keeps (biased variance), which the running ones then move
+    toward with ``momentum``."""
 
-    def __init__(self, dim: int, epsilon: float = 1e-5):
+    def __init__(self, dim: int, epsilon: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x):
-        return (x - self.mean) / torch.sqrt(self.var + self.epsilon) * self.scale + self.bias
+    def forward(self, x, mask=None, use_running_average: bool = True):
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            m = (torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device) if mask is None else mask).to(x.dtype)
+            m = m[..., None]
+            axes = tuple(range(x.ndim - 1))
+            denom = torch.clamp(m.sum(), min=1.0)
+            mean = torch.sum(x * m, dim=axes) / denom
+            var = torch.sum((x - mean) ** 2 * m, dim=axes) / denom
+            with torch.no_grad():
+                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean.detach())
+                self.var.mul_(1 - self.momentum).add_(self.momentum * var.detach())
+        return (x - mean) / torch.sqrt(var + self.epsilon) * self.scale + self.bias
 
 
 class ConfidenceHead(nn.Module):
-    """(Linear, batch norm, ReLU) x 2, then Linear: the confidence predictor."""
+    """(Linear, batch norm, ReLU, Dropout) x 2, then Linear: the confidence
+    predictor. ``mask`` selects the rows the batch statistics are taken
+    over (the atom head's real ligand atoms); dropout at rate ``dropout``
+    when not ``deterministic``, drawn from ``generator``."""
 
-    def __init__(self, in_dim: int, ns: int, out_dim: int, use_batchnorm: bool = True):
+    def __init__(self, in_dim: int, ns: int, out_dim: int, use_batchnorm: bool = True, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(in_dim, ns), nn.Linear(ns, ns), nn.Linear(ns, out_dim)])
         self.norms = nn.ModuleList(MaskedBatchNorm1d(ns) for _ in range(2)) if use_batchnorm else None
+        self.dropout = dropout
 
-    def forward(self, x):
+    def forward(self, x, mask=None, deterministic: bool = True, use_running_average: bool = True,
+                generator: Optional[torch.Generator] = None):
         for i in range(2):
             x = self.layers[i](x)
             if self.norms is not None:
-                x = self.norms[i](x)
-            x = torch.relu(x)
+                x = self.norms[i](x, mask, use_running_average)
+            x = dropout(torch.relu(x), self.dropout, deterministic, generator)
         return self.layers[2](x)
+
+
+def add_confidence_heads(model: nn.Module, c: ScoreModelConfig) -> None:
+    """The confidence model's heads on ``model``: with ``atom_confidence`` a
+    per-atom head whose last ns outputs feed the pose head, then the pose
+    head (``confidence_dropout`` in both)."""
+    ns = c.ns
+    head_in = ns + (c.nv if c.reduce_pseudoscalars else ns) if c.num_prot_emb_layers + c.num_conv_layers >= 3 else ns
+    bn = not c.confidence_no_batchnorm
+    if c.atom_confidence:
+        model.atom_confidence_predictor = ConfidenceHead(head_in, ns, c.atom_num_confidence_outputs + ns, bn,
+                                                         c.confidence_dropout)
+        head_in = ns
+    model.confidence_predictor = ConfidenceHead(head_in, ns, c.num_confidence_outputs, bn, c.confidence_dropout)
+
+
+def confidence_heads(model: nn.Module, lig_attr, lig_mask, deterministic: bool = True,
+                     use_running_average: bool = True, generator: Optional[torch.Generator] = None) -> ConfidenceOutput:
+    """The heads ``add_confidence_heads`` made, on the ligand's final
+    features: the per-atom head on the ligand scalars [lig[:ns] | lig[-last:]]
+    (its batch statistics over the real atoms, ``lig_mask``), then the pose
+    head on their masked mean."""
+    c = model.cfg
+    ns = c.ns
+    if c.num_conv_layers + c.num_prot_emb_layers >= 3:
+        scal = torch.cat([lig_attr[..., :ns], lig_attr[..., -(c.nv if c.reduce_pseudoscalars else ns):]], dim=-1)
+    else:
+        scal = lig_attr[..., :ns]
+    det, ura, gen = deterministic, use_running_average, generator
+    atom_conf = None
+    if c.atom_confidence:
+        out = model.atom_confidence_predictor(scal, lig_mask, det, ura, gen)
+        atom_conf, scal = out[..., : c.atom_num_confidence_outputs], out[..., c.atom_num_confidence_outputs:]
+    m = lig_mask.to(scal.dtype)[..., None]
+    pooled = torch.sum(scal * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+    conf = model.confidence_predictor(pooled, None, det, ura, gen)
+    if c.num_confidence_outputs == 1:
+        conf = conf[..., 0]
+    return ConfidenceOutput(conf, atom_conf)
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

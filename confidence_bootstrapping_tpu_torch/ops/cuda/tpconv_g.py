@@ -22,12 +22,14 @@ Both inference kernels run the H -> W product on the tensor cores (3xTF32
 ``wgmma``) from the split, tiled w2 fields of ``pack_weights``; a layer that
 stage does not take runs a float32 build (rec_g at TM_WIDE edges a chunk,
 cross_g at TM, else TM_WIDE), and ``fused_tpconv_rec_g``'s training variant
-keeps the float32 stage at TM edges a chunk (``tpconv_common.pick_build``;
-where no build fits a layer the wrapper raises). Each wrapper launches its kernel
+runs the tensor-core stage where the layer fits it, else the float32 stage at
+TM edges a chunk (``rec_g_build``, ``tpconv_common.pick_build``; where no
+build fits a layer the wrapper raises). Each wrapper launches its kernel
 for CUDA tensors, calls its ``*_plain`` version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
 training, ``fused_tpconv_rec_g``'s ``dmask`` (the hidden-layer dropout mask)
-selects the kernel's training variant (``tpconv_rec_g_dm_kernel``), counted
-apart in ``fused_tpconv_rec_g.dm_launches``.
+selects the kernel's training variant (``tpconv_rec_g_dm_tc_kernel``, or
+``tpconv_rec_g_dm_kernel`` on the float32 stage), counted apart in
+``fused_tpconv_rec_g.dm_launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _REC_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 _REC_WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
 _REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
+_REC_DM_TC_ARGTYPES = [_P] * 7 + [_I] + [_P] * 9 + [_I] * 14 + [_P, _P]
 _CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
 _CROSS_TC_ARGTYPES = [_P] * 16 + [_I] * 15 + [_P, _P]
 
@@ -55,6 +58,18 @@ def cross_rows_per_block(K: int, chunk: int = TM) -> int:
     """Receivers per block of a list of K senders each (the cross kernels,
     the edge-list kernel): enough to fill a chunk of ``chunk`` edges."""
     return max(1, chunk // max(K, 1))
+
+
+def rec_g_build(irreps_in: str, irreps_sh: str, irreps_out: str, Fe: int, ns: int, H: int, dropout: bool) -> tuple:
+    """(tensor cores?, edges a chunk): the build ``fused_tpconv_rec_g`` runs
+    at this layer, with (``dropout``) or without the dropout mask
+    (``tpconv_common.pick_build``: the tensor-core stage where the layer
+    fits it, else the inference kernel's float32 build at TM_WIDE edges a
+    chunk, the training variant's at TM)."""
+    lay = tp_layout(irreps_in, irreps_out, irreps_sh)
+    d = Dims(Fe, ns, Fe + 2 * ns, H, lay.din, lay.dout)
+    return pick_build("fused_tpconv_rec_g", irreps_in, irreps_out, irreps_sh, d, RT_REC, True,
+                      (TM,) if dropout else (TM_WIDE,))
 
 
 def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
@@ -118,9 +133,7 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    d = Dims(Fe, ns, Fe + 2 * ns, H, Din, lay.dout)
-    tc, _ = pick_build("fused_tpconv_rec_g", irreps_in, irreps_out, irreps_sh, d, RT_REC, dm is None,
-                       (TM_WIDE,) if dm is None else (TM,))
+    tc, _ = rec_g_build(irreps_in, irreps_sh, irreps_out, Fe, ns, H, dm is not None)
     pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec_g")
@@ -129,10 +142,16 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
     if tc:
         tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
-        fn = lib.cbt_tpconv_rec_g
-        fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
-        code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+        tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg), ptr(epi),
+                  ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+        if dm is None:
+            fn = lib.cbt_tpconv_rec_g
+            fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
+            code = fn(*inputs, *tables)
+        else:
+            fn = lib.cbt_tpconv_rec_g_dm_tc
+            fn.argtypes, fn.restype = _REC_DM_TC_ARGTYPES, ctypes.c_int
+            code = fn(*inputs, ptr(dm), dm.shape[-1], *tables)
         build.check(lib, code, "tpconv_rec_g")
         return out
     xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]

@@ -28,7 +28,7 @@ import torch
 
 from ..config import SamplerConfig, ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
-from ..models.all_atom_model import compact_crop
+from ..models.all_atom_model import crop_to_caps
 from ..ops.geometry import quaternion_to_matrix
 from ..ops.graph_builders import pairwise_dist, radius_mask
 from ..ops.poses import modify_conformer
@@ -377,11 +377,6 @@ def score_confidence(conf_model, batch: ComplexBatch, lig_pos=None, shared_recep
     if lig_pos is not None:
         batch = batch.replace(lig_pos=lig_pos)
     b = batch.set_time(0.0, 0.0, 0.0)
-    cfg = conf_model.cfg
-    rec_cache = None
-    if (compact and cfg.all_atoms and cfg.crop_beyond is not None and cfg.crop_res_cap > 0
-            and cfg.crop_atom_cap > 0 and b.atom_f is not None and b.rec_pos.shape[1] > cfg.crop_res_cap):
-        b, _ = compact_crop(b, float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)
-    elif shared_receptor:
-        rec_cache = receptor_cache(conf_model, b, shared=True)
+    b, cropped = crop_to_caps(conf_model.cfg, b) if compact else (b, False)
+    rec_cache = receptor_cache(conf_model, b, shared=True) if shared_receptor and not cropped else None
     return torch.nan_to_num(conf_model(b, rec_cache=rec_cache).confidence, nan=-1000.0)

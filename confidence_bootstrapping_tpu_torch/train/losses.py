@@ -1,10 +1,18 @@
-"""Score-matching loss.
+"""Score-matching and confidence losses.
 
-Port of ``confidence_bootstrapping_tpu/train/losses.py:score_matching_loss``:
-per-manifold mean squared errors with the reference's normalizations
-(translation weighted by sigma^2, rotation divided by the IGSO(3) RMS score
-norm, torsion by the wrapped-normal E[score^2], masked means over valid
-torsion slots) and the zero predictor's losses for logging.
+Port of ``confidence_bootstrapping_tpu/train/losses.py``:
+
+* ``score_matching_loss``: per-manifold mean squared errors with the
+  reference's normalizations (translation weighted by sigma^2, rotation
+  divided by the IGSO(3) RMS score norm, torsion by the wrapped-normal
+  E[score^2], masked means over valid torsion slots) and the zero
+  predictor's losses for logging;
+* ``confidence_loss`` (binary cross-entropy on logits, the one-hot binned
+  cross-entropy, or the RMSD mean squared error) and
+  ``atom_confidence_loss`` (binary or binned, padded atoms masked out of the
+  mean), the confidence model's.
+
+``affinity_loss`` is not ported: no model of the port has the affinity head.
 """
 
 from __future__ import annotations
@@ -56,3 +64,35 @@ def score_matching_loss(tr_pred, rot_pred, tor_pred, targets: ScoreTargets, batc
             tor_loss, tor_base = torch.sum(per_edge, dim=1) / cnt, torch.sum(per_edge_base, dim=1) / cnt
     loss = tr_loss * tr_weight + rot_loss * rot_weight + tor_loss * tor_weight
     return LossBreakdown(loss, tr_loss, rot_loss, tor_loss, tr_base, rot_base, tor_base)
+
+
+def _bce_with_logits(logits, labels):
+    """Binary cross-entropy on logits, elementwise: labels * -log sigmoid(x)
+    + (1 - labels) * -log(1 - sigmoid(x)), each term as log(1 + exp(.))."""
+    return labels * torch.nn.functional.softplus(-logits) + (1 - labels) * torch.nn.functional.softplus(logits)
+
+
+def confidence_loss(confidence_pred, labels, rmsd_prediction: bool = False):
+    """Pose-level confidence loss: the mean squared error on the RMSD with
+    ``rmsd_prediction``; the cross-entropy when the labels are one-hot over
+    RMSD bins ([b, nbins], the list-cutoff mode); binary cross-entropy on
+    logits otherwise."""
+    if rmsd_prediction:
+        return torch.mean((confidence_pred - labels) ** 2)
+    if labels.ndim == confidence_pred.ndim and labels.ndim >= 2 and labels.shape[-1] > 1:
+        return -torch.mean(torch.sum(labels * torch.log_softmax(confidence_pred, dim=-1), dim=-1))
+    return torch.mean(_bce_with_logits(confidence_pred, labels))
+
+
+def atom_confidence_loss(atom_pred, atom_labels, lig_mask):
+    """Per-atom confidence loss over the real ligand atoms: binary
+    cross-entropy for atom_pred [b, L] (or [b, L, 1]) with binary labels,
+    cross-entropy for atom_pred [b, L, nbins] with one-hot bins; padded atoms
+    are masked out of the mean."""
+    m = lig_mask.to(atom_pred.dtype)
+    if atom_pred.ndim == 3 and atom_pred.shape[-1] > 1:
+        per_atom = -torch.sum(atom_labels * torch.log_softmax(atom_pred, dim=-1), dim=-1)
+    else:
+        atom_pred = atom_pred[..., 0] if atom_pred.ndim == 3 else atom_pred
+        per_atom = _bce_with_logits(atom_pred, atom_labels)
+    return torch.sum(per_atom * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -355,7 +355,7 @@ _REFUSED = [("old_score_model", True), ("separate_noise_schedule", True), ("use_
             ("no_aminoacid_identities", True), ("smooth_edges", True), ("parallel", 4),
             ("use_second_order_repr", True), ("tp_weights_layers", 3), ("depthwise_convolution", True),
             ("sidechain_pred", True), ("affinity_prediction", True), ("fixed_center_conv", False),
-            ("confidence_mode", True), ("crop_beyond", 20.0), ("sh_lmax", 2), ("all_atoms", True)]
+            ("sh_lmax", 2), ("all_atoms", True)]
 
 
 @pytest.mark.parametrize("field,value", _REFUSED)
@@ -364,6 +364,22 @@ def test_get_model_refuses_fields_the_port_does_not_implement(field, value):
                                   **{field: value})
     with pytest.raises(ValueError, match=rf"{field}={value!r}"):
         factory.get_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("confidence_mode", True), ("crop_beyond", 20.0)])
+def test_get_model_builds_the_residue_level_confidence_mode_and_crop(field, value, monkeypatch):
+    """The residue-level model's confidence mode and its crop mask, refused
+    before the port had them: built, and a forward on the CPU is finite (in
+    confidence mode the confidence heads, in score mode the score heads)."""
+    install_jax_score_norms(monkeypatch)
+    cfg = config.ScoreModelConfig(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0,
+                                  **{field: value})
+    model = factory.get_model(cfg, device="cpu")
+    assert isinstance(model, TensorProductScoreModel) and not factory.unsupported_fields(cfg)
+    assert hasattr(model, "confidence_predictor") == (field == "confidence_mode")
+    _, tb = both_batches(padded_1a0q(0), 2, t=0.3)
+    out = model(tb)
+    assert all(torch.isfinite(t).all() for t in out if t is not None)
 
 
 def test_get_model_names_every_refused_field_and_builds_the_rest(tmp_path):
@@ -446,10 +462,12 @@ import confidence_bootstrapping_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")] + ["chip_smoke"]
 for n in names:
     importlib.import_module(n)
-print(len(names), sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
+print(",".join(names), sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
-    n, loaded = out.stdout.split(" ", 1)
-    assert int(n) >= 30 and loaded.strip() == "[]"
+    names, loaded = out.stdout.split(" ", 1)
+    names = names.split(",")
+    assert len(names) >= 30 and loaded.strip() == "[]"
+    assert {f"confidence_bootstrapping_tpu_torch.confidence.{m}" for m in ("dataset", "train")} <= set(names)

@@ -15,7 +15,9 @@ dropout mask), pb, cross_rev, rec_g, row 4 and edge-list kernels run the
 H -> W product on the tensor cores (3xTF32) at the score model's ns=32
 layers: their cases include the full-width 100 -> 100 layer, H not a
 multiple of 8, the torsion head's 20-wide harmonics, dropout masks of one
-value per hidden unit and per edge, and the outputs of rec, pb, rec_g, row 4
+value per hidden unit and per edge (rec_g's training variant on its
+tensor-core build at the confidence model's trunk layer, and on its float32
+build above H = 96), and the outputs of rec, pb, rec_g, row 4
 and the edge-list kernel bit for bit across two launches. Layers that stage
 does not take (H above 96, a layout over a block's shared memory, the
 ns=48/nv=10 ladder) run the float32 builds at 32 edges a chunk, rec_g's
@@ -598,7 +600,9 @@ def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
     args += _weights(g, irreps, irreps, ns, dev, sh)
     args[5][1, 8:16] = False  # receivers with no valid edge: zero sums
     wrapper = tpconv_g.fused_tpconv_rec_g if lmax2 else tpconv_rec.fused_tpconv_rec
-    if not lmax2:  # the score model's: on the tensor-core stage (rec_g's training variant keeps the float32 one)
+    if lmax2:  # the confidence model's trunk layer: on the tensor-core stage (tpconv_rec_g_dm_tc_kernel)
+        assert tpconv_g.rec_g_build(irreps, sh, irreps, ns, ns, 3 * ns, True) == (True, tpconv_common.TM)
+    else:  # the score model's: on the tensor-core stage (tpconv_rec_dm_tc_kernel)
         assert tpconv_rec.rec_build(irreps, irreps, ns, ns, 3 * ns, True) == (True, tpconv_common.TM)
     before = (wrapper.launches, wrapper.dm_launches)
     for hd in (3 * ns, 1):
@@ -615,6 +619,38 @@ def test_rec_kernels_with_dropout_mask_match_plain(dev, lmax2):
         assert torch.equal(got, again)
         assert float(got[1, 8:16].abs().max()) == 0.0
     assert (wrapper.launches, wrapper.dm_launches) == (before[0], before[1] + 4)  # counted apart from inference
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("hd", ["H", 1])
+@pytest.mark.parametrize("H", [72, 120])
+def test_rec_g_dropout_builds_match_plain(dev, masked, hd, H):
+    """rec_g's training variant at the confidence model's 84 -> 84 trunk
+    layer: at H = 72 (ns=24) its tensor-core build, at H = 120 (over the
+    stage's 96) its float32 build at 64 edges a chunk; with and without
+    masked edges (self-edges, cropped senders), a mask value per hidden unit
+    and per edge. Against the plain version, bit for bit across launches,
+    exact zeros for receivers with no valid edge, counted in dm_launches."""
+    g = _gen(21)
+    ns, B, N, K = 24, 2, 45, 24
+    args = [t.to(dev) for t in (torch.randn(B, N, 84, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+                                torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+                                torch.randn(B, ns, generator=g),
+                                (torch.rand(B, N, K, generator=g) > 0.3) if masked else torch.ones(B, N, K, dtype=torch.bool))]
+    args += _weights(g, CONF_TRUNK, CONF_TRUNK, ns, dev, SH2, H)
+    if masked:
+        args[5][1, 8:16] = False
+    assert tpconv_g.rec_g_build(CONF_TRUNK, SH2, CONF_TRUNK, ns, ns, H, True) == (H <= 96, tpconv_common.TM)
+    dmask = ((torch.rand(B, N, K, H if hd == "H" else 1, generator=g) > 0.1).float() / 0.9).to(dev)
+    before = (tpconv_g.fused_tpconv_rec_g.launches, tpconv_g.fused_tpconv_rec_g.dm_launches)
+    got = tpconv_g.fused_tpconv_rec_g(*args, CONF_TRUNK, SH2, CONF_TRUNK, ns, dmask=dmask)
+    again = tpconv_g.fused_tpconv_rec_g(*args, CONF_TRUNK, SH2, CONF_TRUNK, ns, dmask=dmask)
+    torch.cuda.synchronize()
+    assert (tpconv_g.fused_tpconv_rec_g.launches, tpconv_g.fused_tpconv_rec_g.dm_launches) == (before[0], before[1] + 2)
+    _close(got, tpconv_g.tpconv_rec_g_plain(*args, CONF_TRUNK, SH2, CONF_TRUNK, ns, dmask))
+    assert torch.equal(got, again)
+    if masked:
+        assert float(got[1, 8:16].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("irreps_in,irreps_sh,irreps_out,T,masked,hd,H", [
