@@ -133,7 +133,25 @@ Phases (each one fails the script when it fails):
      batches, validation on 2 fixed batches) whose validation loss must
      fall, its ROC-AUC printed. Every line carries the card's name and power
      limit.
-Then one JSON line with every kernel's numbers (launches per 20-step sample
+ 13. dock and infer from files through the CLIs at full width: 1a0q written
+     from the cache as a PDB (416 residues, the 3183 seeded atoms), an SDF
+     (with the hydrogens its features count) and a per-chain ESM ``.pt``;
+     phase 5's and phase 6's models as model directories; ``cli.dock.main``
+     with 32 poses x 20 steps and the rerank: the featurized complex against
+     the cache (ligand features, edges, torsions, mask_rotate and rec_f
+     exact; positions within the files' rounding; the kNN lists as sets),
+     32 ranked SDFs back to the returned poses in confidence order, the
+     launches of its sample and rerank against the config, every kernel call
+     of them replayed through kernel and plain version, the poses against a
+     direct ``sample`` of the same batch and generator; the dock timed
+     (featurization s, poses/s beside phase 5's, rerank ms) and once under
+     torch.profiler (idle share); a B=8 ``--pocket_knowledge`` dock; a
+     3-step B=4 SVGD sample card against CPU; ``cli.infer.main`` over 1a0q
+     and a seeded complex in other buckets (8 poses each, both models):
+     ``metrics.json`` with 2 complexes and no failure, the RMSDs those of
+     ``eval/rmsd`` on the saved poses. Every line carries the card's name and
+     power limit.
+Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
 phase 12's rec_g with the mask; ``bound_ms`` the tensor-core bound,
@@ -606,7 +624,7 @@ def counted(run) -> tuple:
 
 def sample_phase(model, b0, run):
     """Phase 5: the main path, timed. Returns (the kernel launches of the
-    timed sample, its final ligand positions [B, L, 3])."""
+    timed sample, its final ligand positions [B, L, 3], its poses/s)."""
     import torch
 
     t0 = time.perf_counter()
@@ -628,15 +646,16 @@ def sample_phase(model, b0, run):
     if launches != want:
         fail("the main path did not run every TP-conv through its kernel")
     profile_run(run, secs * 1e3)
-    return launches, pos
+    return launches, pos, B_POSES / secs
 
 
-def profile_run(run, timed_ms: float, host_ops: bool = True) -> None:
+def profile_run(run, timed_ms: float, host_ops: bool = True):
     """One more run under torch.profiler: device time by kernel and the
     device's idle share of the wall time, of this run and of the unprofiled
     timed run (same kernels, less host overhead). A measurement, not a check.
     Without ``host_ops`` the host's operators are not traced (the device's
-    events alone: a long run's trace is read in far less time)."""
+    events alone: a long run's trace is read in far less time). Returns the
+    idle share of the unprofiled run, or None without device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -652,7 +671,7 @@ def profile_run(run, timed_ms: float, host_ops: bool = True) -> None:
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     if not dev_events:
         print(f"profile: wall {wall_ms:.1f} ms; torch.profiler recorded no device time", flush=True)
-        return
+        return None
     print(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f} "
           f"(of the unprofiled run's {timed_ms:.1f} ms: {1 - busy_ms / timed_ms:.3f}); device time by kernel:",
           flush=True)
@@ -661,6 +680,7 @@ def profile_run(run, timed_ms: float, host_ops: bool = True) -> None:
     rest = dev_events[12:]
     print(f"  {sum(e.self_device_time_total for e in rest) / 1e3:9.2f} ms  {sum(e.count for e in rest):5d}x  "
           f"{len(rest)} other kernels", flush=True)
+    return 1 - busy_ms / timed_ms
 
 
 def expected_conf_launches(model) -> dict:
@@ -2602,6 +2622,363 @@ def conf_train_run(dev, score_model) -> tuple:
     return [r for r in rows if r["name"] == "tpconv_rec_g_dm"], {"tpconv_rec_g_dm": per_step["tpconv_rec_g_dm"]}
 
 
+# ---------------------------------------------------------------------------- phase 13: serve from files
+
+
+SERVE_DIR = os.path.join(ROOT, "build", "serve_files")  # the inputs, model directories and outputs; removed
+POS_ATOL = 1e-3  # featurized positions against the cache's: the PDB's 3 decimals and the SDF's 4, in A
+SDF_ATOL = 1e-4  # a ranked SDF's coordinates (4 decimals) against the CLI's pose, in A
+POCKET_B, SVGD_B, SVGD_STEPS, INFER_SAMPLES = 8, 4, 3, 8
+# SVGD's weights, each log10 interpolated from _1 at the first step to _0 at the last
+SVGD = dict(svgd_weight_log_0=-1.0, svgd_weight_log_1=0.0, svgd_repulsive_weight_log_0=0.0,
+            svgd_repulsive_weight_log_1=1.0, svgd_kernel_size_log_0=0.0, svgd_kernel_size_log_1=0.5,
+            svgd_langevin_weight_log_0=-1.0, svgd_langevin_weight_log_1=-0.5, svgd_rot_log_rel_weight=0.3,
+            svgd_tor_log_rel_weight=-0.3)
+# heavy-atom names a residue's seeded atoms take in the PDB, the C-alpha first (atom_type_3 names)
+ATOM_NAMES = ("CA", "N", "C", "O", "CB", "CG", "CD", "CE", "NZ", "OG", "SD", "CG1", "CG2", "CD1", "CD2", "CE1", "CE2",
+              "CZ", "OH", "NE", "NH1", "NH2", "OD1", "OD2", "OE1", "OE2", "ND1", "ND2", "NE1", "NE2", "CE3", "CZ2",
+              "CZ3", "CH2", "OG1", "SG", "OXT")
+SEEDED_SMILES = "CC(C)Cc1ccc(cc1)C(C)C(=O)NCc1ccc2OCOc2c1"  # the infer check's second complex: 26 heavy atoms
+
+
+def write_pdb(path: str, residues) -> None:
+    """ATOM records of ``residues``: (name, chain, number, [(atom name, element, xyz)])."""
+    lines, serial = [], 1
+    for resname, chain, seq, atoms in residues:
+        for name, el, (x, y, z) in atoms:
+            lines.append(f"ATOM  {serial:5d} {name:<4s} {resname:>3s} {chain}{seq:4d}    {x:8.3f}{y:8.3f}{z:8.3f}  1.00"
+                         f"  0.00          {el:>2s}")
+            serial += 1
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\nEND\n")
+
+
+def write_1a0q(d: str) -> tuple:
+    """1a0q as files, from what the repository holds: the receptor as a PDB
+    (a residue per cached node, named from ``rec_f``, its C-alpha at
+    ``rec_pos + orig_center``; with it ``receptor_atoms``' seeded atoms, the
+    first of each residue's at its C-alpha, so the all-atom graph keeps 3183
+    atoms), the cache's ligand as an SDF with the explicit hydrogens its
+    features count (H counts in ``lig_f`` column 5, no implicit ones in
+    column 4: the original file carried them), seeded per-chain ESM
+    embeddings as a ``.pt`` dict. -> (protein, ligand, embeddings paths,
+    the atoms' positions [A, 3] and residues [A] as written)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import load_host_cache
+    from confidence_bootstrapping_tpu_torch.data.mol_io import Molecule, write_sdf
+    from confidence_bootstrapping_tpu_torch.data.vocab import AMINO_ACIDS
+
+    os.makedirs(d, exist_ok=True)
+    hc, mol = load_host_cache(CACHE_PKL)
+    atoms = receptor_atoms(hc.rec_f, hc.rec_pos, N_ATOMS)
+    atom_pos = atoms["atom_pos"].astype(np.float64) + hc.orig_center
+    residues = []
+    for i, f in enumerate(hc.rec_f):
+        idx = np.nonzero(atoms["atom_res"] == i)[0]
+        if len(idx) > len(ATOM_NAMES):
+            fail(f"residue {i} has {len(idx)} seeded atoms, over the {len(ATOM_NAMES)} names")
+        atom_pos[idx[0]] = hc.rec_pos[i] + hc.orig_center
+        residues.append((AMINO_ACIDS[f] if f < len(AMINO_ACIDS) else "UNK", "A", i + 1,
+                         [(n, n[0], atom_pos[j]) for n, j in zip(ATOM_NAMES, idx)]))
+    prot = os.path.join(d, "1a0q_protein_processed.pdb")
+    write_pdb(prot, residues)
+
+    rng = np.random.RandomState(3)
+    n_h = hc.lig_f[:, 5] - hc.lig_f[:, 4]
+    h_of = np.repeat(np.arange(mol.num_atoms), n_h)
+    u = rng.randn(len(h_of), 3)
+    pos = np.concatenate([mol.pos, mol.pos[h_of] + u / np.linalg.norm(u, axis=1, keepdims=True)])
+    bonds = list(mol.bonds) + [(int(a), mol.num_atoms + k, 1) for k, a in enumerate(h_of)]
+    with_h = Molecule(np.concatenate([mol.atomic_nums, np.ones(len(h_of), int)]), pos, bonds,
+                      np.zeros(len(pos), int), "1a0q_ligand")
+    lig = os.path.join(d, "1a0q_ligand.sdf")
+    write_sdf(with_h, pos, lig)
+    esm = os.path.join(d, "1a0q_esm.pt")
+    torch.save({"A": torch.as_tensor(np.random.RandomState(1).randn(len(hc.rec_f), LM_DIM).astype(np.float32))}, esm)
+    # the written (rounded) coordinates, as the featurization reads them
+    return prot, lig, esm, np.round(atom_pos, 3), atoms["atom_res"]
+
+
+def write_seeded_complex(d: str, n_res: int = 200, seed: int = 4) -> np.ndarray:
+    """A seeded second complex in other buckets (L=32, N=256): a receptor
+    of n_res residues (N, CA, C, O each) spread around the origin and the
+    ligand SEEDED_SMILES embedded and placed at its first residue. -> its
+    per-residue ESM embeddings [n_res, LM_DIM]."""
+    from confidence_bootstrapping_tpu_torch.data.conformers import mol_from_smiles
+    from confidence_bootstrapping_tpu_torch.data.mol_io import write_sdf
+    from confidence_bootstrapping_tpu_torch.data.vocab import AMINO_ACIDS
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ca = rng.randn(n_res, 3) * 9.0
+    off = {"N": [1.2, 0.8, 0.0], "C": [-1.2, 0.8, 0.0], "O": [-1.6, 2.0, 0.3]}
+    residues = [(AMINO_ACIDS[rng.randint(20)], "A", i + 1, [("CA", "C", ca[i])] + [
+        (n, n[0], ca[i] + np.asarray(o)) for n, o in off.items()]) for i in range(n_res)]
+    write_pdb(os.path.join(d, "seeded_protein_processed.pdb"), residues)
+    mol = mol_from_smiles(SEEDED_SMILES, seed=seed)
+    pos = mol.pos - mol.pos.mean(0) + ca[0] + 4.0
+    write_sdf(mol, pos, os.path.join(d, "seeded_ligand.sdf"), name="seeded")
+    return rng.randn(n_res, LM_DIM).astype(np.float32)
+
+
+def featurization_check(d, prot_atoms: np.ndarray, prot_atom_res: np.ndarray) -> None:
+    """Check 1: the complex the dock CLI featurized from the files against the
+    committed cache: ligand features, edges, torsions, mask_rotate and rec_f
+    exact; the crystal pose and the C-alphas within POS_ATOL; each residue's
+    kNN list the same set, where not, named with the margin that lets the
+    files' rounding swap it; the receptor atoms as written."""
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import load_host_cache
+
+    want, _ = load_host_cache(CACHE_PKL)
+    hc = d.hc
+    exact = {k: bool(np.array_equal(getattr(hc, k), getattr(want, k)))
+             for k in ("lig_f", "lig_edge_src", "lig_edge_dst", "lig_edge_attr", "tor_src", "tor_dst", "mask_rotate",
+                       "rec_f")}
+    lig_err = float(np.abs((hc.orig_lig_pos + hc.orig_center) - (want.orig_lig_pos + want.orig_center)).max())
+    rec_err = float(np.abs((hc.rec_pos + hc.orig_center) - (want.rec_pos + want.orig_center)).max())
+    atom_err = float(np.abs(hc.atom_pos + hc.orig_center - prot_atoms).max()) if len(hc.atom_pos) == N_ATOMS else np.inf
+    differ, unexplained = [], []
+    rp = want.rec_pos.astype(np.float64)
+    for i in range(len(hc.rec_f)):
+        a, b = set(hc.rec_nbr[i].tolist()), set(want.rec_nbr[i].tolist())
+        if a == b:
+            continue
+        d_all = np.linalg.norm(rp - rp[i], axis=1)
+        gap = abs(max(d_all[list(b - a)]) - min(d_all[list(a - b)]))  # the swapped pair's distances from residue i
+        differ.append(f"residue {i}: {sorted(a - b)} in for {sorted(b - a)} (distances {gap:.2g} A apart)")
+        if gap > 2 * POS_ATOL:
+            unexplained.append(i)
+    print(f"featurized from the files ({d.featurize_s:.3f} s): exact {exact}; crystal ligand max_abs_err {lig_err:.3g} A, "
+          f"C-alphas {rec_err:.3g} A, {len(hc.atom_pos)} receptor atoms {atom_err:.3g} A (tolerance {POS_ATOL} A); "
+          f"kNN lists differing from the cache's: {len(differ)} of {len(hc.rec_f)}", flush=True)
+    for line in differ:
+        print(f"  {line}: within the files' rounding" if int(line.split(":")[0].split()[1]) not in unexplained
+              else f"  {line}: NOT within the files' rounding")
+    if not (all(exact.values()) and max(lig_err, rec_err, atom_err) <= POS_ATOL and not unexplained
+            and np.array_equal(hc.atom_res, prot_atom_res)):
+        fail("the complex featurized from the files differs from the cache's")
+
+
+def ranked_sdf_check(out: str, pos: np.ndarray, conf: np.ndarray, center: np.ndarray) -> None:
+    """Check 2: one ranked SDF per pose, each parsing back to the CLI's pose
+    within SDF_ATOL, the ranks falling with the confidences."""
+    from confidence_bootstrapping_tpu_torch.data.mol_io import parse_sdf
+
+    files = sorted((f for f in os.listdir(out) if f.startswith("rank")), key=lambda f: int(f[4:].split("_")[0]))
+    order = np.argsort(-np.nan_to_num(conf, nan=-1e9))
+    errs = [float(np.abs(parse_sdf(os.path.join(out, f)).pos - center - pos[i]).max()) for f, i in zip(files, order)]
+    in_names = [float(f.split("_confidence")[1][:-4]) for f in files]
+    falling = all(a >= b for a, b in zip(conf[order], conf[order][1:])) and in_names == sorted(in_names, reverse=True)
+    print(f"ranked SDFs: {len(files)} written, coordinates max_abs_err {max(errs):.3g} A (tolerance {SDF_ATOL} A); "
+          f"confidences falling with rank: {falling} ({in_names[0]} to {in_names[-1]})", flush=True)
+    if len(files) != len(pos) or max(errs) > SDF_ATOL or not falling:
+        fail("the ranked SDFs do not hold the CLI's poses in confidence order")
+
+
+def cli_numbers(text: str) -> dict:
+    """The featurization seconds, poses/s and rerank ms the dock CLI printed."""
+    import re
+
+    return dict(featurize_s=float(re.search(r"featurization ([0-9.]+)s", text).group(1)),
+                poses_s=float(re.search(r"\(([0-9.]+) poses/s\)", text).group(1)),
+                rerank_ms=float(re.search(r"reranked \d+ poses in ([0-9.]+) ms", text).group(1)))
+
+
+def serve_files_phase(dev, score_model, conf_model, card: str, phase5_poses_s: float) -> None:
+    """Phase 13: dock and infer from PDB and SDF files through the CLIs
+    (``cli/dock.main``, ``cli/infer.main``) at full width: phase 5's score
+    model and phase 6's confidence model as model directories, 1a0q written
+    to files from the cache (``write_1a0q``). Checks: the featurized
+    complex against the cache; the ranked SDFs; the kernel launches of the
+    CLI's sample and rerank against the config; every kernel call of them
+    replayed through kernel and plain version; the CLI's poses against a
+    direct ``sample`` on the same padded batch and generator. Then a
+    pocket-knowledge dock, a 3-step SVGD sample card against CPU, and an
+    evaluator run over 1a0q and a seeded complex (``write_seeded_complex``).
+    Every line printed carries ``card``."""
+    import contextlib
+    import shutil
+
+    with contextlib.redirect_stdout(Tagged(sys.stdout, card)):
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+        try:
+            serve_files_run(dev, score_model, conf_model, phase5_poses_s)
+        finally:
+            shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+
+def serve_files_run(dev, score_model, conf_model, phase5_poses_s: float) -> None:
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.cli import dock, infer
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import load_host_cache, replicate_complex
+    from confidence_bootstrapping_tpu_torch.data.featurize import pocket_center
+    from confidence_bootstrapping_tpu_torch.eval.rmsd import ground_truth_poses, symmetry_rmsd
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+    from confidence_bootstrapping_tpu_torch.sampler import sampling
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    t_phase = time.perf_counter()
+    inputs = os.path.join(SERVE_DIR, "inputs")
+    prot, lig, esm, prot_atoms, prot_atom_res = write_1a0q(inputs)
+    dirs = {}
+    for name, m in (("score", score_model), ("confidence", conf_model)):
+        dirs[name] = os.path.join(SERVE_DIR, name)
+        checkpoints.save_model_dir(dirs[name], m.cfg, m)
+    device_arg = ["--device", "cpu"] if dev.type == "cpu" else []  # the card is the CLI's default
+    argv = ["--protein_path", prot, "--ligand", lig, "--samples", str(B_POSES), "--batch_size", str(B_POSES),
+            "--inference_steps", str(STEPS), "--model_dir", dirs["score"], "--confidence_model_dir",
+            dirs["confidence"], "--esm_embeddings_path", esm, "--out_dir", os.path.join(SERVE_DIR, "dock"),
+            "--seed", "0"] + device_arg
+    out = os.path.join(SERVE_DIR, "dock", "1a0q_ligand")
+
+    d = dock.prepare(dock.get_parser().parse_args(argv), dev)
+    featurization_check(d, prot_atoms, prot_atom_res)
+
+    # the dock call: counted, every kernel call recorded; its printout kept for its numbers
+    counters = dict(score_counters(), tpconv_rec_g=tpconv_g.fused_tpconv_rec_g,
+                    tpconv_cross_g=tpconv_g.fused_tpconv_cross_g)
+    for fn in counters.values():
+        fn.launches = 0
+    result, text = {}, io.StringIO()
+    with contextlib.redirect_stdout(text):
+        calls = record_calls(lambda: result.update(r=dock.main(argv)), KERNELS + CONF_KERNELS)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(text.getvalue().rstrip(), flush=True)
+    pos, conf = result["r"]
+    L = len(d.hc.lig_f)
+    if pos.shape != (B_POSES, L, 3) or not np.isfinite(pos).all() or not np.isfinite(conf).all():
+        fail("the dock CLI's poses or confidences are not finite, or not of the expected shape")
+    ranked_sdf_check(out, pos, conf, d.hc.orig_center)
+    want = dict(expected_launches(d.model, STEPS), **expected_conf_launches(d.conf_model))
+    print(f"dock CLI launches: {launches}; expected from the config (one sample of {B_POSES} poses x {STEPS} steps "
+          f"and one rerank): {want}", flush=True)
+    if launches != want:
+        fail("the dock CLI did not run every TP-conv of its sample and rerank through its kernel")
+    check_tc_builds({"tpconv_cross_g": calls["tpconv_cross_g"]}, "dock CLI rerank")
+    kernels = dict(sample_kernels(), tpconv_rec_g=(tpconv_g.fused_tpconv_rec_g, tpconv_g.tpconv_rec_g_plain, rec_work,
+                                                   "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
+                   tpconv_cross_g=(tpconv_g.fused_tpconv_cross_g, tpconv_g.tpconv_cross_g_plain, cross_g_work,
+                                   "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:547"))
+    replay(calls, kernels, bitwise=("tpconv_rec", "tpconv_pb", "tpconv_rec_g", "tpconv_cross_g"), timed=False)
+    del calls
+
+    # the CLI's poses against a direct sample on the same padded batch, with the same generator
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b0 = sampling.randomize_position(replicate_complex(d.padded, B_POSES, device=dev), gen, d.cfg.sigma.tr_sigma_max)
+    final, _ = sampling.sample(d.model, b0, d.cfg, d.sampler_cfg, gen, device=dev)
+    err = float(np.abs(final.lig_pos[:, :L].cpu().numpy() - pos).max())
+    print(f"dock CLI poses against a direct sample (plan {d.sampler_cfg.rec_phase_steps}:"
+          f"{d.sampler_cfg.rec_phase_caps}): max_abs_err {err:.3g} A (tolerance {SAMPLE_ATOL} A)", flush=True)
+    if not err <= SAMPLE_ATOL:
+        fail("the dock CLI's poses differ from a direct sample of the same batch and generator")
+
+    # timed, then under the profiler
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        dock.main(argv)
+    torch.cuda.synchronize()
+    dock_s = time.perf_counter() - t0
+    nums = cli_numbers(text.getvalue())
+    with contextlib.redirect_stdout(io.StringIO()):
+        idle = profile_run(lambda: dock.main(argv), dock_s * 1e3)
+    print(f"dock CLI, {B_POSES} poses x {STEPS} steps with the rerank: wall {dock_s:.3f} s (featurization "
+          f"{nums['featurize_s']:.3f} s, sample {nums['poses_s']:.3f} poses/s against phase 5's "
+          f"{phase5_poses_s:.3f} in this call, rerank {nums['rerank_ms']:.1f} ms); card idle "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} of the call", flush=True)
+
+    # pocket knowledge: the poses start at the pocket center
+    pk_argv = argv[:argv.index("--confidence_model_dir")] + argv[argv.index("--esm_embeddings_path"):]
+    pk_argv[pk_argv.index("--samples") + 1] = pk_argv[pk_argv.index("--batch_size") + 1] = str(POCKET_B)
+    pk_argv[pk_argv.index("--out_dir") + 1] = os.path.join(SERVE_DIR, "pocket")
+    with contextlib.redirect_stdout(io.StringIO()):
+        pk_pos, _ = dock.main(pk_argv + ["--pocket_knowledge"])
+    center = pocket_center(d.hc)
+    start = sampling.randomize_position(replicate_complex(d.padded, POCKET_B, device=dev),
+                                        torch.Generator(device=dev).manual_seed(0), d.cfg.sigma.tr_sigma_max,
+                                        no_random=True,
+                                        pocket_center=torch.as_tensor(np.tile(center, (POCKET_B, 1)), device=dev))
+    c_err = float(np.abs(start.lig_pos[:, :L].mean(1).cpu().numpy() - center).max())
+    n_files = len(os.listdir(os.path.join(SERVE_DIR, "pocket", "1a0q_ligand")))
+    print(f"pocket knowledge: {POCKET_B} poses docked ({n_files} SDFs), final centroids "
+          f"{np.linalg.norm(pk_pos.mean(1) - center, axis=1).max():.3g} A at most from the pocket center; the prior "
+          f"without noise centred on it within {c_err:.3g} A", flush=True)
+    if n_files != POCKET_B or not np.isfinite(pk_pos).all() or not c_err <= 1e-4:
+        fail("the pocket-knowledge dock failed")
+
+    # SVGD: 3 steps at B=4, the card against the CPU with the same injected noise
+    scfg = SamplerConfig(inference_steps=SVGD_STEPS, **SVGD)
+    R = d.padded["tor_src"].shape[0]
+    rng = np.random.RandomState(6)
+    zs = [[rng.randn(*s).astype(np.float32) for s in ((SVGD_B, 3), (SVGD_B, 3), (SVGD_B, R))]
+          for _ in range(SVGD_STEPS)]
+    start = b0.lig_pos[:SVGD_B].cpu()
+    ends = []
+    cpu_model = get_model(d.cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in d.model.state_dict().items()})
+    for device, model, svgd in ((dev, d.model, True), (torch.device("cpu"), cpu_model, True), (dev, d.model, False)):
+        c = scfg if svgd else SamplerConfig(inference_steps=SVGD_STEPS)
+        batch = replicate_complex(d.padded, SVGD_B, device=device).replace(lig_pos=start.to(device))
+        cache = sampling.receptor_cache(model, batch)
+        sched = sampling.make_schedules(c)
+        for i, (tr_z, rot_z, tor_z) in enumerate(zs):
+            t = lambda a: torch.as_tensor(a, device=device)
+            batch = sampling.reverse_diffusion_step(model, batch, cache, i, sched, d.cfg, c, tr_z=t(tr_z),
+                                                    rot_z=t(rot_z), tor_z=t(tor_z))
+        ends.append(batch.lig_pos.cpu())
+    err, moved = (ends[0] - ends[1]).abs().max().item(), (ends[0] - ends[2]).abs().max().item()
+    print(f"SVGD {SVGD_STEPS}-step sample at B={SVGD_B}: card against CPU max_abs_err {err:.3g} A (tolerance "
+          f"{SAMPLE_ATOL} A); SVGD moves the poses {moved:.3g} A from the plain sample's", flush=True)
+    if not (err <= SAMPLE_ATOL and moved > 0.1):
+        fail("the SVGD sample on the card disagrees with the CPU, or SVGD changes nothing")
+
+    # the evaluator over 1a0q and a seeded complex
+    data = os.path.join(SERVE_DIR, "data")
+    os.makedirs(os.path.join(data, "1a0q"))
+    for src in (prot, lig):
+        shutil.copy(src, os.path.join(data, "1a0q", os.path.basename(src)))
+    seeded_lm = write_seeded_complex(os.path.join(data, "seeded"))
+    embs = {"1a0q": torch.load(esm)["A"].numpy(), "seeded": seeded_lm}
+    torch.save(embs, os.path.join(SERVE_DIR, "infer_esm.pt"))
+    ev = os.path.join(SERVE_DIR, "eval")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        m = infer.main(["--data_dir", data, "--samples_per_complex", str(INFER_SAMPLES), "--inference_steps",
+                        str(STEPS), "--model_dir", dirs["score"], "--confidence_model_dir", dirs["confidence"],
+                        "--esm_embeddings_path", os.path.join(SERVE_DIR, "infer_esm.pt"), "--save_complexes",
+                        "--cache_path", os.path.join(SERVE_DIR, "cache"), "--out_dir", ev] + device_arg)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 2 * n for name, n in want.items()}  # a sample and a rerank per complex (one batch of 8 poses)
+    rmsds, names = np.load(os.path.join(ev, "rmsds.npy")), list(np.load(os.path.join(ev, "complex_names.npy")))
+    rmsd_err = 0.0
+    for row, name in zip(rmsds, names):
+        cached = [f for f in os.listdir(os.path.join(SERVE_DIR, "cache")) if f.startswith(f"infer_{name}_")]
+        hc, heavy = load_host_cache(os.path.join(SERVE_DIR, "cache", cached[0]))
+        poses = np.load(os.path.join(ev, "poses", f"{name}.npy"))
+        again = symmetry_rmsd(ground_truth_poses(hc), poses, heavy.atomic_nums, heavy.bonds)
+        rmsd_err = max(rmsd_err, float(np.abs(again - row).max()))
+    print(f"infer over {[str(n) for n in names]}: {infer_s:.3f} s, n_complexes {m['n_complexes']}, failures {m['failures']}, "
+          f"{m['poses_per_sec']} poses/s, mean RMSD {m['mean_rmsd']} A (random weights); RMSDs against eval/rmsd on "
+          f"the saved poses max_abs_err {rmsd_err:.3g} A (tolerance {RMSD_ATOL} A); launches {launches}, expected from "
+          f"the config {want}", flush=True)
+    if m["n_complexes"] != 2 or m["failures"] != 0 or not rmsd_err <= RMSD_ATOL or launches != want:
+        fail("the evaluator over the files failed")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -2634,6 +3011,7 @@ def check_tc_spills(spills: dict) -> None:
 def main() -> None:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if not os.path.exists(CACHE_PKL):
@@ -2664,7 +3042,7 @@ def main() -> None:
     torch.cuda.synchronize()
     model_phase(dev)
     torch.cuda.synchronize()
-    launches, final_pos = sample_phase(model, b0, run)
+    launches, final_pos, poses_s = sample_phase(model, b0, run)
     torch.cuda.synchronize()
     conf_rows, conf_launches, rerank = confidence_phase(dev, final_pos)
     torch.cuda.synchronize()
@@ -2688,6 +3066,8 @@ def main() -> None:
     torch.cuda.synchronize()
     conf_train_rows, conf_train_launches = conf_train_phase(dev, model, card)
     torch.cuda.synchronize()
+    serve_files_phase(dev, model, rerank[0], card, poses_s)
+    torch.cuda.synchronize()
 
     launches.update(conf_launches)
     launches.update(train_launches)
@@ -2697,6 +3077,7 @@ def main() -> None:
     rows += conf_rows + train_rows + conf_train_rows + eval_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -223,9 +223,10 @@ def inference_finetune(
     ``generator`` must be; ``model`` is the one trained. Returns (final
     TrainState, metric history).
 
-    ``original_dataset`` (``keep_original_train``): anything with ``len``
-    and ``epoch_batches(batch_size, rng)`` -> a list of ``ComplexBatch`` on
-    the device; its batches alternate with the buffer's."""
+    ``original_dataset`` (``keep_original_train``): a
+    ``data.dataset.ComplexDataset`` on the device, or anything else with
+    ``len`` and ``epoch_batches(batch_size, rng)`` -> a list of
+    ``ComplexBatch`` there; its batches alternate with the buffer's."""
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"inference_finetune on {dev}: move the model there first")

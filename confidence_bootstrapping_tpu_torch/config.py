@@ -131,14 +131,25 @@ def confidence_model_config(ns: int = 24, nv: int = 6, sh_lmax: int = 2, **overr
 
 @dataclass(frozen=True)
 class SamplerConfig:
-    """Reverse-diffusion sampling knobs (the subset this slice ports)."""
+    """Reverse-diffusion sampling knobs: every field of the JAX package's, in
+    its order and with its defaults."""
 
     inference_steps: int = 20
+    # run only the first actual_steps entries of the inference_steps-long schedule
     actual_steps: int | None = None
     shared_receptor: bool = True
     sigma_schedule: str = "expbeta"
     inf_sched_alpha: float = 1.0
     inf_sched_beta: float = 1.0
+    # per-manifold time schedules: rot and tor on grids of their own
+    different_schedules: bool = False
+    rot_sigma_schedule: str = "expbeta"
+    rot_inf_sched_alpha: float = 1.0
+    rot_inf_sched_beta: float = 1.0
+    tor_sigma_schedule: str = "expbeta"
+    tor_inf_sched_alpha: float = 1.0
+    tor_inf_sched_beta: float = 1.0
+    # upper limit of the tr time grid (infer sets it below 1 in pocket mode)
     t_max: float = 1.0
     no_random: bool = False
     no_final_step_noise: bool = False
@@ -146,12 +157,29 @@ class SamplerConfig:
     temp_sampling: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     temp_psi: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     temp_sigma_data: float = 0.5
+    # scale of the prior's translation noise; the CLIs pass it to
+    # randomize_position, as in the JAX package
+    initial_noise_std_proportion: float = 1.0
     rec_phase_steps: Tuple[int, ...] = ()
     rec_phase_caps: Tuple[int, ...] = ()
     rec_phase_margin: float = 5.0
     # derive the plan above per receptor when it is empty
     # (``sampler.sampling.derive_phase_plan``), as the JAX package's CLIs do
     rec_phase_auto: bool = True
+    # SVGD particle coupling across the pose batch (``sampler.sampling.
+    # _svgd_perturbations``); on when svgd_weight_log_0 and _1 are both set.
+    # Each *_log_0/_1 pair interpolates log10 of a weight over the steps.
+    svgd_weight_log_0: Optional[float] = None
+    svgd_weight_log_1: Optional[float] = None
+    svgd_repulsive_weight_log_0: Optional[float] = None
+    svgd_repulsive_weight_log_1: Optional[float] = None
+    svgd_kernel_size_log_0: Optional[float] = None
+    svgd_kernel_size_log_1: Optional[float] = None
+    svgd_langevin_weight_log_0: Optional[float] = None
+    svgd_langevin_weight_log_1: Optional[float] = None
+    svgd_rot_log_rel_weight: float = 0.0
+    svgd_tor_log_rel_weight: float = 0.0
+    svgd_use_x0: bool = False
 
 
 @dataclass(frozen=True)

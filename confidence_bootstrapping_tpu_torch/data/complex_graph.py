@@ -4,7 +4,9 @@ Port of ``confidence_bootstrapping_tpu/data/complex_graph.py`` (the score
 model's fields and the confidence model's receptor atoms): every complex is
 padded to a ``Bucket``, batching is a leading axis, neighbour relations are
 fixed-capacity padded lists and dense masks. ``atom_knn`` is the kNN part of
-the JAX package's ``data/featurize.featurize_receptor_atoms``.
+the JAX package's ``data/featurize.featurize_receptor_atoms``. The molecule
+and structure classes are ``data.mol_io``'s; a featurization cache the JAX
+package pickled reads into them (``load_host_cache``).
 """
 
 from __future__ import annotations
@@ -12,13 +14,14 @@ from __future__ import annotations
 import dataclasses
 import pickle
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
 from ..runtime import resolve_device
+from .mol_io import Molecule, ProteinStructure, Residue
 
 
 class Bucket(NamedTuple):
@@ -52,7 +55,9 @@ def pick_bucket(n_lig: int, n_bond_edges: int, n_tor: int, n_rec: int, n_atoms: 
     R = max(8, int(np.ceil(n_tor / 8)) * 8) if n_tor > 0 else 8
     N = _round_up(max(n_rec, 1), REC_SIZES)
     A = _round_up(max(n_atoms, 1), tuple(8 * s for s in REC_SIZES)) if all_atoms else 0
-    return Bucket(L=L, E=2 * L, R=R, N=N, KC=min(N, 48), A=A)
+    # 2L directed bond slots, as the JAX package; more where a ring system needs them (the JAX package then raises)
+    E = 2 * L if n_bond_edges <= 2 * L else int(np.ceil(n_bond_edges / 8)) * 8
+    return Bucket(L=L, E=E, R=R, N=N, KC=min(N, 48), A=A)
 
 
 @dataclass(frozen=True)
@@ -80,6 +85,8 @@ class ComplexBatch:
     t_rot: torch.Tensor  # f32 [B]
     t_tor: torch.Tensor  # f32 [B]
     orig_center: torch.Tensor  # f32 [B, 3]
+    # dihedral tuples (c, a, b, d) per torsion slot (SVGD's torsion angles)
+    tor_dihedral: Optional[torch.Tensor] = None  # int64 [B, R, 4]
     # receptor heavy atoms (the all-atom confidence model); None when unused
     atom_f: Optional[torch.Tensor] = None  # int64 [B, A, 4] categorical features
     atom_pos: Optional[torch.Tensor] = None  # f32 [B, A, 3]
@@ -140,44 +147,19 @@ class HostComplex(NamedTuple):
     alt_orig_lig_pos: Optional[np.ndarray] = None
 
 
-@dataclass
-class Molecule:
-    """Minimal in-memory molecule: atoms, 3D coordinates, bonds with orders
-    (bond order 4 is aromatic). The fields and properties of the JAX
-    package's ``data.mol_io.Molecule``, so that a featurization cache
-    unpickles into it and a test can build one; the symmetry RMSD reads
-    ``atomic_nums`` and ``bonds``."""
-
-    atomic_nums: np.ndarray  # [n] int
-    pos: np.ndarray  # [n, 3] float
-    bonds: List[Tuple[int, int, int]]  # (i, j, order)
-    charges: np.ndarray  # [n] int formal charges
-    name: str = ""
-
-    @property
-    def num_atoms(self):
-        return len(self.atomic_nums)
-
-    def heavy_indices(self):
-        return np.nonzero(self.atomic_nums != 1)[0]
-
-    def replace_pos(self, pos: np.ndarray) -> "Molecule":
-        """Same topology with new coordinates (conformer swap)."""
-        assert pos.shape == self.pos.shape, (pos.shape, self.pos.shape)
-        return Molecule(self.atomic_nums, np.asarray(pos, dtype=self.pos.dtype), self.bonds, self.charges, self.name)
-
-
 class _CacheUnpickler(pickle.Unpickler):
     _CLASSES = {
         ("confidence_bootstrapping_tpu.data.complex_graph", "HostComplex"): HostComplex,
         ("confidence_bootstrapping_tpu.data.mol_io", "Molecule"): Molecule,
+        ("confidence_bootstrapping_tpu.data.mol_io", "Residue"): Residue,
+        ("confidence_bootstrapping_tpu.data.mol_io", "ProteinStructure"): ProteinStructure,
     }
 
     def find_class(self, module, name):
         cls = self._CLASSES.get((module, name))
         if cls is not None:
             return cls
-        if module.startswith("confidence_bootstrapping_tpu"):
+        if module.split(".")[0] == "confidence_bootstrapping_tpu":
             raise pickle.UnpicklingError(f"{module}.{name} has no counterpart in the port")
         return super().find_class(module, name)
 
@@ -234,6 +216,7 @@ def pad_complex(hc: HostComplex, bucket: Bucket, lm_dim: int = 1280) -> dict:
         t_rot=np.zeros((), np.float32),
         t_tor=np.zeros((), np.float32),
         orig_center=hc.orig_center.astype(np.float32),
+        tor_dihedral=tor_dihedral(hc, R),
     )
     if bucket.A and hc.atom_f is not None:
         a, A, KA = len(hc.atom_f), bucket.A, bucket.KA
@@ -249,6 +232,23 @@ def pad_complex(hc: HostComplex, bucket: Bucket, lm_dim: int = 1280) -> dict:
             atom_res=pad(hc.atom_res.astype(np.int64), (A,)),
         )
     return out
+
+
+def tor_dihedral(hc: HostComplex, R: int) -> np.ndarray:
+    """[R, 4] int64 dihedral tuples (c, a, b, d) of the rotatable bonds, as
+    the JAX package's ``pad_complex`` builds them: c is the first bond
+    neighbour of a that is not b, d the first of b that is not a (the bond's
+    own atom where there is none); zero rows for the padded slots."""
+    dih = np.zeros((R, 4), dtype=np.int64)
+    adj: dict = {}
+    for s_, d_ in zip(hc.lig_edge_src, hc.lig_edge_dst):
+        adj.setdefault(int(s_), []).append(int(d_))
+    for k in range(len(hc.tor_src)):
+        a, b = int(hc.tor_src[k]), int(hc.tor_dst[k])
+        c = next((x for x in adj.get(a, []) if x != b), a)
+        d = next((x for x in adj.get(b, []) if x != a), b)
+        dih[k] = [c, a, b, d]
+    return dih
 
 
 def atom_knn(atom_pos: np.ndarray, atom_radius: float = 5.0, atom_max_neighbors: int = 8):

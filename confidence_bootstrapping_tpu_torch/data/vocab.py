@@ -1,16 +1,21 @@
-"""Categorical feature vocabularies the encoders need.
+"""Categorical feature vocabularies of the host featurization and the models.
 
-Copy of ``confidence_bootstrapping_tpu/data/vocab.py`` (the reference's
-``allowable_features`` order) for the sizes the models read. Each size counts
-a trailing 'misc' slot.
+Copy of ``confidence_bootstrapping_tpu/data/vocab.py``: the reference's
+``allowable_features`` categories in the same order, so feature indices are
+interchangeable between the packages. Out-of-vocabulary values map to the
+trailing 'misc' slot (``safe_index``).
 """
 
-# 118 atomic numbers, 4 chiralities, 11 degrees, 11 formal charges,
-# 7 implicit valences, 9 H counts, 5 radical counts, 5 hybridizations,
-# aromatic, 7 ring counts, in-ring-of-size 3..8
-LIG_FEATURE_DIMS = (119, 4, 12, 12, 8, 10, 6, 6, 2, 8, 2, 2, 2, 2, 2, 2)
 
 ATOMIC_NUMS = list(range(1, 119))  # +misc
+CHIRALITY = ["CHI_UNSPECIFIED", "CHI_TETRAHEDRAL_CW", "CHI_TETRAHEDRAL_CCW", "CHI_OTHER"]
+DEGREE = list(range(11))  # +misc
+NUMRING = list(range(7))  # +misc
+IMPLICIT_VALENCE = list(range(7))  # +misc
+FORMAL_CHARGE = list(range(-5, 6))  # +misc
+NUM_H = list(range(9))  # +misc
+NUM_RADICAL_E = list(range(5))  # +misc
+HYBRIDIZATION = ["SP", "SP2", "SP3", "SP3D", "SP3D2"]  # +misc
 
 AMINO_ACIDS = [
     "ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
@@ -31,8 +36,34 @@ ATOM_TYPE_3 = [
     "OH", "OXT", "SD", "SG",
 ]  # +misc
 
-# residue type (38)
+# ligand: 16 categorical features, in reference column order
+LIG_FEATURE_DIMS = (
+    len(ATOMIC_NUMS) + 1,
+    len(CHIRALITY),
+    len(DEGREE) + 1,
+    len(FORMAL_CHARGE) + 1,
+    len(IMPLICIT_VALENCE) + 1,
+    len(NUM_H) + 1,
+    len(NUM_RADICAL_E) + 1,
+    len(HYBRIDIZATION) + 1,
+    2,  # is_aromatic
+    len(NUMRING) + 1,
+    2, 2, 2, 2, 2, 2,  # in ring of size 3..8
+)
+
 REC_RESIDUE_FEATURE_DIMS = (len(AMINO_ACIDS) + 1,)
 
-# receptor heavy atoms: residue type, element, 2-letter and full atom name
-REC_ATOM_FEATURE_DIMS = (len(AMINO_ACIDS) + 1, len(ATOMIC_NUMS) + 1, len(ATOM_TYPE_2) + 1, len(ATOM_TYPE_3) + 1)
+REC_ATOM_FEATURE_DIMS = (
+    len(AMINO_ACIDS) + 1,
+    len(ATOMIC_NUMS) + 1,
+    len(ATOM_TYPE_2) + 1,
+    len(ATOM_TYPE_3) + 1,
+)
+
+
+def safe_index(lst, value):
+    """Index of value in lst, or len(lst) ('misc') if absent."""
+    try:
+        return lst.index(value)
+    except ValueError:
+        return len(lst)

@@ -1,8 +1,9 @@
 """Rotation representations and batched Kabsch alignment.
 
 Port of the parts of ``confidence_bootstrapping_tpu/ops/geometry.py`` that
-sampling reads: quaternion/axis-angle to matrix and the reflection-corrected
-Kabsch fit. Shape-polymorphic over leading batch dims.
+sampling reads: quaternion/axis-angle to matrix and back (SVGD compares
+poses by the rotation vector of their Kabsch fit) and the
+reflection-corrected Kabsch fit. Shape-polymorphic over leading batch dims.
 """
 
 from __future__ import annotations
@@ -44,6 +45,37 @@ def axis_angle_to_quaternion(v: torch.Tensor) -> torch.Tensor:
 def axis_angle_to_matrix(v: torch.Tensor) -> torch.Tensor:
     """Rotation vector [..., 3] -> rotation matrix [..., 3, 3]."""
     return quaternion_to_matrix(axis_angle_to_quaternion(v))
+
+
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion [..., 4] (real first), the
+    best-conditioned of the four candidates."""
+    f = m.reshape(m.shape[:-2] + (9,))
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = f.unbind(-1)
+    q_abs = torch.sqrt(torch.clamp(torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                                                1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1), min=0.0))
+    cand = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+    ], dim=-2) / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
+    best = torch.argmax(q_abs, dim=-1)
+    return torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 4))).squeeze(-2)
+
+
+def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (real first) -> rotation vector [..., 3]."""
+    half = torch.atan2(torch.linalg.norm(q[..., 1:], dim=-1, keepdim=True), q[..., :1])
+    angles = 2 * half
+    small = torch.abs(angles) < 1e-6
+    sin_half_over = torch.where(small, 0.5 - angles * angles / 48, torch.sin(half) / torch.where(small, 1.0, angles))
+    return q[..., 1:] / sin_half_over
+
+
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> rotation vector [..., 3]."""
+    return quaternion_to_axis_angle(matrix_to_quaternion(m))
 
 
 def rigid_transform_kabsch(A: torch.Tensor, B: torch.Tensor, mask=None):

@@ -5,6 +5,7 @@ Port of ``apply_torsion_updates`` from
 torsion slots becomes a Python loop in the same order (order matters when
 rotated atom sets nest). For rotatable edge (u, v) the axis is
 pos[u] - pos[v] and the atoms flagged in ``mask_rotate`` rotate about pos[v].
+``get_torsion_angles`` measures the dihedrals SVGD compares.
 """
 
 from __future__ import annotations
@@ -30,3 +31,25 @@ def apply_torsion_updates(pos, tor_src, tor_dst, mask_rotate, updates, tor_mask)
         sel = (mask_rotate[:, r] & tor_mask[:, r, None])[..., None]
         p = torch.where(sel, rotated, p)
     return p
+
+
+def _bdot(a, b):
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def get_torsion_angles(dihedral, pos):
+    """Current torsion angles of dihedral tuples (c, a, b, d): dihedral
+    [R, 4] int, pos [B, L, 3] -> angles [B, R] in (-pi, pi), by the JAX
+    package's projection formula."""
+    c, a, b, d = (dihedral[:, k].long() for k in range(4))
+    pa, pb, pc, pd = pos[:, a], pos[:, b], pos[:, c], pos[:, d]
+    ab = pb - pa
+    c_proj = pa + _bdot(pc - pa, ab) / (_bdot(ab, ab) + 1e-12) * ab
+    d_proj = pa + _bdot(pd - pa, ab) / (_bdot(ab, ab) + 1e-12) * ab
+    v1 = pd - d_proj
+    v2 = pc - c_proj
+    cos = _bdot(v1, v2) / (torch.linalg.norm(v1, dim=-1, keepdim=True) * torch.linalg.norm(v2, dim=-1, keepdim=True)
+                           + 1e-12)
+    angle = torch.arccos(torch.clamp(cos, -1 + 1e-5, 1 - 1e-5))
+    sign = torch.sign(_bdot(torch.linalg.cross(v1, v2, dim=-1), ab))
+    return (angle * sign)[..., 0]

@@ -1,7 +1,8 @@
 """Reverse diffusion on T(3) x SO(3) x T^m.
 
 Port of ``confidence_bootstrapping_tpu/sampler/sampling.py`` for the serving
-path: ``randomize_position``, ``make_schedules``, ``reverse_diffusion_step``,
+path: ``randomize_position`` (with a pocket center), ``make_schedules``
+(with per-manifold schedules), ``reverse_diffusion_step`` (with SVGD),
 the shared receptor embedding, phased receptor compaction
 (``_phase_plan``/``_compact_receptor``) and ``sample``. The ``lax.scan`` is a
 Python loop and the ``lax.cond`` a Python branch. Randomness comes from an
@@ -12,8 +13,8 @@ confidence model (crop and compaction per pose, or a shared receptor
 embedding). The evaluator's per-complex host steps are here too:
 ``derive_phase_plan`` (host numpy, the same tuples as the JAX package's),
 ``with_derived_plan`` (the CLIs' ``rec_phase_auto`` default) and the cross
-cap telemetry ``cross_overflow_stats``. SVGD and ``score_confidence``'s
-``embed_full_receptor`` option are not ported.
+cap telemetry ``cross_overflow_stats``. ``score_confidence``'s
+``embed_full_receptor`` option is not ported.
 """
 
 from __future__ import annotations
@@ -29,40 +30,51 @@ import torch
 from ..config import SamplerConfig, ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
 from ..models.all_atom_model import crop_to_caps
-from ..ops.geometry import quaternion_to_matrix
+from ..ops.geometry import matrix_to_axis_angle, quaternion_to_matrix, rigid_transform_kabsch
 from ..ops.graph_builders import pairwise_dist, radius_mask
 from ..ops.poses import modify_conformer
 from ..ops.schedules import get_t_schedule, t_to_sigma
-from ..ops.torsion import apply_torsion_updates
+from ..ops.torsion import apply_torsion_updates, get_torsion_angles
 from ..runtime import resolve_device
 
 
-def uniform_rotation(generator: torch.Generator, n: int, device) -> torch.Tensor:
-    """n uniform random rotation matrices via normalized quaternions."""
-    q = torch.randn(n, 4, generator=generator, device=device)
+def uniform_rotation(generator: torch.Generator, n: int, device, q=None) -> torch.Tensor:
+    """n uniform random rotation matrices via normalized quaternions (the
+    quaternions ``q`` [n, 4] drawn from ``generator`` unless given)."""
+    if q is None:
+        q = torch.randn(n, 4, generator=generator, device=device)
     return quaternion_to_matrix(q / torch.linalg.norm(q, dim=-1, keepdim=True))
 
 
-def randomize_position(batch: ComplexBatch, generator: torch.Generator, tr_sigma_max: float,
-                       no_torsion: bool = False, no_random: bool = False,
-                       initial_noise_std_proportion: float = 1.0) -> ComplexBatch:
+def randomize_position(batch: ComplexBatch, generator: Optional[torch.Generator], tr_sigma_max: float,
+                       no_torsion: bool = False, no_random: bool = False, pocket_center=None,
+                       initial_noise_std_proportion: float = 1.0, *, tor_u=None, rot_q=None,
+                       tr_z=None) -> ComplexBatch:
     """Random torsions, orientation and position around the receptor center
-    (the t=1 prior). Draws torsions, then rotations, then the translation."""
+    (the t=1 prior), or around ``pocket_center`` [B, 3] where given (the
+    CLIs' pocket-aware start). Draws torsions, then rotations, then the
+    translation from ``generator``, unless they are given: ``tor_u`` [B, R]
+    radians, ``rot_q`` [B, 4] unnormalized quaternions, ``tr_z`` [B, 3]
+    standard normal."""
     B = batch.batch_size
     dev = batch.lig_pos.device
     pos = batch.lig_pos
     if not no_torsion:
-        u = torch.rand(batch.tor_src.shape, generator=generator, device=dev) * (2 * math.pi) - math.pi
-        pos = apply_torsion_updates(pos, batch.tor_src, batch.tor_dst, batch.mask_rotate, u, batch.tor_mask)
+        if tor_u is None:
+            tor_u = torch.rand(batch.tor_src.shape, generator=generator, device=dev) * (2 * math.pi) - math.pi
+        pos = apply_torsion_updates(pos, batch.tor_src, batch.tor_dst, batch.mask_rotate, tor_u, batch.tor_mask)
     m = batch.lig_mask.to(pos.dtype)[..., None]
     center = torch.sum(pos * m, dim=1, keepdim=True) / torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
-    rot = uniform_rotation(generator, B, dev)
-    rm = batch.rec_mask.to(pos.dtype)[..., None]
-    pocket = torch.sum(batch.rec_pos * rm, dim=1) / torch.clamp(torch.sum(rm, dim=1), min=1.0)
-    pos = torch.einsum("bld,bed->ble", pos - center, rot) + pocket[:, None, :]
+    rot = uniform_rotation(generator, B, dev, rot_q)
+    if pocket_center is None:
+        rm = batch.rec_mask.to(pos.dtype)[..., None]
+        pocket_center = torch.sum(batch.rec_pos * rm, dim=1) / torch.clamp(torch.sum(rm, dim=1), min=1.0)
+    pocket_center = torch.as_tensor(pocket_center, dtype=pos.dtype, device=dev)
+    pos = torch.einsum("bld,bed->ble", pos - center, rot) + pocket_center[:, None, :]
     if not no_random:
-        tr = torch.randn(B, 3, generator=generator, device=dev) * tr_sigma_max * initial_noise_std_proportion
-        pos = pos + tr[:, None, :]
+        if tr_z is None:
+            tr_z = torch.randn(B, 3, generator=generator, device=dev)
+        pos = pos + (tr_z * tr_sigma_max * initial_noise_std_proportion)[:, None, :]
     return batch.replace(lig_pos=pos)
 
 
@@ -81,10 +93,26 @@ def num_steps(cfg: SamplerConfig) -> int:
 
 
 def make_schedules(cfg: SamplerConfig) -> Schedules:
-    t = get_t_schedule(cfg.inference_steps, cfg.sigma_schedule, cfg.inf_sched_alpha, cfg.inf_sched_beta,
-                       t_max=cfg.t_max)[: num_steps(cfg)]
-    dt = (t - np.concatenate([t[1:], np.zeros(1, np.float32)])).astype(np.float32)
-    return Schedules(t, t, t, dt, dt, dt)
+    """The time grids of the executed steps and their decrements; with
+    ``different_schedules`` rot and tor follow grids of their own (without
+    ``t_max``, as in the JAX package)."""
+    t_tr = get_t_schedule(cfg.inference_steps, cfg.sigma_schedule, cfg.inf_sched_alpha, cfg.inf_sched_beta,
+                          t_max=cfg.t_max)
+    if cfg.different_schedules:
+        t_rot = get_t_schedule(cfg.inference_steps, cfg.rot_sigma_schedule, cfg.rot_inf_sched_alpha,
+                               cfg.rot_inf_sched_beta)
+        t_tor = get_t_schedule(cfg.inference_steps, cfg.tor_sigma_schedule, cfg.tor_inf_sched_alpha,
+                               cfg.tor_inf_sched_beta)
+    else:
+        t_rot = t_tor = t_tr
+    n = num_steps(cfg)
+
+    def cut(t):
+        t = np.asarray(t[:n], np.float32)
+        return t, (t - np.concatenate([t[1:], np.zeros(1, np.float32)])).astype(np.float32)
+
+    (t_tr, dt_tr), (t_rot, dt_rot), (t_tor, dt_tor) = cut(t_tr), cut(t_rot), cut(t_tor)
+    return Schedules(t_tr, t_rot, t_tor, dt_tr, dt_rot, dt_tor)
 
 
 def _g(sigma, smax: float, smin: float):
@@ -141,10 +169,84 @@ def reverse_diffusion_step(model, batch: ComplexBatch, rec_cache, step_idx: int,
         rot_perturb = rot_g**2 * dt_rot * (lam_rot + t1 * p1 / 2) * rot_score + rot_g * torch.sqrt(dt_rot * (1 + p1)) * rot_z
         tor_perturb = tor_g**2 * dt_tor * (lam_tor + t2 * p2 / 2) * tor_score + tor_g * torch.sqrt(dt_tor * (1 + p2)) * tor_z
 
+    if cfg.svgd_weight_log_0 is not None and cfg.svgd_weight_log_1 is not None and not cfg.ode:
+        tr_perturb, rot_perturb, tor_perturb = _svgd_perturbations(
+            batch, cfg, step_idx / num_steps(cfg), (tr_score, rot_score, tor_score), (tr_z, rot_z, tor_z),
+            (tr_g, rot_g, tor_g), (dt_tr, dt_rot, dt_tor), sched, step_idx, model_cfg)
+
     new_pos = modify_conformer(batch.lig_pos, batch.lig_mask, tr_perturb, rot_perturb,
                                None if model_cfg.no_torsion else tor_perturb,
                                batch.tor_src, batch.tor_dst, batch.mask_rotate, batch.tor_mask)
     return batch.replace(lig_pos=new_pos)
+
+
+def _svgd_perturbations(batch: ComplexBatch, cfg: SamplerConfig, t_frac: float, scores, zs, gs, dts,
+                        sched: Schedules, step_idx: int, model_cfg: ScoreModelConfig):
+    """SVGD particle coupling across the pose batch (the JAX package's
+    ``sampler/sampling.py:212-300``): the pairwise centroid, Kabsch
+    rotation-vector and torsion-angle differences of the B poses drive a
+    kernelized repulsion added to a tempered Langevin update. Each weight is
+    10 ** (log_0 t_frac + log_1 (1 - t_frac)), 1 where a pair is unset. ->
+    (tr, rot, tor) perturbations."""
+    (tr_score, rot_score, tor_score), (tr_z, rot_z, tor_z) = scores, zs
+    (tr_g, rot_g, tor_g), (dt_tr, dt_rot, dt_tor) = gs, dts
+    B, R = batch.batch_size, batch.tor_src.shape[1]
+
+    def interp(a, b):
+        return 1.0 if a is None or b is None else 10 ** (a * t_frac + b * (1 - t_frac))
+
+    svgd_weight = interp(cfg.svgd_weight_log_0, cfg.svgd_weight_log_1)
+    repulsive_w = interp(cfg.svgd_repulsive_weight_log_0, cfg.svgd_repulsive_weight_log_1)
+    kernel_size = interp(cfg.svgd_kernel_size_log_0, cfg.svgd_kernel_size_log_1)
+    langevin_w = interp(cfg.svgd_langevin_weight_log_0, cfg.svgd_langevin_weight_log_1)
+    rot_rel, tor_rel = 10 ** cfg.svgd_rot_log_rel_weight, 10 ** cfg.svgd_tor_log_rel_weight
+
+    pos = batch.lig_pos
+    if cfg.svgd_use_x0:  # compare the poses' one-step estimates of the clean pose
+        def t(a):
+            return float(a[step_idx])
+
+        pos = modify_conformer(pos, batch.lig_mask, tr_g**2 * t(sched.t_tr) * tr_score,
+                               rot_g**2 * t(sched.t_rot) * rot_score,
+                               None if model_cfg.no_torsion else tor_g**2 * t(sched.t_tor) * tor_score,
+                               batch.tor_src, batch.tor_dst, batch.mask_rotate, batch.tor_mask)
+
+    mask = batch.lig_mask[0]
+    m = mask.to(pos.dtype)[:, None]
+    centroid = torch.sum(pos * m, dim=1) / torch.clamp(m.sum(), min=1.0)  # [B, 3]
+    tr_diff = centroid[None, :, :] - centroid[:, None, :]  # [i, j] = c_j - c_i
+    pi, pj = pos[:, None].expand(B, B, *pos.shape[1:]), pos[None, :].expand(B, B, *pos.shape[1:])
+    rot_diff = matrix_to_axis_angle(rigid_transform_kabsch(pi, pj, mask.expand(B, B, -1))[0])  # [B, B, 3]
+    tr_mat = torch.sum(tr_diff**2, -1, keepdim=True)
+    rot_mat = torch.sum(rot_diff**2, -1, keepdim=True)
+
+    has_tor = bool(R) and not model_cfg.no_torsion and batch.tor_dihedral is not None
+    if has_tor:
+        tau = torch.where(batch.tor_mask, get_torsion_angles(batch.tor_dihedral[0], pos), 0.0)
+        tau_diff = torch.remainder(tau[:, None, :] - tau[None, :, :] + 3 * math.pi, 2 * math.pi) - math.pi
+        tor_mat = torch.sum(tau_diff**2, -1, keepdim=True)
+    else:
+        tor_mat = 0.0
+
+    total = tr_mat + rot_rel * rot_mat + tor_rel * tor_mat  # [B, B, 1]
+    med2 = torch.quantile(total, 0.5, dim=1, keepdim=True)  # the median, averaging the middle two as numpy's
+    h = kernel_size * med2 / max(math.log(float(B)), 1.0) + 1e-9
+    k = torch.exp(-total / h)
+    tr_rep = torch.sum(2 / h * tr_diff * k, dim=1)
+    rot_rep = torch.sum(2 / h * rot_rel * rot_diff * k, dim=1)
+
+    tr_perturb = (0.5 * tr_g**2 * dt_tr * tr_score
+                  + langevin_w * (0.5 * tr_g**2 * dt_tr * tr_score + tr_g * torch.sqrt(dt_tr) * tr_z)
+                  + svgd_weight * (tr_g**2 * dt_tr * (tr_score + repulsive_w * tr_rep / B)))
+    rot_perturb = (0.5 * rot_g**2 * dt_rot * rot_score
+                   + langevin_w * (0.5 * rot_g**2 * dt_rot * rot_score + rot_g * torch.sqrt(dt_rot) * rot_z)
+                   + svgd_weight * (rot_g**2 * dt_rot * (rot_score + repulsive_w * rot_rep / B)))
+    tor_perturb = (0.5 * tor_g**2 * dt_tor * tor_score
+                   + langevin_w * (0.5 * tor_g**2 * dt_tor * tor_score + tor_g * torch.sqrt(dt_tor) * tor_z))
+    if has_tor:
+        tor_rep = torch.sum(2 / h * tor_rel * tau_diff * k, dim=1)
+        tor_perturb = tor_perturb + svgd_weight * (tor_g**2 * dt_tor * (tor_score + repulsive_w * tor_rep / B))
+    return tr_perturb, rot_perturb, tor_perturb
 
 
 def _compact_receptor(batch: ComplexBatch, rec_cache, radius, cap: int):

@@ -449,10 +449,12 @@ def test_reference_manifest_translation_matches_jax_on_drawn_flags(manifest):
 
 def test_the_port_imports_no_jax_flax_msgpack_or_yaml():
     """Every module of the port (and chip_smoke.py) imports in a process
-    where importing jax, flax, msgpack, yaml or the JAX package raises."""
+    where importing jax, flax, msgpack, yaml, networkx (the card's machine
+    has none) or the JAX package raises; the host data layer and the CLIs
+    among them."""
     code = """
 import importlib, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "confidence_bootstrapping_tpu"}
+BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "networkx", "confidence_bootstrapping_tpu"}
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -471,3 +473,6 @@ print(",".join(names), sorted(m for m in sys.modules if m.split(".")[0] in BLOCK
     names = names.split(",")
     assert len(names) >= 30 and loaded.strip() == "[]"
     assert {f"confidence_bootstrapping_tpu_torch.confidence.{m}" for m in ("dataset", "train")} <= set(names)
+    assert {f"confidence_bootstrapping_tpu_torch.{m}" for m in (
+        "data.mol_io", "data.parse_chi", "data.featurize", "data.conformers", "data.dataset", "data.moad",
+        "data.esm_prep", "eval.relax", "cli.dock", "cli.infer")} <= set(names)

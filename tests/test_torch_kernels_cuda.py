@@ -867,3 +867,67 @@ def test_tpconv_composed_routes_on_the_card(dev):
     _close(got_c, plain_c)
     _close(got_r, plain_r)
     _close(got_m, plain_m)
+
+
+def test_dock_cli_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
+    """``cli/dock.main`` from PDB and SDF files at a tiny config (ns=8, 3
+    steps, 4 poses, a tiny all-atom confidence model): on the card, every
+    TP-conv through its kernel, and its poses within 1e-2 A of the same call
+    on the CPU (the sampler's card-against-CPU tolerance) with the prior's
+    and the steps' draws injected, its confidences within 1e-3 x max(1,
+    max |cpu|)."""
+    import os
+
+    import numpy as np
+
+    from confidence_bootstrapping_tpu_torch.cli import dock
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, confidence_model_config
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.sampler import sampling
+    from confidence_bootstrapping_tpu_torch.train.checkpoints import save_model_dir
+    from test_torch_files import write_complex
+
+    prot, lig = write_complex(str(tmp_path), "c0", seed=5, n_res=60)
+    dirs = {}
+    for name, cfg in (("score", ScoreModelConfig(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1,
+                                                 lm_embedding_dim=0)),
+                      ("conf", confidence_model_config(ns=8, nv=2, num_conv_layers=2, lm_embedding_dim=0))):
+        dirs[name] = str(tmp_path / name)
+        save_model_dir(dirs[name], cfg, get_model(cfg, device="cpu"))
+    rng = np.random.RandomState(9)
+    draws = {}
+
+    def draw(key, shape, device):
+        if key not in draws:
+            draws[key] = rng.randn(*shape).astype(np.float32)
+        return torch.as_tensor(draws[key], device=device)
+
+    real_prior, real_step = sampling.randomize_position, sampling.reverse_diffusion_step
+
+    def prior(batch, generator, tr_sigma_max, *a, **k):
+        B, R, d = batch.batch_size, batch.tor_src.shape[1], batch.lig_pos.device
+        return real_prior(batch, generator, tr_sigma_max, *a, tor_u=draw("tor", (B, R), d), rot_q=draw("rot", (B, 4), d),
+                          tr_z=draw("tr", (B, 3), d), **k)
+
+    def step(model, batch, rec_cache, i, *a, **k):
+        B, R, d = batch.batch_size, batch.tor_src.shape[1], batch.lig_pos.device
+        return real_step(model, batch, rec_cache, i, *a, tr_z=draw(("tr", i), (B, 3), d),
+                         rot_z=draw(("rot", i), (B, 3), d), tor_z=draw(("tor", i), (B, R), d), **k)
+
+    monkeypatch.setattr(sampling, "randomize_position", prior)
+    monkeypatch.setattr(sampling, "reverse_diffusion_step", step)
+    counters = (tpconv_rec.fused_tpconv_rec, tpconv_lig.fused_tpconv_pb, tpconv_g.fused_tpconv_rec_g,
+                tpconv_g.fused_tpconv_cross_g)
+    out = {}
+    for device in ("cuda", "cpu"):  # the card first: it builds the score-norm tables
+        before = [c.launches for c in counters]
+        out[device] = dock.main(["--protein_path", prot, "--ligand", lig, "--samples", "4", "--batch_size", "4",
+                                 "--inference_steps", "3", "--model_dir", dirs["score"], "--confidence_model_dir",
+                                 dirs["conf"], "--out_dir", str(tmp_path / device), "--device", device])
+        torch.cuda.synchronize()
+        if device == "cuda":
+            assert all(c.launches > b for c, b in zip(counters, before))
+        assert len([f for f in os.listdir(tmp_path / device / "c0_ligand") if f.startswith("rank")]) == 4
+    (pos, conf), (pos_cpu, conf_cpu) = out["cuda"], out["cpu"]
+    assert np.isfinite(pos).all() and np.abs(pos - pos_cpu).max() <= 1e-2
+    assert np.abs(conf - conf_cpu).max() <= 1e-3 * max(1.0, np.abs(conf_cpu).max())
