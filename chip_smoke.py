@@ -151,6 +151,30 @@ Phases (each one fails the script when it fails):
      ``metrics.json`` with 2 complexes and no failure, the RMSDs those of
      ``eval/rmsd`` on the saved poses. Every line carries the card's name and
      power limit.
+ 14. train from files through the training CLIs at full width: 1a0q and the
+     seeded complex as files, 64 seeded small molecules as SDFs, phase 5's and
+     phase 6's architectures as model directories without ESM features (the
+     CLIs featurize none). ``cli.train`` over the two complexes (the default
+     ``ScoreModelConfig``, batch 16, 2 epochs, the benchmark each epoch at 8
+     poses x 20 steps, conformer matching on and timed apart): every step's
+     launches against the config, every checkpoint file back bit for bit,
+     the train-state bundle and history; a second call with
+     ``--restart_dir`` resumes at epoch 2 and one more step from the bundle
+     matches the first call's state; one epoch under torch.profiler (idle
+     share). ``cli.train --dataset torsional`` on the molecules (batch 16, 2
+     epochs; launches per step as the ligand layers imply), a B=2 torsional
+     step card against CPU, every row 7/10/11 call of a step and every row
+     2/5 call of an eval step (row 5 at a ligand's own size) replayed
+     through kernel and plain version, every edge-list call on a tensor-core
+     build. ``cli.bootstrap_gen`` with both models (8 poses x 20 steps, the
+     cutoff at the median confidence of the same draws; the pickle back),
+     then ``cli.train --add_bootstrapping_dataset`` on it; ``cli.finetune``
+     (one epoch, one round, fixed_length 32: no failed round, launches per
+     round and step, the workdir back); ``cli.confidence_train`` at phase 6's
+     width (a cache of 4 poses x 20 steps, one epoch of 4 batches at 16, the
+     workdir loaded onto the card, the validation loss finite, then
+     ``--test`` at 2 poses). Every line carries the card's name and power
+     limit.
 Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
@@ -969,6 +993,8 @@ def replay_train_ops(calls: dict, timed: bool = True) -> list:
 
     rows = []
     for name, replaces in TRAIN_OPS.items():
+        if not calls[name]:  # a ligand-only (torsional) step has no receptor op
+            continue
         ms = []
         for args, kw in calls[name]:
             args = list(args)
@@ -2979,6 +3005,503 @@ def serve_files_run(dev, score_model, conf_model, phase5_poses_s: float) -> None
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------- phase 14: the training CLIs from files
+
+
+TRAIN_DIR = os.path.join(ROOT, "build", "train_files")  # inputs, model directories, caches and workdirs; removed
+TRAIN_B, TRAIN_EPOCHS, BENCH_SAMPLES = 16, 2, 8  # cli.train: --batch_size, --n_epochs, --inference_samples
+TORS_B, TORS_EPOCHS, TORS_CPU_B = 16, 2, 2  # the torsional CLI's batch and epochs; the card-against-CPU step's batch
+GEN_SAMPLES, FT_FIXED = 8, 32  # bootstrap_gen's and finetune's samples a target; finetune's --fixed_length
+CT_SAMPLES, CT_BATCHES, CT_TEST_SAMPLES, CT_NS, CT_NV = 4, 4, 2, 24, 6  # confidence_train's cache, batches, --test, width
+TRAIN_OVERLAY = None  # a --config overlay for every score model of the phase (None: the CLI's default, full width)
+# the torsional set: 16 molecules of 5-19 heavy atoms, each with a rotatable bond, from 2 seeds at 2 orientations each
+MOL_SMILES = ("CCCCO", "CC(C)Cc1ccccc1", "OCCN(C)CC", "CCOC(=O)CCN", "c1ccccc1CCc1ccccc1", "CC(=O)Nc1ccc(O)cc1",
+              "CCN(CC)CCOC(=O)c1ccc(N)cc1", "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "COc1ccccc1CN", "CCCC(=O)OC",
+              "NCCc1ccc(O)c(O)c1", "CC(C)NCC(O)COc1cccc2ccccc12", "OC(=O)CCc1ccccc1", "CCSCC(N)C(=O)O",
+              "CC(C)(C)OC(=O)NCC", "Cc1ccc(S(=O)(=O)NC)cc1")
+MOL_SEEDS, MOL_TURNS = 2, 2
+
+
+def write_molecules(d: str) -> int:
+    """The torsional set as SDFs: each of MOL_SMILES embedded from MOL_SEEDS
+    seeds (``mol_from_smiles``), each conformer written at MOL_TURNS seeded
+    orientations. -> the number of files."""
+    from scipy.spatial.transform import Rotation
+
+    from confidence_bootstrapping_tpu_torch.data.conformers import mol_from_smiles
+    from confidence_bootstrapping_tpu_torch.data.mol_io import write_sdf
+
+    os.makedirs(d, exist_ok=True)
+    rng, n = np.random.RandomState(9), 0
+    for smi in MOL_SMILES:
+        for seed in range(MOL_SEEDS):
+            mol = mol_from_smiles(smi, seed=seed)
+            for _ in range(MOL_TURNS):
+                rot = Rotation.random(random_state=rng).as_matrix()
+                write_sdf(mol, (mol.pos - mol.pos.mean(0)) @ rot.T, os.path.join(d, f"mol{n:03d}.sdf"), name=f"mol{n:03d}")
+                n += 1
+    return n
+
+
+def nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def expected_torsional_launches(model) -> dict:
+    """Kernel launches of one torsional training step: per ligand-embedding
+    layer the pairs (K-sum) and the bonds (per edge), and the torsion conv
+    (per edge), on the edge-list kernel; one edge backward per op."""
+    edge = 2 * len(model.lig_emb_layers) + 1
+    return {"tpconv_edge": edge, "tpconv_bwd": edge}
+
+
+def counted_calls(module, name: str, record: list, factory: bool = True):
+    """A context that wraps ``module.<name>``: a function that makes a step
+    (``make_train_step``, ...), or without ``factory`` a call to count
+    itself (a rollout round): each step's or call's launches of every kernel
+    (``read_counters``, the nonzero ones) and wall, synchronised, are
+    appended to ``record``."""
+    import contextlib
+
+    import torch
+
+    orig = getattr(module, name)
+
+    def counted(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            before, t0 = read_counters(), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            record.append(dict(wall=time.perf_counter() - t0, launches=nonzero(launch_diff(before, read_counters()))))
+            return out
+        return call
+
+    wrapper = (lambda *a, **kw: counted(orig(*a, **kw))) if factory else counted(orig)
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(module, name, wrapper)
+        try:
+            yield record
+        finally:
+            setattr(module, name, orig)
+
+    return ctx()
+
+
+def recorded_saves(saved: dict):
+    """A context in which ``train.checkpoints.save_params`` also keeps, per
+    path, the Flax variables it writes (numpy copies: the last write wins)."""
+    import contextlib
+
+    from confidence_bootstrapping_tpu_torch.models.from_flax import flax_from_state_dict
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    orig = checkpoints.save_params
+
+    def save(path, model, params=None):
+        saved[path] = flax_from_state_dict(model, params)
+        return orig(path, model, params)
+
+    @contextlib.contextmanager
+    def ctx():
+        checkpoints.save_params = save
+        try:
+            yield saved
+        finally:
+            checkpoints.save_params = orig
+
+    return ctx()
+
+
+def files_back(saved: dict) -> list:
+    """The msgpack files ``recorded_saves`` kept whose bytes do not restore
+    to what was written, leaf for leaf (none: every file back bit for bit)."""
+    from confidence_bootstrapping_tpu_torch.train import flax_msgpack
+
+    def leaves(t, p=()):
+        return [x for k in sorted(t) for x in leaves(t[k], p + (k,))] if isinstance(t, dict) else [(p, t)]
+
+    bad = []
+    for path, tree in saved.items():
+        with open(path, "rb") as f:
+            back = flax_msgpack.restore(f.read())
+        a, b = leaves(back), leaves(tree)
+        if [p for p, _ in a] != [p for p, _ in b] or not all(np.array_equal(x, y) for (_, x), (_, y) in zip(a, b)):
+            bad.append(os.path.basename(path))
+    return bad
+
+
+def weights_back(path: str, model, params: dict = None) -> bool:
+    """``path`` loads into a fresh model of ``model``'s config (strict) with
+    ``params`` (default: the model's own) and its buffers, bit for bit."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    dev = next(model.parameters()).device
+    loaded = checkpoints.load_params(path, get_model(model.cfg, device=dev, seed=1))
+    want = params or {n: p.detach() for n, p in model.named_parameters()}
+    return (all(torch.equal(p, want[n]) for n, p in loaded.named_parameters())
+            and all(torch.equal(b, model.get_buffer(n)) for n, b in loaded.named_buffers()))
+
+
+def steps_line(what: str, steps: list, batch: int, want: dict, unit: str = "training poses/s") -> None:
+    """Prints a CLI's steps (count, walls; the median and the rate over the
+    steps after the first, which in a process's first call also builds the
+    so3/torus tables and the weight packs) and fails unless every step's
+    launches are ``want``'s."""
+    walls = [s["wall"] for s in steps]
+    warm = walls[1:] or walls
+    med = float(np.median(warm)) if warm else float("nan")
+    rate = batch * len(warm) / sum(warm) if warm else float("nan")
+    print(f"{what}: {len(steps)} steps, walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; after the first, "
+          f"median {med * 1e3:.1f} ms, {rate:.3f} {unit}; launches per step {steps[-1]['launches'] if steps else None}, "
+          f"expected from the config {nonzero(want)}", flush=True)
+    if not steps or any(s["launches"] != nonzero(want) for s in steps):
+        fail(f"{what}: a step did not run every TP-conv through its kernels")
+
+
+def train_files_phase(dev, card: str) -> None:
+    """Phase 14: the training CLIs from files at full width (``cli.train``
+    in both modes, ``cli.bootstrap_gen``, ``cli.finetune``,
+    ``cli.confidence_train``; see the module docstring). Every line printed
+    carries ``card``."""
+    import contextlib
+    import shutil
+
+    with contextlib.redirect_stdout(Tagged(sys.stdout, card)):
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        try:
+            train_files_run(dev)
+        finally:
+            shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def train_files_run(dev) -> None:
+    import contextlib
+    import dataclasses
+    import io
+    import pickle
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.bootstrapping import finetune as ft
+    from confidence_bootstrapping_tpu_torch.bootstrapping.offline_dataset import generate_bootstrapping_complexes
+    from confidence_bootstrapping_tpu_torch.cli import bootstrap_gen, confidence_train, finetune, train as train_cli
+    from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model
+    from confidence_bootstrapping_tpu_torch.config import (ScoreModelConfig, TrainConfig, confidence_model_config,
+                                                           load_score_config)
+    from confidence_bootstrapping_tpu_torch.confidence import train as ctrain
+    from confidence_bootstrapping_tpu_torch.data import torsional
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import pad_complex, pick_bucket, replicate_complex
+    from confidence_bootstrapping_tpu_torch.data.dataset import ComplexDataset, discover_dir
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.train import checkpoints, train_loop
+
+    marks = [("start", time.perf_counter())]
+    device_arg = ["--device", "cpu"] if dev.type == "cpu" else []  # the card is every CLI's default
+    data, mols, cache = (os.path.join(TRAIN_DIR, n) for n in ("data", "mols", "cache"))
+    write_1a0q(os.path.join(data, "1a0q"))
+    write_seeded_complex(os.path.join(data, "seeded"))
+    n_mols = write_molecules(mols)
+    overlay = dict(TRAIN_OVERLAY or {})
+    cfg_arg = []
+    if overlay:
+        from confidence_bootstrapping_tpu_torch import yaml_io
+
+        with open(os.path.join(TRAIN_DIR, "overlay.yml"), "w") as f:
+            f.write(yaml_io.dump(overlay))
+        cfg_arg = ["--config", os.path.join(TRAIN_DIR, "overlay.yml")]
+    score_cfg = ScoreModelConfig(**dict(dict(lm_embedding_dim=0), **overlay))
+    conf_cfg = confidence_model_config(ns=CT_NS, nv=CT_NV, lm_embedding_dim=0)
+    # phase 5's and phase 6's architectures as model directories, with no ESM features: the CLIs featurize none
+    dirs = {}
+    for name, cfg in (("score", score_cfg), ("confidence", conf_cfg)):
+        dirs[name] = os.path.join(TRAIN_DIR, name)
+        checkpoints.save_model_dir(dirs[name], cfg, get_model(cfg, device=dev, seed=0))
+    print(f"phase 14 inputs: 1a0q and the seeded complex as files, {n_mols} molecules as SDFs, the score model "
+          f"(ns={score_cfg.ns}, nv={score_cfg.nv}, {score_cfg.num_conv_layers} trunk layers) and the confidence model "
+          f"(ns={conf_cfg.ns}, lmax={conf_cfg.sh_lmax}, all-atom) as model directories, lm_dim 0", flush=True)
+    marks.append(("inputs", time.perf_counter()))
+
+    # 1. cli.train over the two complexes, conformer matching on (timed apart: the cache the CLI then reads)
+    wd1 = os.path.join(TRAIN_DIR, "train")
+    argv = ["--data_dir", data, "--cache_path", cache, "--workdir", wd1, "--batch_size", str(TRAIN_B), "--n_epochs",
+            str(TRAIN_EPOCHS), "--val_inference_freq", "1", "--num_inference_complexes", "2", "--inference_samples",
+            str(BENCH_SAMPLES), "--inference_steps", str(STEPS), "--save_model_freq", "1",
+            "--inference_secondary_metric", "valinf_rmsds_lt5", "--seed", "0"] + cfg_arg + device_arg
+    t0 = time.perf_counter()
+    ComplexDataset(discover_dir(data), cache_dir=cache, all_atoms=score_cfg.all_atoms,
+                   **train_cli._matching_kwargs(train_cli.get_parser().parse_args(argv)))
+    match_s = time.perf_counter() - t0
+    steps, saved, text = [], {}, io.StringIO()
+    t0 = time.perf_counter()
+    with counted_calls(train_loop, "make_train_step", steps), recorded_saves(saved), contextlib.redirect_stdout(text):
+        state, hist = train_cli.main(argv)
+    wall1 = time.perf_counter() - t0
+    print(text.getvalue().rstrip(), flush=True)
+    model = state.model
+    epochs = ", ".join(f"{h['wall']:.3f}" for h in hist)
+    print(f"cli.train, {TRAIN_EPOCHS} epochs over 1a0q and the seeded complex at batch {TRAIN_B}, the benchmark each "
+          f"epoch ({BENCH_SAMPLES} poses x {STEPS} steps): wall {wall1:.3f} s, epochs {epochs} s; featurization with "
+          f"conformer matching {match_s:.3f} s; benchmark {hist[-1]['inference']}", flush=True)
+    steps_line("cli.train steps", steps, TRAIN_B, expected_train_launches(model))
+    bad = files_back(saved)
+    names = sorted(os.listdir(wd1))
+    with open(os.path.join(wd1, "history.pkl"), "rb") as f:
+        history_back = pickle.load(f)
+    fresh = train_loop.init_train_state(get_model(model.cfg, device=dev, seed=1), TrainConfig(batch_size=TRAIN_B))
+    loaded, epoch = checkpoints.load_train_state(wd1, fresh)
+    same = loaded is not None and epoch == TRAIN_EPOCHS - 1 and same_snapshot(snapshot(state), snapshot(loaded))
+    final = (weights_back(os.path.join(wd1, "last_model.msgpack"), model),
+             weights_back(os.path.join(wd1, "last_ema_model.msgpack"), model, state.ema))
+    print(f"cli.train workdir: {names}; {len(saved)} msgpack files back bit for bit: {not bad}; last_model and "
+          f"last_ema_model are the final state's: {final}; the train-state bundle at epoch {epoch} bit for bit: {same}; "
+          f"history.pkl as returned: {history_back == hist}", flush=True)
+    if (bad or not same or history_back != hist or not all(final)
+            or load_score_config(os.path.join(wd1, checkpoints.CONFIG_NAME)) != model.cfg
+            or not all(np.isfinite(h["train"]["loss"]) for h in hist)):
+        fail("cli.train: its workdir does not read back what it trained, or a loss is not finite")
+    # a second call resumes from the bundle at epoch TRAIN_EPOCHS; one more step from the bundle matches the first's
+    argv2 = [wd1 + "_2" if a == wd1 else a for a in argv] + ["--restart_dir", wd1]
+    argv2[argv2.index("--n_epochs") + 1] = str(TRAIN_EPOCHS + 1)
+    argv2[argv2.index("--val_inference_freq") + 1] = "0"
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        _, hist2 = train_cli.main(argv2)
+    wall2 = time.perf_counter() - t0
+    resumed = f"resuming at epoch {TRAIN_EPOCHS}" in text.getvalue() and [h["epoch"] for h in hist2] == [TRAIN_EPOCHS]
+    step = train_loop.make_train_step(model.cfg, TrainConfig(batch_size=TRAIN_B))
+    sb = replicate_complex(host_complex(0)[0], 4, device=dev)
+    res = []
+    for s in (state, loaded):
+        m = step(s, sb, torch.Generator(device=dev).manual_seed(3))
+        res.append([("loss", m["loss"].detach())] + [(f"param {n}", p.detach()) for n, p in s.model.named_parameters()]
+                   + [(f"ema {n}", e) for n, e in s.ema.items()])
+    checks = [(n, b, a) for (n, a), (_, b) in zip(*res) if a.numel()]
+    worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
+    print(f"cli.train --restart_dir: resumed at epoch {TRAIN_EPOCHS} from the bundle: {resumed} (wall {wall2:.3f} s); "
+          f"one more step from the bundle against the first call's state: worst error {worst[0]:.3g} of its "
+          f"tolerance ({MODEL_RTOL} x max(1, max |first|)) at {worst[1]}", flush=True)
+    if not (resumed and worst[0] <= 1.0):
+        fail("cli.train --restart_dir did not resume the first call's state")
+    argv3 = [wd1 + "_3" if a == wd1 + "_2" else a for a in argv2]
+    with contextlib.redirect_stdout(io.StringIO()):
+        idle = profile_run(lambda: train_cli.main(argv3), wall2 * 1e3, host_ops=False)
+    print(f"cli.train, one epoch (2 steps, the validation loss) under the profiler: card idle "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} of the unprofiled call's {wall2:.3f} s", flush=True)
+    marks.append(("cli.train", time.perf_counter()))
+
+    # 2. cli.train --dataset torsional on the molecules
+    wdt = os.path.join(TRAIN_DIR, "torsional")
+    argv_t = ["--dataset", "torsional", "--torsional_data_dir", mols, "--workdir", wdt, "--batch_size", str(TORS_B),
+              "--n_epochs", str(TORS_EPOCHS), "--seed", "0"] + cfg_arg + device_arg
+    tsteps, text = [], io.StringIO()
+    t0 = time.perf_counter()
+    with counted_calls(train_loop, "make_torsional_train_step", tsteps), contextlib.redirect_stdout(text):
+        tstate, thist = train_cli.main(argv_t)
+    wall_t = time.perf_counter() - t0
+    print(text.getvalue().rstrip(), flush=True)
+    tmodel = tstate.model
+    print(f"cli.train --dataset torsional, {TORS_EPOCHS} epochs at batch {TORS_B}: wall {wall_t:.3f} s; losses "
+          f"{[round(h['train']['loss'], 4) for h in thist]}, validation {[round(h['val']['loss'], 4) for h in thist]}",
+          flush=True)
+    steps_line("torsional steps", tsteps, TORS_B, expected_torsional_launches(tmodel), "molecules/s")
+    if not (all(np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["loss"]) for h in thist)
+            and weights_back(os.path.join(wdt, "last_model.msgpack"), tmodel)):
+        fail("cli.train --dataset torsional: a loss is not finite, or its weights do not read back")
+    tcfg_t = TrainConfig(batch_size=TORS_B)
+    tds = torsional.TorsionalDataset(mols, device=dev)
+    # a B=2 step card against CPU at dropout 0: loss, every gradient, the batch statistics
+    cfg0 = dataclasses.replace(tmodel.cfg, dropout=0.0)
+    tb = tds.epoch_batches(TORS_CPU_B, np.random.RandomState(0))[0]
+    draws = torsional.torsional_draw_noise(tb, cfg0.sigma, tcfg_t, torch.Generator(device=dev).manual_seed(5))
+    res = []
+    for device in (dev, torch.device("cpu")):
+        m0 = get_model(cfg0, device=device, seed=0).requires_grad_(True)
+        noised, targets = torsional.torsional_apply_draws(tb.map(lambda a: a.to(device)),
+                                                          torsional.TorsionalDraws(*(d.to(device) for d in draws)),
+                                                          cfg0.sigma)
+        loss, _ = torsional.torsional_loss(m0.torsional_forward(noised, deterministic=False, use_running_average=False),
+                                           targets, noised)
+        names = [n for n, _ in m0.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in m0.named_parameters()], allow_unused=True)
+        res.append((loss.detach().cpu(), {n: (torch.zeros(()) if g is None else g.cpu()) for n, g in zip(names, grads)},
+                    {n: b.cpu() for n, b in m0.named_buffers()}))
+    (lg, gg, bg), (lc, gc, bc) = res
+    checks = [("loss", lg, lc)] + [(f"grad {n}", gg[n], gc[n]) for n in gc] + [(f"stat {n}", bg[n], bc[n]) for n in bc]
+    checks = [c for c in checks if c[2].numel()]
+    worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
+    print(f"torsional step card vs CPU (B={TORS_CPU_B}, dropout 0): loss {lg.item():.6f} vs {lc.item():.6f}; "
+          f"{len(gc)} gradients and {len(bc)} batch statistics; worst error {worst[0]:.3g} of its tolerance "
+          f"({MODEL_RTOL} x max(1, max |cpu|)) at {worst[1]}", flush=True)
+    if not (worst[0] <= 1.0 and torch.isfinite(lg)):
+        fail("torsional step: the card disagrees with the CPU")
+    # every kernel call of one step and of one eval step (at the bucket: pb; at a ligand's own size: row 5), replayed
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = tds.epoch_batches(TORS_B, np.random.RandomState(1))[0]
+    calls = record_train_calls(lambda: train_loop.make_torsional_train_step(tmodel.cfg, tcfg_t)(tstate, batch, gen))
+    torch.cuda.synchronize()
+    check_tc_builds(calls, "torsional training step")
+    replay_train_kernels(calls, timed=False)
+    replay_train_ops(calls, timed=False)
+    hc = next(c for c in tds.complexes if len(c.lig_f) % 8)
+    own = pick_bucket(len(hc.lig_f), len(hc.lig_edge_src), len(hc.tor_src), 1)._replace(L=len(hc.lig_f), N=1, KR=1)
+    own_batch = replicate_complex(pad_complex(hc, own, lm_dim=0), TORS_B, device=dev).set_time(0.5, 0.5, 0.5)
+    ecalls = record_calls(lambda: train_loop.make_torsional_eval_step(tmodel.cfg, tcfg_t)(tstate, batch, gen),
+                          ("tpconv_pb", "tpconv_nbr"))
+    with torch.no_grad():
+        ecalls["tpconv_nbr"] += record_calls(lambda: tmodel.torsional_forward(own_batch), ("tpconv_nbr",))["tpconv_nbr"]
+    torch.cuda.synchronize()
+    n_emb = len(tmodel.lig_emb_layers)
+    print(f"torsional eval step at L={batch.lig_pos.shape[1]}: {len(ecalls['tpconv_pb'])} pb calls; forward at the "
+          f"ligand's own L={len(hc.lig_f)}: {len(ecalls['tpconv_nbr'])} row 5 calls; expected {n_emb} each", flush=True)
+    if len(ecalls["tpconv_pb"]) != n_emb or len(ecalls["tpconv_nbr"]) != n_emb:
+        fail("the torsional eval step did not run its ligand layers through pb and row 5")
+    check_tc_builds({"tpconv_nbr": ecalls["tpconv_nbr"]}, "torsional forward at L % 8 != 0")
+    replay(ecalls, dict(tpconv_pb=sample_kernels()["tpconv_pb"], tpconv_nbr=eval_kernels()["tpconv_nbr"]),
+           bitwise=("tpconv_pb", "tpconv_nbr"), timed=False)
+    del calls, ecalls
+    marks.append(("cli.train --dataset torsional", time.perf_counter()))
+
+    # 3. cli.bootstrap_gen with both model directories, the cutoff at the median confidence of the same draws
+    gcache = os.path.join(TRAIN_DIR, "bootstrap")
+    gen_argv = ["--data_dir", data, "--cache_path", gcache, "--model_dir", dirs["score"], "--confidence_model_dir",
+                dirs["confidence"], "--samples_per_target", str(GEN_SAMPLES), "--inference_steps", str(STEPS),
+                "--seed", "0"] + device_arg
+    targets = bootstrap_gen.build_targets(bootstrap_gen.get_parser().parse_args(gen_argv), need_atoms=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        score_model = load_or_init_model(dirs["score"], "last_model", device=dev)[0]
+        conf_model = load_or_init_model(dirs["confidence"], "last_model", device=dev)[0]
+    pre = generate_bootstrapping_complexes(score_model, targets, torch.Generator(device=dev).manual_seed(0),
+                                           score_model.cfg, GEN_SAMPLES, STEPS, ft.confidence_function(conf_model),
+                                           -np.inf, device=dev)
+    confs = np.asarray([c for _, _, c in pre])
+    cutoff = float(np.median(confs))
+    band = MODEL_RTOL * max(1.0, float(np.abs(confs).max()))
+    rounds, text = [], io.StringIO()
+    t0 = time.perf_counter()
+    with counted_calls(bootstrap_gen, "generate_bootstrapping_complexes", rounds, factory=False), \
+            contextlib.redirect_stdout(text):
+        kept = bootstrap_gen.main(gen_argv + ["--confidence_cutoff", repr(cutoff)])
+    wall_g = time.perf_counter() - t0
+    print(text.getvalue().rstrip(), flush=True)
+    pkl = os.path.join(gcache, "complexes_id1.pkl")
+    with open(pkl, "rb") as f:
+        back = pickle.load(f)
+    equal = len(back) == len(kept) and all(n == m and c == d and all(np.array_equal(p[k], q[k]) for k in p)
+                                           for (p, n, c), (q, m, d) in zip(back, kept))
+    got_c = np.asarray([c for _, _, c in kept])
+    want_n = (int((confs > cutoff + band).sum()), int((confs > cutoff - band).sum()))
+    want_l = {k: 2 * v for k, v in nonzero(dict(expected_launches(score_model, STEPS),
+                                                 **expected_conf_launches(conf_model))).items()}
+    print(f"cli.bootstrap_gen, 2 targets x {GEN_SAMPLES} poses x {STEPS} steps, cutoff {cutoff:.4f} (the median of "
+          f"the same draws): wall {wall_g:.3f} s ({2 * GEN_SAMPLES / wall_g:.3f} rollout poses/s); kept {len(kept)} "
+          f"(the same draws above the cutoff, off a band of {band:.2g}: {want_n[0]}-{want_n[1]}), every kept "
+          f"confidence above it: {bool((got_c > cutoff).all())}; {os.path.basename(pkl)} back: {equal}; launches "
+          f"{rounds[0]['launches'] if rounds else None}, expected from the config {want_l}", flush=True)
+    if not (equal and want_n[0] <= len(kept) <= want_n[1] and (got_c > cutoff).all() and len(kept)
+            and rounds and rounds[0]["launches"] == want_l):
+        fail("cli.bootstrap_gen did not keep the poses above the cutoff, or its pickle does not read back")
+    # then cli.train with the pickle mixed in
+    argv_b = [os.path.join(TRAIN_DIR, "train_boot") if a == wd1 else a for a in argv] + [
+        "--add_bootstrapping_dataset", pkl]
+    argv_b[argv_b.index("--n_epochs") + 1] = "1"
+    argv_b[argv_b.index("--val_inference_freq") + 1] = "0"
+    bsteps, text = [], io.StringIO()
+    t0 = time.perf_counter()
+    with counted_calls(train_loop, "make_train_step", bsteps), contextlib.redirect_stdout(text):
+        _, bhist = train_cli.main(argv_b)
+    wall_b = time.perf_counter() - t0
+    mixed = [line for line in text.getvalue().splitlines() if "bootstrapped" in line]
+    print(f"cli.train --add_bootstrapping_dataset, one epoch: wall {wall_b:.3f} s; {mixed}; loss "
+          f"{bhist[0]['train']['loss']:.4f}", flush=True)
+    steps_line("cli.train steps with the bootstrapped poses", bsteps, TRAIN_B, expected_train_launches(model))
+    if not (mixed and np.isfinite(bhist[0]["train"]["loss"]) and len(bsteps) > len(steps) // TRAIN_EPOCHS):
+        fail("cli.train --add_bootstrapping_dataset did not train on the bootstrapped poses")
+    marks.append(("cli.bootstrap_gen and cli.train on its pickle", time.perf_counter()))
+
+    # 4. cli.finetune with both model directories: one epoch, one rollout round, the same cutoff
+    wdf = os.path.join(TRAIN_DIR, "finetune")
+    rounds, fsteps, text = [], [], io.StringIO()
+    t0 = time.perf_counter()
+    with counted_calls(ft, "inference_epoch", rounds, factory=False), counted_calls(train_loop, "make_train_step", fsteps), \
+            contextlib.redirect_stdout(text):
+        fstate, fhist = finetune.main(["--data_dir", data, "--cache_path", cache, "--workdir", wdf, "--model_dir",
+                                       dirs["score"], "--confidence_model_dir", dirs["confidence"], "--n_epochs", "1",
+                                       "--inference_samples", str(GEN_SAMPLES), "--inference_steps", str(STEPS),
+                                       "--initial_iterations", "1", "--fixed_length", str(FT_FIXED),
+                                       "--batch_size", str(TRAIN_B), "--confidence_cutoff", repr(cutoff),
+                                       "--seed", "0"] + device_arg)
+    wall_f = time.perf_counter() - t0
+    print(text.getvalue().rstrip(), flush=True)
+    inf = fhist[0]["inference"]
+    print(f"cli.finetune, one epoch ({GEN_SAMPLES} poses a target x {STEPS} steps, fixed_length {FT_FIXED}): wall "
+          f"{wall_f:.3f} s; round {rounds[0]['wall'] if rounds else float('nan'):.3f} s, kept {inf['n_kept']} of "
+          f"{inf['n_sampled']}, failures {inf['failures']}; launches per round {rounds[0]['launches'] if rounds else None},"
+          f" expected from the config {want_l}", flush=True)
+    steps_line("cli.finetune steps", fsteps, TRAIN_B, expected_train_launches(fstate.model))
+    back = (weights_back(os.path.join(wdf, "last_model.msgpack"), fstate.model)
+            and weights_back(os.path.join(wdf, "ema_model.msgpack"), fstate.model, fstate.ema))
+    with open(os.path.join(wdf, "metrics.pkl"), "rb") as f:
+        metrics_back = len(pickle.load(f)) == len(fhist)
+    print(f"cli.finetune workdir {sorted(os.listdir(wdf))}: last_model and ema_model back bit for bit: {back}; "
+          f"metrics.pkl: {metrics_back}", flush=True)
+    if not (len(rounds) == 1 and rounds[0]["launches"] == want_l and inf["failures"] == 0 and inf["n_kept"] > 0
+            and len(fsteps) == FT_FIXED // TRAIN_B and back and metrics_back):
+        fail("cli.finetune: a round failed, the launches differ from the config, or the workdir does not read back")
+    marks.append(("cli.finetune", time.perf_counter()))
+
+    # 5. cli.confidence_train at phase 6's architecture: a cache, one epoch of CT_BATCHES batches, then --test
+    wdc = os.path.join(TRAIN_DIR, "confidence")
+    # 1a0q alone: FilteringDataset stacks its picks into one batch, so its targets share a bucket (in both packages)
+    base = ["--data_dir", data, "--cache_path", cache, "--workdir", wdc, "--original_model_dir", dirs["score"],
+            "--limit_complexes", "1", "--inference_steps", str(STEPS), "--ns", str(CT_NS), "--nv", str(CT_NV),
+            "--seed", "0"] + device_arg
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        confidence_train.main(base + ["--samples_per_complex", str(CT_SAMPLES), "--cache_creation_id", "1"])
+    wall_cache = time.perf_counter() - t0
+    csteps = []
+    t0 = time.perf_counter()
+    with counted_calls(ctrain, "make_confidence_train_step", csteps), contextlib.redirect_stdout(text):
+        cstate, chist = confidence_train.main(base + ["--samples_per_complex", str(CT_SAMPLES), "--n_epochs", "1",
+                                                      "--batches_per_epoch", str(CT_BATCHES), "--batch_size",
+                                                      str(TRAIN_B), "--cache_ids", "1"])
+    wall_c = time.perf_counter() - t0
+    print(text.getvalue().rstrip(), flush=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        loaded_c, loaded_cfg = load_or_init_model(wdc, "last_model", device=dev)
+    same_c = (loaded_cfg == cstate.model.cfg
+              and all(torch.equal(a, b) for a, b in zip(loaded_c.state_dict().values(),
+                                                        cstate.model.state_dict().values())))
+    val = chist[0]["val"]
+    print(f"cli.confidence_train: the cache ({CT_SAMPLES} poses a complex x {STEPS} steps) {wall_cache:.3f} s, one "
+          f"epoch of {CT_BATCHES} batches at {TRAIN_B} {wall_c:.3f} s; validation {val}; the workdir "
+          f"{sorted(os.listdir(wdc))} loads onto the card bit for bit: {same_c}", flush=True)
+    steps_line("cli.confidence_train steps", csteps, TRAIN_B, expected_conf_train_launches(cstate.model))
+    if not (same_c and np.isfinite(val["loss"]) and len(csteps) == CT_BATCHES):
+        fail("cli.confidence_train: the workdir does not load back, or the validation loss is not finite")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        sweep = confidence_train.main(base + ["--samples_per_complex", str(CT_TEST_SAMPLES), "--test"])
+    wall_test = time.perf_counter() - t0
+    print(f"cli.confidence_train --test ({CT_TEST_SAMPLES} poses, {STEPS} steps): {wall_test:.3f} s; accuracy at steps "
+          f"0 / {STEPS}: {sweep[0]['accuracy']:.3f} / {sweep[-1]['accuracy']:.3f}, mean RMSD {sweep[-1]['mean_rmsd']:.3f} "
+          f"A (random weights)", flush=True)
+    if len(sweep) != STEPS + 1 or not all(np.isfinite(r["mean_rmsd"]) and np.isfinite(r["mean_score"]) for r in sweep):
+        fail("cli.confidence_train --test: the sweep is not finite or not of the expected length")
+    marks.append(("cli.confidence_train", time.perf_counter()))
+    print("phase 14 walls: " + ", ".join(f"{name} {t - t_prev:.1f} s" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+          + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -3067,6 +3590,8 @@ def main() -> None:
     conf_train_rows, conf_train_launches = conf_train_phase(dev, model, card)
     torch.cuda.synchronize()
     serve_files_phase(dev, model, rerank[0], card, poses_s)
+    torch.cuda.synchronize()
+    train_files_phase(dev, card)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)

@@ -106,6 +106,20 @@ def pose_confidences(confidence_fn: Optional[Callable], target: CBTarget, poses:
     return c.detach().cpu().numpy() if torch.is_tensor(c) else np.asarray(c)
 
 
+def confidence_function(conf_model) -> Callable:
+    """The CLIs' confidence function (JAX ``cli/finetune.py:147-157``):
+    fn(target, poses [n, L, 3] on the device) -> the confidences [n] of
+    ``conf_model`` on the target replicated n times at those poses."""
+
+    def fn(target: CBTarget, poses: torch.Tensor) -> torch.Tensor:
+        batch = replicate_complex(target.padded, len(poses), device=poses.device)
+        lp = batch.lig_pos.clone()
+        lp[:, : poses.shape[1]] = poses
+        return sampling.score_confidence(conf_model, batch, lig_pos=lp)
+
+    return fn
+
+
 def keep_poses(target: CBTarget, host: np.ndarray, confidences, cutoff: float) -> List[Tuple[int, Tuple[dict, str, float]]]:
     """The poses ``host`` [n, L, 3] whose confidence is above ``cutoff``:
     (index, buffer item), the item being (the padded complex at the pose,

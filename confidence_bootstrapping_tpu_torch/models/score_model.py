@@ -30,7 +30,9 @@ the ``crop_beyond`` mask (a fixed cutoff; in score mode 3 sigma_tr +
 (``ConfidenceHead``, ``MaskedBatchNorm1d``) read the pooled ligand scalars,
 as in the all-atom confidence model (``models/all_atom_model.py``), which
 shares them (``add_confidence_heads``, ``confidence_heads``).
-``torsional_forward`` is not ported.
+
+``torsional_forward`` (``train --dataset torsional``): the ligand embedding
+layers and the torsion head alone, on ligand-only batches.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from ..ops.graph_builders import gather_nodes, pairwise_dist, radius_mask, scatt
 from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
-from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv, dropout
+from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv, dropout, pad_residual
 
 
 def get_irrep_seq(ns: int, nv: int, reduce_pseudoscalars: bool):
@@ -350,11 +352,19 @@ class TensorProductScoreModel(nn.Module):
             tr_pred = tr_pred / tr_sigma[:, None]
             rot_pred = rot_pred * so3.score_norm(rot_sigma)[:, None]
 
-        R = batch.tor_src.shape[1]
         if c.no_torsion:
-            return ScoreOutput(tr_pred, rot_pred, tr_pred.new_zeros(B, R))
+            return ScoreOutput(tr_pred, rot_pred, tr_pred.new_zeros(B, batch.tor_src.shape[1]))
+        return ScoreOutput(tr_pred, rot_pred, self._torsion_head(batch, lig_attr, tor_sigma, det, ura, gen))
 
-        # torsion head: each rotatable bond's center convolves the ligand atoms
+    def _torsion_head(self, batch: ComplexBatch, lig_attr, tor_sigma, deterministic: bool = True,
+                      use_running_average: bool = True, generator: Optional[torch.Generator] = None):
+        """The bond-centred torsion head: each rotatable bond's centre
+        convolves the ligand atoms within ``lig_max_radius`` (harmonics of
+        the atom offset times the bond's l=2 harmonics), then the bias-free
+        MLP -> [B, R] scores, zero on padded torsion slots."""
+        c = self.cfg
+        ns = c.ns
+        det, ura, gen = deterministic, use_running_average, generator
         pu = gather_nodes(batch.lig_pos, batch.tor_src)
         pv = gather_nodes(batch.lig_pos, batch.tor_dst)
         bond_pos, bond_vec = (pu + pv) / 2, pv - pu
@@ -380,7 +390,28 @@ class TensorProductScoreModel(nn.Module):
         tor_pred = self.tor_final_layer(tor_feat, det, gen)[..., 0]
         if c.scale_by_sigma:
             tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
-        return ScoreOutput(tr_pred, rot_pred, torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred)))
+        return torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred))
+
+    def torsional_forward(self, batch: ComplexBatch, deterministic: bool = True, use_running_average: bool = True,
+                          generator: Optional[torch.Generator] = None):
+        """Ligand-only torsion scores [B, R] (the ``--dataset torsional``
+        pretraining mode, reference score_model.py:451-482): the ligand
+        embedding layers (``_lig_conv``: at inference pb, or the composed
+        pairs where L % 8 != 0; in training the edge-list op), the features
+        widened to the torsion head's irreps, then the torsion head. The
+        receptor is not read."""
+        c = self.cfg
+        det, ura, gen = deterministic, use_running_average, generator
+        B, L, _ = batch.lig_pos.shape
+        tor_sigma = t_to_sigma(batch.t_tor, batch.t_tor, batch.t_tor, c.sigma)[2]
+        sigma_emb = self.timestep_emb(batch.t_tr)
+        lig_attr = self.lig_node_embedding(batch.lig_f, sigma_emb[:, None, :].expand(B, L, sigma_emb.shape[-1]))
+        graph = self._lig_graph(batch, sigma_emb, det, gen)
+        for layer in self.lig_emb_layers:
+            s, n = self._lig_conv(layer, 0, lig_attr, graph, batch, det, gen)
+            lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask, ura)
+        lig_attr = pad_residual(lig_attr, Irreps(self.final_irreps).dim)  # the ladder only appends blocks
+        return self._torsion_head(batch, lig_attr, tor_sigma, det, ura, gen)
 
 
 class MaskedBatchNorm1d(nn.Module):

@@ -19,7 +19,12 @@ copy the JAX step's arithmetic rather than a PyTorch built-in:
   (or AdamW) step, as under ``optax.chain(clip, adam)`` (``train_loop.py:
   193-198``).
 
-Not ported: the torsional step (it needs ``data/torsional``).
+The torsional pretraining steps (``make_torsional_train_step``,
+``make_torsional_eval_step``) run ``torsional_forward`` on the torsion-only
+noise and loss of ``data/torsional`` through the same update, with the JAX
+torsional step's two differences kept: the EMA decays at ``ema_rate`` from
+the first step, and the batch statistics the step produced are kept even
+when its loss is not finite (``train_loop.py:249-256``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from ..config import ScoreModelConfig, TrainConfig
 from ..data.complex_graph import ComplexBatch
+from ..data.torsional import torsional_apply_noise, torsional_loss
 from ..models.from_flax import flax_path
 from .diffusion import apply_noise
 from .losses import score_matching_loss
@@ -125,13 +131,15 @@ def layer_freeze_mask(model: torch.nn.Module, step: int) -> Dict[str, float]:
 
 
 @torch.no_grad()
-def apply_gradients(state: TrainState, grads, ok, cfg: TrainConfig, grad_mask: Optional[Dict[str, float]] = None) -> None:
+def apply_gradients(state: TrainState, grads, ok, cfg: TrainConfig, grad_mask: Optional[Dict[str, float]] = None,
+                    ema_warmup: bool = True) -> None:
     """The update half of the step, given each parameter's gradient (None
     counts as zero) and ``ok`` (bool tensor: the loss was finite): NaN skip,
     the gradient mask (``layer_freeze_mask``), clipping at the state's
     ``grad_clip`` (the chain ``init_train_state`` built, as optax's lives in
     the JAX state), Adam or AdamW at lr * lr_scale on every parameter, EMA
-    with decay min(ema_rate, (1 + step) / (10 + step)), step + 1."""
+    with decay min(ema_rate, (1 + step) / (10 + step)) (``ema_warmup``) or
+    ema_rate, step + 1."""
     named = list(state.model.named_parameters())
     params = [p for _, p in named]
     grads = [torch.where(ok, g, torch.zeros_like(g)) if g is not None else torch.zeros_like(p)
@@ -147,7 +155,7 @@ def apply_gradients(state: TrainState, grads, ok, cfg: TrainConfig, grad_mask: O
     state.optimizer.step()
     for p in params:
         p.grad = None
-    decay = min(cfg.ema_rate, (1 + state.step) / (10 + state.step))
+    decay = min(cfg.ema_rate, (1 + state.step) / (10 + state.step)) if ema_warmup else cfg.ema_rate
     for n, p in state.model.named_parameters():
         state.ema[n].mul_(decay).add_(p, alpha=1 - decay)
     state.step += 1
@@ -204,6 +212,41 @@ def make_eval_step(model_cfg: ScoreModelConfig, cfg: TrainConfig, use_running_av
                                  cfg.tr_weight, cfg.rot_weight, cfg.tor_weight, model_cfg.no_torsion)
         return dict(loss=lb.loss, tr_loss=lb.tr_loss, rot_loss=lb.rot_loss, tor_loss=lb.tor_loss,
                     t=torch.mean(noised.t_tr))
+
+    return eval_step
+
+
+def make_torsional_train_step(model_cfg: ScoreModelConfig, cfg: TrainConfig) -> Callable:
+    """-> step(state, batch, generator, grad_mask=None) -> metrics {loss,
+    tor_base_loss, skipped}: torsion-only noise, ``torsional_forward`` in
+    training, ``torsional_loss``, then ``apply_gradients`` with the EMA at
+    ``ema_rate`` and the step's batch statistics kept (the JAX torsional
+    step's arithmetic). ``grad_mask`` as in ``make_train_step``."""
+
+    def step(state: TrainState, batch: ComplexBatch, generator: torch.Generator,
+             grad_mask: Optional[Dict[str, float]] = None):
+        model = state.model
+        noised, targets = torsional_apply_noise(batch, model_cfg.sigma, cfg, generator)
+        tor_pred = model.torsional_forward(noised, deterministic=False, use_running_average=False, generator=generator)
+        loss, base = torsional_loss(tor_pred, targets, noised)
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()], allow_unused=True)
+        ok = torch.isfinite(loss)
+        apply_gradients(state, grads, ok, cfg, grad_mask, ema_warmup=False)
+        return {"loss": loss.detach(), "tor_base_loss": base.detach(), "skipped": (~ok).to(torch.float32)}
+
+    return step
+
+
+def make_torsional_eval_step(model_cfg: ScoreModelConfig, cfg: TrainConfig) -> Callable:
+    """-> eval(state, batch, generator) -> {loss, tor_base_loss}: torsion-only
+    noise and ``torsional_forward`` at inference (running statistics, no
+    dropout)."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: ComplexBatch, generator: torch.Generator):
+        noised, targets = torsional_apply_noise(batch, model_cfg.sigma, cfg, generator)
+        loss, base = torsional_loss(state.model.torsional_forward(noised), targets, noised)
+        return {"loss": loss, "tor_base_loss": base}
 
     return eval_step
 
