@@ -175,6 +175,34 @@ Phases (each one fails the script when it fails):
      workdir loaded onto the card, the validation loss finite, then
      ``--test`` at 2 poses). Every line carries the card's name and power
      limit.
+ 15. reference checkpoints and the legacy models: phase 5's and phase 6's
+     models written as the reference ships them (``reference_state_dict``:
+     the e3nn state dict, a raw file, a ``{epoch, model, optimizer,
+     ema_weights}`` bundle and DataParallel's ``module.`` prefix, with a
+     ``model_parameters.yml`` in the reference's flag names), converted by
+     ``cli.convert`` (live and ``--use_ema``; once through ``python -m``)
+     and loaded onto the card, every parameter and buffer bit for bit;
+     phase 10's dock path from the converted directories. The legacy score
+     model at DiffDock's published width (ns=48, nv=10, 6 layers,
+     sh_lmax=2) and the legacy all-atom model at phase 6's widths, seeded,
+     lm 0, through the same files and converter: each layer's route (the
+     edge-list kernel's build with its shared-memory bytes at 24- and
+     1-edge lists, or the plain TP), B=2 forwards and a 3-step B=8 ODE sample card against CPU,
+     ``cli.infer --old_score_model`` on 1a0q (8 poses x 20 steps, the
+     legacy rerank; messages by route, launches against the config, every
+     ns=24 layer on a tensor-core build), one sample and rerank recorded and
+     every edge-list call replayed (bit for bit across two launches, masked
+     edges exactly zero; one step's calls timed), poses/s and the rerank's
+     ms; ``cli.confidence_train --affinity_prediction`` with ``--parallel
+     2`` (the legacy all-atom model) and with ``--transfer_weights`` (the
+     residue-level model's affinity column), on rollouts and near-crystal
+     poses: steps' ms and launches, a nonzero training affinity loss, the
+     workdir back bit for bit, the affinity validation metrics; one step of
+     the affinity model at dropout 0 card against CPU (loss, every
+     gradient; a row off the tolerance only at a hidden unit at the ReLU
+     where a float64 CPU step sides with one device, at most 4 rows) and
+     its training-kernel calls replayed. Every line carries
+     the card's name and power limit.
 Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
@@ -1793,11 +1821,9 @@ def model_dir_phase(dev, model, b0, final_pos, rerank) -> None:
 
     from confidence_bootstrapping_tpu_torch import yaml_io
     from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
-    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
     from confidence_bootstrapping_tpu_torch.train import checkpoints
 
-    conf_model, conf_batch, conf_want = rerank
+    conf_model = rerank[0]
     shutil.rmtree(MODEL_DIRS, ignore_errors=True)
     try:
         loaded = {}
@@ -1830,35 +1856,48 @@ def model_dir_phase(dev, model, b0, final_pos, rerank) -> None:
             print(f"tp_weights_layers: 3 refused: {e}", flush=True)
     finally:
         shutil.rmtree(MODEL_DIRS, ignore_errors=True)
+    dock_from(loaded["score"], loaded["confidence"], b0, final_pos, rerank, "the model directories")
 
-    run = sample_run(loaded["score"], b0)[0]
+
+def dock_from(score, conf_model, b0, final_pos, rerank, what: str) -> None:
+    """Phase 5's sample (its poses, plan and noise) and the rerank from
+    loaded models, timed once: every kernel's launches against the config,
+    every cross_g call on its tensor-core build, the poses against phase 5's
+    within SAMPLE_ATOL and the confidences against phase 6's (of phase 5's
+    poses) within MODEL_RTOL."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+
+    _, conf_batch, conf_want = rerank
+    dev = b0.lig_pos.device
+    run = sample_run(score, b0)[0]
     counters = {"tpconv_rec_g": tpconv_g.fused_tpconv_rec_g, "tpconv_cross_g": tpconv_g.fused_tpconv_cross_g}
     out = {}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
     (final, _), launches = counted(run)
-    calls = record_calls(lambda: out.update(conf=score_confidence(loaded["confidence"], conf_batch,
-                                                                   lig_pos=final.lig_pos)), ("tpconv_cross_g",))
+    calls = record_calls(lambda: out.update(conf=score_confidence(conf_model, conf_batch, lig_pos=final.lig_pos)),
+                         ("tpconv_cross_g",))
     conf = out["conf"].cpu().numpy()
     order = np.argsort(-np.nan_to_num(conf, nan=-1e9))
     secs = time.perf_counter() - t0
     launches.update({name: fn.launches for name, fn in counters.items()})
-    want = dict(expected_launches(loaded["score"], STEPS), **expected_conf_launches(loaded["confidence"]))
+    want = dict(expected_launches(score, STEPS), **expected_conf_launches(conf_model))
     err = (final.lig_pos - final_pos.to(dev)).abs().max().item()
     conf_err, peak = float(np.abs(conf - conf_want).max()), float(np.abs(conf_want).max())
-    print(f"dock path from the model directories: sample and rerank of {B_POSES} poses {secs:.4f} s, "
+    print(f"dock path from {what}: sample and rerank of {B_POSES} poses {secs:.4f} s, "
           f"{B_POSES / secs:.3f} poses/s; top confidences "
           f"{', '.join(f'pose {i}: {conf[i]:.4f}' for i in order[:5])}; launches {launches}; expected from the "
           f"config {want}", flush=True)
     print(f"against the in-memory models: poses max_abs_err {err:.3g} A (tolerance {SAMPLE_ATOL} A), confidences "
           f"max_abs_err {conf_err:.3g} (max |in memory| {peak:.3g}, tolerance {MODEL_RTOL} x max(1, max |in memory|))",
           flush=True)
-    check_tc_builds(calls, "dock path rerank")
+    check_tc_builds(calls, f"dock path rerank from {what}")
     if launches != want:
-        fail("the dock path from the model directories did not run every TP-conv through its kernel")
+        fail(f"the dock path from {what} did not run every TP-conv through its kernel")
     if not (err <= SAMPLE_ATOL and conf_err <= MODEL_RTOL * max(1.0, peak) and np.isfinite(conf).all()):
-        fail("the dock path from the model directories disagrees with the in-memory models")
+        fail(f"the dock path from {what} disagrees with the in-memory models")
 
 
 # ---------------------------------------------------------------------------- phase 11: the CB loop
@@ -3502,6 +3541,642 @@ def train_files_run(dev) -> None:
           + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
 
 
+# ----------------------------------------------------------------------------- phase 15: reference checkpoints
+
+
+def reference_state_dict(model) -> dict:
+    """The reference's ``state_dict`` (e3nn layout, numpy float32) of a
+    port model: the inverse of ``models.convert.convert_state_dict`` for the
+    four architectures. Linears as [out, in] inside their ``Sequential``
+    indices, the last Dense of each TP-conv's edge MLP in e3nn's
+    instruction-major column order, e3nn BatchNorm buffers (one running
+    variance per irrep instance), ``atom_embedding_list`` tables and the
+    legacy encoders' ``linear``/``lm_embedding_layer``; the legacy all-atom
+    model's groups in the reference's flat ``conv_layers`` list, 9 a depth."""
+    from confidence_bootstrapping_tpu_torch.models import convert, from_flax
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+    from confidence_bootstrapping_tpu_torch.models.legacy import LEGACY_AA_GROUPS
+    from confidence_bootstrapping_tpu_torch.ops.irreps import Irreps
+
+    cfg = model.cfg
+    legacy = cfg.old_score_model
+    tree = from_flax.flax_from_state_dict(model)
+    params, stats = tree["params"], tree.get("batch_stats", {})
+    sd = {}
+
+    def linear(ref, d):
+        sd[f"{ref}.weight"] = d["kernel"].T
+        if "bias" in d:
+            sd[f"{ref}.bias"] = d["bias"]
+
+    def fcblock(ref, d, perm=None):
+        n = len([k for k in d if k.startswith("Dense_")])
+        for j in range(n):
+            lin = dict(d[f"Dense_{j}"])
+            if perm is not None and j == n - 1:  # e3nn's order: ours = e3nn[perm]
+                inv = np.argsort(perm)
+                lin = {k: (v[:, inv] if k == "kernel" else v[inv]) for k, v in lin.items()}
+            linear(f"{ref}.{3 * j}", lin)
+
+    def batch_norm(ref, p, st, irreps):
+        sd[f"{ref}.weight"], sd[f"{ref}.bias"], sd[f"{ref}.running_mean"] = p["weight"], p["bias"], st["mean"]
+        var, norm, chunks = list(st["var"]), list(st["norm"]), []
+        for mul, ir in Irreps(irreps):
+            src = var if (ir.l == 0 and ir.p == 1) else norm
+            chunks.append(np.asarray([src.pop(0) for _ in range(mul)], np.float32))
+        sd[f"{ref}.running_var"] = np.concatenate(chunks)
+
+    for name, d in params.items():
+        if name.endswith("_node_embedding"):
+            for k, v in d.items():
+                if k.startswith("Embed_"):
+                    sd[f"{name}.atom_embedding_list.{k.split('_')[1]}.weight"] = v["embedding"]
+            dense = (("linear", "lm_embedding_layer") if legacy and cfg.use_old_atom_encoder
+                     else ("additional_features_embedder",))
+            for j, ref in enumerate(dense):
+                if f"Dense_{j}" in d:
+                    linear(f"{name}.{ref}", d[f"Dense_{j}"])
+        elif name.endswith("_embedding"):
+            fcblock(name, d)
+        elif name in ("tr_final_layer", "rot_final_layer", "tor_final_layer"):
+            for j, idx in enumerate((0, 3)):
+                linear(f"{name}.{idx}", d[f"Dense_{j}"])
+        elif name.endswith("_predictor"):
+            for j, idx in enumerate((0, 4, 8)):
+                linear(f"{name}.{idx}", d[f"Dense_{j}"])
+            for j, idx in enumerate((1, 5)):
+                k = f"MaskedBatchNorm1d_{j}"
+                if k in d:
+                    sd[f"{name}.{idx}.weight"], sd[f"{name}.{idx}.bias"] = d[k]["scale"], d[k]["bias"]
+                    sd[f"{name}.{idx}.running_mean"] = stats[name][k]["mean"]
+                    sd[f"{name}.{idx}.running_var"] = stats[name][k]["var"]
+    for name, mod in model.named_modules():
+        if not isinstance(mod, TPConv):
+            continue
+        flax_name = name.replace(".", "_")
+        ref = name
+        if legacy and cfg.all_atoms and "." in name:
+            group, depth = name.split(".")
+            ref = f"conv_layers.{9 * int(depth) + LEGACY_AA_GROUPS.index(group)}"
+        kind = {"final_conv": "final", "tor_bond_conv": "tor"}.get(name, "trunk")
+        perm = convert.tp_perm_for_layer(cfg, mod.in_irreps, mod.out_irreps, kind, force_generic=legacy)
+        p = params[flax_name]
+        n_groups = len([k for k in p if k.startswith("edge_mlps_")])
+        for g in range(n_groups):
+            fcblock(f"{ref}.fc" if n_groups == 1 else f"{ref}.fc.{g}", p[f"edge_mlps_{g}"], perm)
+        if "bn" in p:
+            batch_norm(f"{ref}.batch_norm", p["bn"], stats[flax_name]["bn"], mod.out_irreps)
+    return sd
+
+
+LEGACY_DIR = os.path.join(ROOT, "build", "legacy")  # reference files, converted directories, 1a0q, workdirs; removed
+LEGACY_SCORE = dict(ns=48, nv=10, num_conv_layers=6, sh_lmax=2)  # DiffDock's published score model
+LEGACY_B, LEGACY_CPU_STEPS = 8, 3  # infer's batch of poses; the card-vs-CPU sample's steps
+AFF_SAMPLES, AFF_BATCH, AFF_BATCHES, AFF_CPU_B = 4, 16, 2, 8  # the affinity runs' cache, batch, steps; CPU check batch
+
+
+def reference_manifest(cfg) -> dict:
+    """The reference's ``model_parameters.yml`` (its flag names) of a
+    config; ``config_from_reference_manifest`` must give the config back
+    (the legacy flag aside: the reference names it at inference)."""
+    import dataclasses
+
+    from confidence_bootstrapping_tpu_torch.models import factory
+
+    m = {src: getattr(cfg, dst) for src, dst in factory._DIRECT.items()}
+    m.update({src: not getattr(cfg, dst) for src, dst in factory._INVERTED.items()})
+    m.update({k: getattr(cfg.sigma, k) for k in factory._SIGMAS})
+    m["esm_embeddings_path"] = "esm2_embeddings.pt" if cfg.lm_embedding_dim else None
+    if cfg.confidence_mode:
+        m["rmsd_classification_cutoff"] = 2.0
+        if cfg.atom_confidence:
+            m["atom_confidence_loss_weight"] = 0.5
+    back = dataclasses.replace(factory.config_from_reference_manifest(m), old_score_model=cfg.old_score_model)
+    if back != cfg:
+        fail(f"the reference manifest does not translate back to the config: {back} != {cfg}")
+    return m
+
+
+def write_reference(d: str, model) -> dict:
+    """``model`` as the reference ships it, into ``d``: its manifest and its
+    state dict (``reference_state_dict``) as raw.pt, bundle.pt (``{epoch,
+    model, optimizer, ema_weights}``, the EMA weights half the live ones, in
+    the parameters' order) and module.pt (DataParallel's ``module.``
+    prefix). -> the EMA parameters by the port's names."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch import yaml_io
+    from confidence_bootstrapping_tpu_torch.cli.convert import BUFFERS
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "model_parameters.yml"), "w") as f:
+        f.write(yaml_io.dump(reference_manifest(model.cfg)))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in reference_state_dict(model).items()}
+    shadow = [v * 0.5 for k, v in sd.items() if not k.endswith(BUFFERS)]
+    torch.save(sd, os.path.join(d, "raw.pt"))
+    torch.save({"epoch": 7, "model": sd, "optimizer": {}, "ema_weights": {"shadow_params": shadow}},
+               os.path.join(d, "bundle.pt"))
+    torch.save({f"module.{k}": v for k, v in sd.items()}, os.path.join(d, "module.pt"))
+    return {n: p.detach() * 0.5 for n, p in model.named_parameters()}
+
+
+def convert_and_load(d: str, model, dev, module_run: bool = False):
+    """Phase 15b: ``cli.convert`` on each file ``write_reference`` wrote
+    (live, and the bundle with ``--use_ema``), each result loaded onto the
+    card with ``cli.dock.load_or_init_model``: every parameter and buffer
+    bit for bit against the source model (the EMA: half its parameters, its
+    buffers). With ``module_run`` the raw file once more through ``python -m
+    confidence_bootstrapping_tpu_torch.cli.convert`` (the same bytes).
+    Returns the loaded model of raw.pt."""
+    import contextlib
+    import io
+    import subprocess
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.cli import convert as convert_cli
+    from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model
+
+    half = write_reference(d, model)
+    flag = ["--old_score_model"] if model.cfg.old_score_model else []
+    first = None
+    for layout, extra in (("raw", []), ("bundle", []), ("module", []), ("bundle", ["--use_ema"])):
+        out = os.path.join(d, layout + ("_ema" if extra else ""))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_cli.main(["--checkpoint", os.path.join(d, f"{layout}.pt"), "--out_dir", out] + flag + extra)
+            t_conv = time.perf_counter() - t0
+            loaded, cfg = load_or_init_model(out, "last_model", device=dev)
+        if extra:
+            same = (all(torch.equal(p, half[n]) for n, p in loaded.named_parameters())
+                    and all(torch.equal(b, model.get_buffer(n)) for n, b in loaded.named_buffers()))
+        else:
+            same = state_equal(model, loaded)
+        same = same and cfg == model.cfg
+        print(f"  {os.path.basename(d)} {layout}.pt{' --use_ema' if extra else ''}: converted in {t_conv:.2f} s "
+              f"({os.path.getsize(os.path.join(out, 'last_model.msgpack'))} bytes), loaded onto the card, every "
+              f"parameter and buffer bit for bit{' (the EMA weights)' if extra else ''}: {same}", flush=True)
+        if not same:
+            fail(f"{d}/{layout}.pt did not convert and load back bit for bit")
+        first = first or loaded
+    if module_run:
+        out = os.path.join(d, "raw_cli")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "confidence_bootstrapping_tpu_torch.cli.convert", "--checkpoint",
+                            os.path.join(d, "raw.pt"), "--out_dir", out] + flag, cwd=ROOT, capture_output=True,
+                           text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+        same = r.returncode == 0 and all(
+            open(os.path.join(out, f), "rb").read() == open(os.path.join(d, "raw", f), "rb").read()
+            for f in ("model_config.yml", "last_model.msgpack"))
+        print(f"  python -m confidence_bootstrapping_tpu_torch.cli.convert on raw.pt: {time.perf_counter() - t0:.1f} s, "
+              f"the same files: {same} ({r.stdout.strip()[-120:]})", flush=True)
+        if not same:
+            fail(f"the convert module's entry point failed or wrote other files: {r.stderr[-2000:]}")
+    return first
+
+
+def messages_routes(models: dict, run):
+    """(run()'s result, {layer: {route: calls}}): every inference call of a
+    TP-conv's ``messages`` in ``models`` ({prefix: model}, which ``run`` may
+    fill) recorded with the route its layer takes (``TPConv.edge_build``:
+    the edge-list kernel's tensor-core or float32 build, or the plain TP of
+    a layer without ``edge_kernel``)."""
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    names = {}
+    routes = {}
+    orig = TPConv.messages
+
+    def messages(self, group, sender, sh, attr, mask, deterministic=True, generator=None, edge_weight=None):
+        if id(self) not in names:
+            names.update({id(m): f"{prefix}.{n}" for prefix, model in models.items() for n, m in model.named_modules()})
+        if deterministic and id(self) in names:
+            b = self.edge_build(mask.shape[-1]) if self.edge_kernel else None
+            route = "plain TP" if b is None else ("tensor cores" if b[0] else f"float32 at {b[1]}")
+            d = routes.setdefault(names[id(self)], {})
+            d[route] = d.get(route, 0) + 1
+        return orig(self, group, sender, sh, attr, mask, deterministic, generator, edge_weight)
+
+    TPConv.messages = messages
+    try:
+        return run(), routes
+    finally:
+        TPConv.messages = orig
+
+
+def expected_legacy_launches(model, forwards: int) -> int:
+    """Edge-list kernel launches of ``forwards`` inference forwards of a
+    legacy model whose every trunk layer fits a build: per depth the
+    ligand's pairs, bonds and cross lists (one list from residues, or from
+    residues and atoms in the all-atom model), and but at the last depth the
+    receptor kNN and the flipped lists (all-atom: atom and residue kNN, atom
+    <- ligand, atom <- residue, residue <- ligand, residue <- atom); in
+    score mode the center convolution (the lmax=2 torsion head's harmonics
+    take the plain TP)."""
+    n = len(model.lig_conv_layers)
+    per = (4 * n + 6 * (n - 1)) if model.cfg.all_atoms else (3 * n + 2 * (n - 1))
+    return forwards * (per + (0 if model.cfg.confidence_mode else 1))
+
+
+def edge_kernels_per_edge() -> dict:
+    """The edge-list kernel's per-edge calls (the legacy models at
+    inference), as ``replay`` takes them."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge
+
+    return {"tpconv_edge": (tpconv_edge.fused_tpconv_edge, lambda *a: tpconv_edge.tpconv_edge_plain(*a, sum_k=False),
+                            lambda a: edge_work(tuple(a[:11]) + (None, False)), TRAIN_KERNELS["tpconv_edge"][1])}
+
+
+def check_masked_messages(calls: list) -> None:
+    """Fails unless every recorded per-edge call gives its masked edges exact zeros."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge
+
+    for a, kw in calls:
+        if not bool((tpconv_edge.fused_tpconv_edge(*a, **kw)[~a[3]] == 0).all()):
+            fail("the edge-list kernel gave a masked edge a message")
+
+
+def relu_units(model, run):
+    """(run()'s result, {edge MLP first layer's name: hidden units}): every
+    training call of a TP-conv's ``messages`` in ``model`` checked for valid
+    edges with a hidden pre-activation within RELU_GUARD of zero. There two
+    devices, summing in other orders, may take different sides of the ReLU,
+    and that unit's first-layer gradient then differs by a whole edge's term
+    (the kernel replays leave such edges out, ``near_relu_boundary``)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    names = {id(m): n for n, m in model.named_modules()}
+    found = {}
+    orig = TPConv.messages
+
+    def messages(self, group, sender, sh, attr, mask, *a, **k):
+        if id(self) in names:
+            w1, b1 = self.mlp_weights(group)[:2]
+            with torch.no_grad():
+                z = attr.expand(mask.shape + attr.shape[-1:])[mask]
+                near = ((z @ w1 + b1).abs() < RELU_GUARD * (z.abs() @ w1.abs() + b1.abs())).any(0)
+            if near.any():
+                key = f"{names[id(self)]}.edge_mlps.{group}.layers.0"
+                found[key] = sorted(set(found.get(key, [])) | set(torch.nonzero(near)[:, 0].tolist()))
+        return orig(self, group, sender, sh, attr, mask, *a, **k)
+
+    TPConv.messages = messages
+    try:
+        return run(), found
+    finally:
+        TPConv.messages = orig
+
+
+def legacy_phase(dev, score_model, conf_model, b0, final_pos, rerank, card: str) -> None:
+    """Phase 15: reference checkpoints converted and served, and the legacy
+    models (see the module docstring). Every line printed carries ``card``."""
+    import contextlib
+    import shutil
+
+    with contextlib.redirect_stdout(Tagged(sys.stdout, card)):
+        shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+        try:
+            legacy_run(dev, score_model, conf_model, b0, final_pos, rerank)
+        finally:
+            shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+
+
+def legacy_run(dev, score_model, conf_model, b0, final_pos, rerank) -> None:
+    import contextlib
+    import io
+    import json
+    import pickle
+
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.cli import confidence_train, infer
+    from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model
+    from confidence_bootstrapping_tpu_torch.config import SamplerConfig, ScoreModelConfig, confidence_model_config
+    from confidence_bootstrapping_tpu_torch.confidence import dataset as cdataset
+    from confidence_bootstrapping_tpu_torch.confidence import train as ctrain
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import sample, score_confidence
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    marks = [("start", time.perf_counter())]
+    cpu = torch.device("cpu")
+    device_arg = ["--device", "cpu"] if dev.type == "cpu" else []
+
+    # a, b: phase 5's and phase 6's models as reference files, converted and loaded back
+    print("15a/b. reference checkpoints of phase 5's and phase 6's models (three layouts, EMA weights) converted "
+          "and loaded onto the card:", flush=True)
+    loaded = {name: convert_and_load(os.path.join(LEGACY_DIR, name), m, dev, module_run=name == "score")
+              for name, m in (("score", score_model), ("confidence", conf_model))}
+    marks.append(("convert", time.perf_counter()))
+    # c: phase 10's dock path from the converted directories
+    dock_from(loaded["score"], loaded["confidence"], b0, final_pos, rerank, "the converted reference checkpoints")
+    del loaded
+    torch.cuda.empty_cache()
+    marks.append(("dock", time.perf_counter()))
+
+    # d: the legacy models, seeded, through the same files and the converter
+    leg_cfg = ScoreModelConfig(lm_embedding_dim=0, old_score_model=True, **LEGACY_SCORE)
+    leg_conf_cfg = confidence_model_config(lm_embedding_dim=0, old_score_model=True)
+    print(f"15d. the legacy score model (ns={leg_cfg.ns}, nv={leg_cfg.nv}, {leg_cfg.num_conv_layers} layers, "
+          f"sh_lmax={leg_cfg.sh_lmax}) and the legacy all-atom confidence model (ns={leg_conf_cfg.ns}, "
+          f"nv={leg_conf_cfg.nv}, {leg_conf_cfg.num_conv_layers} layers, sh_lmax={leg_conf_cfg.sh_lmax}), seeded, "
+          f"lm 0:", flush=True)
+    leg = convert_and_load(os.path.join(LEGACY_DIR, "legacy_score"), get_model(leg_cfg, device=dev, seed=0), dev)
+    leg_conf = convert_and_load(os.path.join(LEGACY_DIR, "legacy_confidence"),
+                                get_model(leg_conf_cfg, device=dev, seed=0), dev)
+    for name, m in (("score", leg), ("confidence", leg_conf)):  # the route each layer takes, at 24- and 1-edge lists
+        for layer, mod in m.named_modules():
+            if hasattr(mod, "edge_build"):
+                print(f"  legacy {name} {layer}: {mod.in_irreps} -> {mod.out_irreps}, H={mod.hidden}, sh "
+                      f"{mod.sh_irreps}: {edge_route_line(mod, 24)}", flush=True)
+    marks.append(("legacy convert", time.perf_counter()))
+
+    # B=2 forwards and a 3-step B=8 ODE sample, card against CPU
+    padded = host_complex(0)[0]
+    padded_aa = host_complex(0, all_atoms=True)[0]
+    rng = np.random.RandomState(5)
+    pos2 = padded["lig_pos"][None] + rng.randn(2, *padded["lig_pos"].shape).astype(np.float32) * 2
+    pos8 = padded["lig_pos"][None] + rng.randn(LEGACY_B, *padded["lig_pos"].shape).astype(np.float32) * 2
+    near = near_crystal_poses(padded_aa, 2).numpy()
+    res = {}
+    for device, (sm, cm) in ((dev, (leg, leg_conf)), (cpu, (None, None))):
+        if sm is None:
+            sm, cm = get_model(leg_cfg, device=cpu, seed=0), get_model(leg_conf_cfg, device=cpu, seed=0)
+            sm.load_state_dict(leg.state_dict())
+            cm.load_state_dict(leg_conf.state_dict())
+        b2 = replicate_complex(padded, 2, device=device).replace(lig_pos=torch.as_tensor(pos2, device=device))
+        b8 = replicate_complex(padded, LEGACY_B, device=device).replace(lig_pos=torch.as_tensor(pos8, device=device))
+        ba = replicate_complex(padded_aa, 2, device=device)
+        t0 = time.perf_counter()
+        out = sm(b2.set_time(0.5, 0.5, 0.5))
+        conf = score_confidence(cm, ba, lig_pos=torch.as_tensor(near, device=device))
+        final, _ = sample(sm, b8, leg_cfg, SamplerConfig(inference_steps=LEGACY_CPU_STEPS, ode=True), device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        res[device.type] = ([t.cpu() for t in out] + [conf.cpu()], final.lig_pos.cpu(), time.perf_counter() - t0)
+    (got, got_pos, t_card), (want, want_pos, t_cpu) = res[dev.type], res["cpu"]
+    for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred", "legacy confidence"), got, want):
+        err, peak = (g - w).abs().max().item(), w.abs().max().item()
+        print(f"  legacy forward B=2 {name}: max_abs_err {err:.3g} (max |cpu| {peak:.3g}, tolerance {MODEL_RTOL} x "
+              f"max(1, max |cpu|))", flush=True)
+        if not (err <= MODEL_RTOL * max(1.0, peak) and torch.isfinite(g).all()):
+            fail(f"legacy forward {name}: the card disagrees with the CPU")
+    err = (got_pos - want_pos).abs().max().item()
+    print(f"  legacy {LEGACY_CPU_STEPS}-step ODE sample at B={LEGACY_B}: max_abs_err {err:.3g} A (tolerance "
+          f"{SAMPLE_ATOL} A); card {t_card:.1f} s, CPU {t_cpu:.1f} s", flush=True)
+    if not err <= SAMPLE_ATOL:
+        fail("the legacy sample on the card disagrees with the CPU")
+    marks.append(("card vs CPU", time.perf_counter()))
+
+    # cli.infer --old_score_model on 1a0q: one batch of LEGACY_B poses x STEPS steps and the rerank
+    data = os.path.join(LEGACY_DIR, "data")
+    write_1a0q(os.path.join(data, "1a0q"))
+    argv = ["--data_dir", data, "--model_dir", os.path.join(LEGACY_DIR, "legacy_score", "raw"),
+            "--confidence_model_dir", os.path.join(LEGACY_DIR, "legacy_confidence", "raw"), "--old_score_model",
+            "--samples_per_complex", str(LEGACY_B), "--batch_size", str(LEGACY_B), "--inference_steps", str(STEPS),
+            "--out_dir", os.path.join(LEGACY_DIR, "infer")] + device_arg
+    text = io.StringIO()
+    loaded_by_infer = {}
+    load = infer.load_or_init_model
+
+    def load_and_name(model_dir, *a, **kw):  # the CLI's own models, named for messages_routes
+        out = load(model_dir, *a, **kw)
+        loaded_by_infer["score" if model_dir == argv[3] else "confidence"] = out[0]
+        return out
+
+    for i in range(2):  # the first call builds the so3/torus tables and the weight packs
+        before = read_counters()
+        t0 = time.perf_counter()
+        infer.load_or_init_model = load_and_name
+        try:
+            with contextlib.redirect_stdout(text):
+                metrics, routes = messages_routes(loaded_by_infer, lambda: infer.main(argv))
+        finally:
+            infer.load_or_init_model = load
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = nonzero(launch_diff(before, read_counters()))
+    want = expected_legacy_launches(leg, STEPS) + expected_legacy_launches(leg_conf, 1)
+    kernel_calls = sum(n for r in routes.values() for k, n in r.items() if k != "plain TP")
+    plain = {k: r["plain TP"] for k, r in routes.items() if "plain TP" in r}
+    by_route = {}
+    for r in routes.values():
+        for k, n in r.items():
+            by_route[k] = by_route.get(k, 0) + n
+    print(f"  cli.infer --old_score_model (1a0q, {LEGACY_B} poses x {STEPS} steps, the legacy rerank): {wall:.2f} s "
+          f"(second call), failures {metrics['failures']}, rmsds_below_2 {metrics.get('rmsds_below_2')}; messages by "
+          f"route {by_route}, plain TP at {plain}; launches {launches}, kernel-routed calls {kernel_calls}, expected "
+          f"from the config {want}", flush=True)
+    if not (metrics["failures"] == 0 and launches == {"tpconv_edge": want} and kernel_calls == want):
+        fail("cli.infer --old_score_model: a failure, or the legacy models did not run their layers on the kernel")
+    if any(k.startswith("confidence.") and set(r) != {"tensor cores"} for k, r in routes.items()):
+        fail("a layer of the ns=24 legacy all-atom model did not take a tensor-core build")
+    marks.append(("cli.infer", time.perf_counter()))
+
+    # one sample and one rerank recorded: every edge-list call replayed through kernel and plain version
+    b8 = replicate_complex(padded, LEGACY_B, device=dev).replace(lig_pos=torch.as_tensor(pos8, device=dev))
+    scfg = SamplerConfig(inference_steps=STEPS)
+    run = lambda: sample(leg, b8, leg_cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    run()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = run()[0]
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    ba = replicate_complex(padded_aa, LEGACY_B, device=dev)
+    t0 = time.perf_counter()
+    confs = score_confidence(leg_conf, ba, lig_pos=final.lig_pos)
+    torch.cuda.synchronize()
+    t_rerank = time.perf_counter() - t0
+    calls = record_calls(run, ("tpconv_edge",))
+    calls_c = record_calls(lambda: score_confidence(leg_conf, ba, lig_pos=final.lig_pos), ("tpconv_edge",))
+    torch.cuda.synchronize()
+    print(f"  legacy sample at B={LEGACY_B}, {STEPS} steps: {t_sample:.3f} s, {LEGACY_B / t_sample:.3f} poses/s; the "
+          f"legacy rerank {t_rerank * 1e3:.1f} ms, confidences finite: {bool(torch.isfinite(confs).all())}; recorded "
+          f"{len(calls['tpconv_edge'])} + {len(calls_c['tpconv_edge'])} edge-list calls", flush=True)
+    builds = edge_builds({"tpconv_edge": calls["tpconv_edge"] + calls_c["tpconv_edge"]})
+    print(f"  their builds: {builds}", flush=True)
+    for c in (calls, calls_c):
+        check_masked_messages(c["tpconv_edge"])
+        replay(c, edge_kernels_per_edge(), bitwise=("tpconv_edge",), timed=False)
+    per_step = expected_legacy_launches(leg, 1)
+    replay({"tpconv_edge": calls["tpconv_edge"][:per_step]}, edge_kernels_per_edge())  # one step's calls, timed
+    replay(calls_c, edge_kernels_per_edge())
+    del calls, calls_c
+    torch.cuda.empty_cache()
+    marks.append(("replay", time.perf_counter()))
+
+    # e: confidence training with the affinity heads through the CLI
+    score_dir = os.path.join(LEGACY_DIR, "score_lm0")
+    checkpoints.save_model_dir(score_dir, ScoreModelConfig(lm_embedding_dim=0),
+                               get_model(ScoreModelConfig(lm_embedding_dim=0), device=dev, seed=0))
+    csv = os.path.join(LEGACY_DIR, "affinity.csv")
+    with open(csv, "w") as f:
+        f.write("# complex_name,affinity\n1a0q,6.5\n")
+    base = ["--data_dir", data, "--cache_path", os.path.join(LEGACY_DIR, "cache"), "--original_model_dir", score_dir,
+            "--limit_complexes", "1", "--inference_steps", str(STEPS), "--samples_per_complex", str(AFF_SAMPLES),
+            "--seed", "0"] + device_arg
+    with contextlib.redirect_stdout(io.StringIO()):
+        confidence_train.main(base + ["--cache_creation_id", "1", "--workdir", os.path.join(LEGACY_DIR, "wd0")])
+    # cache id 2: near-crystal poses, since random weights roll out no pose within the cutoff and the affinity
+    # column learns only from poses below it ("affinity_valid")
+    gen_dir = os.path.join(LEGACY_DIR, "cache", "confidence_generation")
+    with open(os.path.join(gen_dir, cdataset.filtering_cache_name("1", AFF_SAMPLES, STEPS, False)), "rb") as f:
+        (name,) = pickle.load(f)
+    padded_c, hc = host_complex(0)[:2]
+    L = len(hc.lig_f)
+    crystal = dict(padded_c, lig_pos=padded_c["lig_pos"].copy())
+    crystal["lig_pos"][:L] = hc.orig_lig_pos
+    near = near_crystal_poses(crystal, CONF_NEAR).numpy()[:, :L]
+    near_rmsd = np.sqrt(((near - hc.orig_lig_pos[None]) ** 2).sum(-1).mean(-1))
+    with open(os.path.join(gen_dir, cdataset.filtering_cache_name("2", AFF_SAMPLES, STEPS, False)), "wb") as f:
+        pickle.dump({name: (near, near_rmsd)}, f)
+    print(f"  affinity cache: {AFF_SAMPLES} rollouts of a seeded score model (id 1) and {CONF_NEAR} near-crystal "
+          f"poses (id 2; RMSDs {np.round(near_rmsd, 2).tolist()} A)", flush=True)
+    runs = (("--parallel 2 (the legacy all-atom model)", "wd_parallel", ["--parallel", "2"]),
+            ("--transfer_weights (the residue-level model's affinity column)", "wd_column", ["--transfer_weights"]))
+    for what, wd, extra in runs:
+        steps = []
+        t0 = time.perf_counter()
+        with counted_calls(ctrain, "make_confidence_train_step", steps), contextlib.redirect_stdout(text):
+            state, hist = confidence_train.main(base + ["--workdir", os.path.join(LEGACY_DIR, wd),
+                                                        "--cache_ids", "1,2",
+                                                        "--n_epochs", "1", "--batches_per_epoch", str(AFF_BATCHES),
+                                                        "--batch_size", str(AFF_BATCH), "--affinity_prediction",
+                                                        "--affinity_csv", csv] + extra)
+        wall = time.perf_counter() - t0
+        m = state.model
+        with contextlib.redirect_stdout(io.StringIO()):
+            back, back_cfg = load_or_init_model(os.path.join(LEGACY_DIR, wd), "last_model", device=dev)
+        same = back_cfg == m.cfg and state_equal(m, back)
+        val = hist[0]["val"]
+        print(f"  cli.confidence_train --affinity_prediction {what}: {wall:.2f} s; train affinity loss "
+              f"{hist[0]['train']['affinity_loss']:.4f}, validation {json.dumps(val)}; the workdir back bit for bit: "
+              f"{same}", flush=True)
+        want = expected_affinity_train_launches(m)
+        steps_line(f"  cli.confidence_train {extra[0]} steps", steps, AFF_BATCH, want)
+        if not (same and np.isfinite(val["loss"]) and np.isfinite(val["affinity_rmse"])
+                and hist[0]["train"]["affinity_loss"] > 0):
+            fail(f"cli.confidence_train --affinity_prediction {what}: not finite, no affinity loss, or the workdir "
+                 f"does not load back")
+    marks.append(("cli.confidence_train", time.perf_counter()))
+
+    # one step of the affinity model at dropout 0, card against CPU, and its training-kernel calls replayed
+    aff_cfg = confidence_model_config(lm_embedding_dim=0, old_score_model=True, affinity_prediction=True, parallel=2,
+                                      dropout=0.0, confidence_dropout=0.0)
+    batch = replicate_complex(padded_aa, AFF_CPU_B, device=dev).replace(
+        lig_pos=near_crystal_poses(padded_aa, AFF_CPU_B, seed=6).to(dev)).set_time(0.0, 0.0, 0.0)
+    labels = dict(y=(np.arange(AFF_CPU_B) % 3 == 0).astype(np.float32),
+                  affinity=np.full(AFF_CPU_B, 6.5, np.float32), rmsd=np.ones(AFF_CPU_B, np.float32))
+    def make_step(device, dtype=torch.float32):
+        model = get_model(aff_cfg, device=device, seed=0).to(dtype)
+        model.requires_grad_(True)
+        b = batch.map(lambda t: t.to(device, dtype) if t.is_floating_point() else t.to(device))
+
+        def step():
+            bc = ctrain._maybe_compact(model, b)
+            out = model(bc, deterministic=False, use_running_average=False)
+            loss = ctrain._losses(out, ctrain._label_tensors(labels, device), bc.lig_mask, False, 1.0, 0.0, True, True,
+                                  1.0, aff_cfg.parallel)[0]
+            grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()], allow_unused=True)
+            return loss, dict(zip([n for n, _ in model.named_parameters()], grads))
+
+        return model, step
+
+    model, step = make_step(dev)  # the card's step once recorded (then the batch statistics put back), then run
+    calls = record_train_calls(step)
+    for buf, v in get_model(aff_cfg, device=dev, seed=0).named_buffers():
+        model.get_buffer(buf).copy_(v)
+    (lg, gg), at_relu = relu_units(model, step)
+    lc, gc = make_step(cpu)[1]()
+    worst, candidates = (0.0, ""), {}
+    for n, w in gc.items():
+        w = torch.zeros(()) if w is None else w
+        g = torch.zeros_like(w) if gg[n] is None else gg[n].cpu()
+        tol = MODEL_RTOL * max(1.0, w.abs().max().item())
+        off = ((g - w).abs() > tol).reshape(len(w), -1).any(-1) if w.ndim else (g - w).abs() > tol
+        rows = set(torch.nonzero(off.reshape(-1))[:, 0].tolist())
+        if rows and rows <= set(at_relu.get(n.rsplit(".", 1)[0], [])):  # hidden units at the ReLU: a whole term
+            candidates[n] = (sorted(rows), tol)
+            continue
+        worst = max(worst, ((g - w).abs().max().item() / tol, n))
+    # a row off the tolerance is excused only where float64 on the CPU sides with one of the two float32 devices
+    # (the unit's pre-activation rounds to the other side of the ReLU on the other), at most 4 rows in all
+    excused, n_excused, reading = [], 0, []
+    if candidates:
+        g64 = make_step(cpu, torch.float64)[1]()[1]
+        for n, (rows, tol) in candidates.items():
+            for r in rows:
+                e_card, e_cpu = ((x[n][r].cpu().double() - g64[n][r]).abs().max().item() / tol for x in (gg, gc))
+                reading.append(f"{n} row {r}: card {e_card:.3g}, CPU {e_cpu:.3g} of the tolerance from float64")
+                if min(e_card, e_cpu) <= 1.0:
+                    excused.append(f"{n} row {r}")
+                    n_excused += 1
+                else:
+                    worst = max(worst, (min(e_card, e_cpu), f"{n} row {r} (against float64)"))
+    print(f"  affinity model training step B={AFF_CPU_B} (dropout 0) card vs CPU: loss {lg.item():.6f} vs "
+          f"{lc.item():.6f}; {len(gc)} gradients, worst error {worst[0]:.3g} of its tolerance ({MODEL_RTOL} x max(1, "
+          f"max |cpu|)) at {worst[1]}; off it only at hidden units at the ReLU ({sum(map(len, at_relu.values()))} "
+          f"units on the card) where float64 sides with one device: {n_excused} rows (at most 4) {excused}; "
+          f"float64 reading {reading}; {len(calls['tpconv_edge'])} edge-list and {len(calls['tpconv_bwd'])} "
+          f"backward calls", flush=True)
+    if not (abs(lg.item() - lc.item()) <= MODEL_RTOL * max(1.0, abs(lc.item())) and worst[0] <= 1.0
+            and n_excused <= 4):
+        fail("the affinity model's training step: the card disagrees with the CPU")
+    replay_train_kernels(calls, timed=False)
+    replay_train_ops(calls, timed=False)
+    marks.append(("step card vs CPU", time.perf_counter()))
+    print("phase 15 walls: " + ", ".join(f"{name} {t - t_prev:.1f} s" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+          + f"; in all {marks[-1][1] - marks[0][1]:.1f} s", flush=True)
+
+
+def edge_route_line(mod, K: int) -> str:
+    """The edge-list build a layer's launches take for lists of K edges and
+    for lists of one edge (the most receivers a block, so the most shared
+    memory: if that fits, no list length moves the layer off the build),
+    with the shared memory of each (``tpconv_common``); or why it keeps the
+    plain TP. Raises where no build fits (``pick_build``), as the layer's
+    launch would."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_common as tc
+    from confidence_bootstrapping_tpu_torch.ops.cuda.tpconv_g import cross_rows_per_block
+
+    if not mod.kernel_harmonics:
+        return "plain TP: the kernels do not take these harmonics"
+    lay = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps)
+    layc = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps, tc.TNC)
+    d = tc.Dims(mod.n_edge_features, 0, mod.n_edge_features, mod.hidden, lay.din, lay.dout)
+    parts = []
+    for k in (K, 1):
+        on_tc, cm = mod.edge_build(k)
+        rt = cross_rows_per_block(k)
+        need = (tc.engine_smem_bytes(tc.sh_dim(mod.sh_irreps), tc.TM, d, layc.n_x, rt, True, len(layc.cg),
+                                     len(layc.epi), layc.n_tiles) + tc.engine_static_bytes(tc.TM, True) if on_tc
+                else tc.engine_smem_bytes(tc.sh_dim(mod.sh_irreps), cm, d, lay.n_x, rt)
+                + tc.engine_static_bytes(cm, False))
+        parts.append(f"K={k}: " + ("tensor cores" if on_tc else f"float32 at {cm} edges a chunk") + f", {need} bytes")
+    return "; ".join(parts) + f" (of {tc.SMEM_LIMIT})"
+
+
+def expected_affinity_train_launches(model) -> dict:
+    """Kernel launches of one confidence training step with the affinity
+    heads: the legacy all-atom model (every group on the edge-list op, no
+    smooth edge weights) or the residue-level model in confidence mode (its
+    ligand groups and cross lists on the edge-list op, its receptor kNN
+    groups on rec with the dropout mask); one edge backward per op."""
+    want = {name: 0 for name in all_counters()}
+    if model.cfg.old_score_model:
+        edge, rec = expected_legacy_launches(model, 1), 0
+    else:
+        P, C = len(model.lig_emb_layers), len(model.conv_layers)
+        edge, rec = 2 * (P + C) + C + (C - 1), len(model.rec_emb_layers) + C - 1
+    want.update(tpconv_edge=edge, tpconv_rec_dm=rec, tpconv_bwd=edge + rec)
+    return want
+
+
 def tc_spills(logs: dict) -> dict:
     """{library: {kernel: bytes of spill stores}} from the ptxas logs, for
     the kernels that run on the tensor cores: those whose weights argument
@@ -3592,6 +4267,8 @@ def main() -> None:
     serve_files_phase(dev, model, rerank[0], card, poses_s)
     torch.cuda.synchronize()
     train_files_phase(dev, card)
+    torch.cuda.synchronize()
+    legacy_phase(dev, model, rerank[0], b0, final_pos, rerank, card)
     torch.cuda.synchronize()
 
     launches.update(conf_launches)

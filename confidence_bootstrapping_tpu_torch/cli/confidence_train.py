@@ -15,8 +15,11 @@ architecture and copies every matching tensor (``transfer_matching_variables``).
 ``ema_model`` (Flax msgpack bundles), ``model_config.yml`` and
 ``history.pkl``.
 
-Not ported: ``--affinity_prediction`` and ``--parallel`` > 1, which need the
-legacy all-atom model's affinity head (``models/legacy``); they raise.
+``--affinity_prediction`` trains a binding-affinity head jointly on the
+labels of ``--affinity_csv`` (``complex_name,affinity`` lines): the
+residue-level model's affinity column (with ``--transfer_weights``), or,
+with ``--parallel`` N > 1, the legacy all-atom model (``models/legacy.py``)
+whose affinity head reads groups of N poses of one complex.
 
 Randomness: one ``torch.Generator`` on the device, seeded by ``--seed``,
 draws the rollouts, dropout and the sweep's samples (not the JAX package's
@@ -76,10 +79,10 @@ def get_parser():
     p.add_argument("--atom_rmsd_classification_cutoff", type=float, nargs="+", default=[2.0])
     p.add_argument("--confidence_loss_weight", type=float, default=1.0)
     p.add_argument("--affinity_prediction", action="store_true",
-                   help="train a binding-affinity head jointly (needs models/legacy: not ported)")
+                   help="train a binding-affinity head jointly; needs --affinity_csv labels")
     p.add_argument("--affinity_loss_weight", type=float, default=1.0)
     p.add_argument("--parallel", type=int, default=1,
-                   help=">1 selects the legacy grouped-pose affinity head (not ported)")
+                   help=">1 selects the legacy all-atom model's grouped-pose affinity head")
     p.add_argument("--affinity_csv", default=None, help="CSV of 'complex_name,affinity' per line")
     p.add_argument("--transfer_weights", action="store_true",
                    help="build the confidence model with the SCORE model's architecture and initialize every "
@@ -140,10 +143,11 @@ def transfer_matching_variables(dst: nn.Module, src: nn.Module) -> int:
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.affinity_prediction or args.parallel > 1:
-        raise NotImplementedError("--affinity_prediction and --parallel > 1 need the legacy all-atom model's "
-                                  "affinity head (models/legacy), which the port has not yet (ROADMAP.md, Queue 1 "
-                                  "item 7)")
+    # checked before the rollouts (the JAX CLI finds both after them)
+    if args.affinity_prediction and not args.affinity_csv:
+        raise SystemExit("--affinity_prediction requires --affinity_csv labels")
+    if args.parallel > 1 and not args.affinity_prediction:
+        raise SystemExit("--parallel > 1 requires --affinity_prediction (the legacy affinity model)")
     dev = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
@@ -179,21 +183,31 @@ def main(argv=None):
         atom_cutoff = args.atom_rmsd_classification_cutoff
         if len(atom_cutoff) == 1:
             atom_cutoff = atom_cutoff[0]
+    affinities = None
+    if args.affinity_prediction:
+        affinities = {}
+        for line in open(args.affinity_csv):
+            line = line.strip()
+            if line and not line.startswith("#"):
+                name_, val = line.rsplit(",", 1)
+                affinities[name_.strip()] = float(val)
     heads = dict(num_confidence_outputs=len(cutoff) + 1 if isinstance(cutoff, list) else 1,
                  atom_confidence=args.atom_confidence_loss_weight > 0,
-                 atom_num_confidence_outputs=len(atom_cutoff) + 1 if isinstance(atom_cutoff, list) else 1)
+                 atom_num_confidence_outputs=len(atom_cutoff) + 1 if isinstance(atom_cutoff, list) else 1,
+                 affinity_prediction=args.affinity_prediction, parallel=args.parallel)
     if args.transfer_weights:  # the score model's architecture, its matching weights (confidence_train.py:566-575)
         cfg = dataclasses.replace(score_cfg, confidence_mode=True, **heads)
-    else:  # the ESM width the targets carry (none: the CLI featurizes no embeddings), as Flax infers it at init
+    else:  # the ESM width the targets carry (none: the CLI featurizes no embeddings), as Flax infers it at init;
+        # grouped-pose affinity (--parallel > 1) is the legacy all-atom model's
         cfg = confidence_model_config(ns=args.ns, nv=args.nv, all_atoms=args.all_atoms,
-                                      lm_embedding_dim=targets[0].lm_dim, **heads)
+                                      lm_embedding_dim=targets[0].lm_dim, old_score_model=args.parallel > 1, **heads)
     model = get_model(cfg, device=dev)
     if args.transfer_weights:
         print(f"transferred {transfer_matching_variables(model, score_model)} matching parameter tensors from the "
               f"score model")
 
     kw = dict(rmsd_prediction=args.rmsd_prediction, atom_label_cutoff=atom_cutoff,
-              trajectory_sampling=args.trajectory_sampling, device=dev)
+              trajectory_sampling=args.trajectory_sampling, affinities=affinities, parallel=args.parallel, device=dev)
     ds = cdataset.FilteringDataset(targets, cache, cutoff, None if args.rmsd_prediction else
                                    args.rmsd_classification_upper,
                                    balance=not args.no_balance and not isinstance(cutoff, list), **kw)
@@ -218,7 +232,8 @@ def main(argv=None):
     state, history = ctrain.train_confidence(
         model, ds, cache, tcfg, args.n_epochs, args.batches_per_epoch, generator, val_dataset=val_ds,
         val_cache=cache, rmsd_prediction=args.rmsd_prediction, confidence_loss_weight=args.confidence_loss_weight,
-        atom_confidence_loss_weight=args.atom_confidence_loss_weight,
+        atom_confidence_loss_weight=args.atom_confidence_loss_weight, affinity_prediction=args.affinity_prediction,
+        affinity_loss_weight=args.affinity_loss_weight, parallel=args.parallel,
     )
     save_yaml(cfg, os.path.join(args.workdir, checkpoints.CONFIG_NAME))
     checkpoints.save_params(os.path.join(args.workdir, "last_model.msgpack"), state.model)

@@ -18,9 +18,12 @@ or a directory of ``{name}/{name}_protein_processed.pdb`` +
 seeded from ``--seed``, draws every prior and all sampler noise in order.
 ``cold_variant`` marks the first complex of each (shapes, phase plan, batch)
 variant, as the JAX CLI does; the port compiles nothing per variant, so
-there it only groups the run times. ``--data_parallel`` and
-``--old_score_model`` need modules the port does not have yet and raise
-``NotImplementedError``. ``--esm_embeddings_path`` (a ``.pt`` dict of
+there it only groups the run times. ``--old_score_model`` serves the legacy
+architecture (``models/legacy.py``): a model directory written with it
+(``cli.convert --old_score_model``), or seeded weights where there is no
+checkpoint; a directory of the modern architecture is refused.
+``--data_parallel`` needs ``parallel/mesh``, which the port does not have
+yet, and raises ``NotImplementedError``. ``--esm_embeddings_path`` (a ``.pt`` dict of
 per-complex embeddings, as ``data.esm_prep.fold_esm_outputs`` writes it)
 gives each complex its receptor features after featurization, so the cache
 keys stay the JAX CLI's; the JAX CLI parses the flag but pads every receptor
@@ -52,6 +55,7 @@ from ..eval import rmsd as rmsd_mod
 from ..models.factory import get_model
 from ..runtime import resolve_device
 from ..sampler import sampling
+from ..train import checkpoints
 from .dock import load_or_init_model, peek_model_config
 
 
@@ -98,7 +102,8 @@ def get_parser():
                    help="pin the per-ligand-atom receptor-neighbour capacity of the cross group (0 = the "
                         "model's); telemetry in metrics.json")
     p.add_argument("--old_score_model", action="store_true",
-                   help="the legacy pre-protein-embedding architecture (not ported yet)")
+                   help="the legacy pre-protein-embedding architecture (the reference's inference.py "
+                        "--old_score_model)")
     p.add_argument("--no_final_step_noise", action="store_true")
     p.add_argument("--ode", action="store_true")
     p.add_argument("--temp_sampling_tr", type=float, default=1.0)
@@ -266,9 +271,6 @@ def main(argv=None):
     if args.data_parallel:
         raise NotImplementedError("--data_parallel needs parallel/mesh, which the port has not yet "
                                   "(ROADMAP.md, Queue 1 item 8)")
-    if args.old_score_model:
-        raise NotImplementedError("--old_score_model needs models/legacy, which the port has not yet "
-                                  "(ROADMAP.md, Queue 1 item 7)")
     dev = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     complexes = discover_complexes(args)
@@ -312,8 +314,18 @@ def main(argv=None):
                                                    rec_phase_caps=tuple(c for _, c in plan))
 
             if model is None:
-                model, cfg = load_or_init_model(args.model_dir, args.ckpt, ScoreModelConfig(lm_embedding_dim=n_lm),
-                                                device=dev)
+                model, cfg = load_or_init_model(args.model_dir, args.ckpt,
+                                                ScoreModelConfig(lm_embedding_dim=n_lm,
+                                                                 old_score_model=args.old_score_model), device=dev)
+                if args.old_score_model and not cfg.old_score_model:
+                    if args.model_dir and checkpoints.has_checkpoint(args.model_dir, args.ckpt):
+                        raise SystemExit(
+                            f"--old_score_model was passed, but the checkpoint in {args.model_dir} was saved with "
+                            "the modern architecture (its config lacks old_score_model). Its weights do not fit the "
+                            "legacy model: drop --old_score_model or point --model_dir at a legacy checkpoint (e.g. "
+                            "one written by `cli.convert --old_score_model`).")
+                    cfg = dataclasses.replace(cfg, old_score_model=True)  # no checkpoint: seeded legacy weights
+                    model = get_model(cfg, device=dev)
                 if args.cross_cap:  # pins the exact cap (no bucket-scaled cross_cap_frac)
                     cfg = dataclasses.replace(cfg, cross_cap=args.cross_cap, cross_cap_frac=0.0)
                     model = with_config(model, cfg)

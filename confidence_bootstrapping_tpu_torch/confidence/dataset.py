@@ -19,8 +19,9 @@ Port of ``confidence_bootstrapping_tpu/confidence/dataset.py``:
 
 The RMSD is the plain heavy-atom RMSD, as in the JAX package. Randomness of
 the rollouts and perturbations comes from a ``torch.Generator``; batches are
-made on the dataset's ``device`` (default: the GPU). The affinity labels
-(``affinities``) are not ported.
+made on the dataset's ``device`` (default: the GPU). With ``affinities``
+({complex name: affinity}) each batch also carries the affinity labels and
+their validity (the pose below the RMSD cutoff).
 """
 
 from __future__ import annotations
@@ -124,17 +125,15 @@ class FilteringDataset:
     a random frame of a trajectory cache per item and stamps its diffusion
     time on the batch; the label stays the final pose's. ``parallel`` > 1:
     each group of ``parallel`` consecutive items is ``parallel`` distinct
-    poses of one complex, drawn without replacement. Batches are made on
-    ``device`` (default: the GPU)."""
+    poses of one complex, drawn without replacement. ``affinities``:
+    {complex name: binding affinity} (0 for a complex it lacks). Batches
+    are made on ``device`` (default: the GPU)."""
 
     def __init__(self, targets: Sequence, cache: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  rmsd_classification_cutoff=2.0, rmsd_classification_upper: Optional[float] = 4.0,
                  balance: bool = True, rmsd_prediction: bool = False, seed: int = 0, atom_label_cutoff=None,
                  trajectory_sampling: bool = False, affinities: Optional[Dict[str, float]] = None, parallel: int = 1,
                  device=None):
-        if affinities is not None:
-            raise NotImplementedError("affinity labels are not ported: no model of the port has the affinity head "
-                                      "(ROADMAP.md Queue 1 item 7)")
         self.targets = {t.name: t for t in targets}
         self.rng = np.random.RandomState(seed)
         self.binned = isinstance(rmsd_classification_cutoff, (list, tuple))
@@ -148,6 +147,7 @@ class FilteringDataset:
         self.atom_label_cutoff = atom_label_cutoff
         self.atom_binned = isinstance(atom_label_cutoff, (list, tuple))
         self.trajectory_sampling = trajectory_sampling
+        self.affinities = affinities
         self.parallel = int(parallel)
         self.device = resolve_device(device)
 
@@ -190,7 +190,10 @@ class FilteringDataset:
         labels is a dict of numpy arrays: "y" ([b] float, or one-hot
         [b, nbins] in binned mode) and "rmsd" [b]; with
         ``atom_label_cutoff`` also "atom_y" ([b, L_pad] binary or
-        [b, L_pad, nbins] one-hot; padded atoms 0)."""
+        [b, L_pad, nbins] one-hot; padded atoms 0); with ``affinities`` also
+        "affinity" [b] and "affinity_valid" [b] (1 where the pose's RMSD is
+        below the cutoff: only those carry the combined head's affinity
+        loss)."""
         picks: List[Tuple[str, int, float]] = []
         if self.parallel > 1:
             if batch_size % self.parallel:
@@ -206,7 +209,7 @@ class FilteringDataset:
         else:
             picks = [self.sample_entry() for _ in range(batch_size)]
 
-        items, ys, rmsds, atom_ys, times = [], [], [], [], []
+        items, ys, rmsds, atom_ys, times, affs = [], [], [], [], [], []
         for name, i, r in picks:
             target = self.targets[name]
             pos, _ = cache[name]
@@ -232,12 +235,17 @@ class FilteringDataset:
                     atom_ys.append(binned_labels(d, list(self.atom_label_cutoff)))
                 else:
                     atom_ys.append((d < float(self.atom_label_cutoff)).astype(np.float32))
+            if self.affinities is not None:
+                affs.append(float(self.affinities.get(name, 0.0)))
         batch = batch_complexes(items, self.device)
         tvec = torch.as_tensor(np.asarray(times, dtype=np.float32), device=self.device)
         batch = batch.replace(t_tr=tvec, t_rot=tvec, t_tor=tvec)
         labels = dict(y=np.asarray(ys, dtype=np.float32), rmsd=np.asarray(rmsds, dtype=np.float32))
         if self.atom_label_cutoff is not None:
             labels["atom_y"] = np.stack(atom_ys)
+        if self.affinities is not None:
+            labels["affinity"] = np.asarray(affs, dtype=np.float32)
+            labels["affinity_valid"] = (labels["rmsd"] < self.cutoff).astype(np.float32)
         return batch, labels
 
     def statistics(self):

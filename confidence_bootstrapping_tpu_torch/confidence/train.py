@@ -14,9 +14,10 @@ config's clipping, ``lr_scale``, the NaN skip and the EMA:
 before the forward (``_maybe_compact``), so that the receptor embedding and
 the trunk both see the cropped graph, and normalizes with the batch's
 statistics; the eval step runs the model deterministically on the running
-statistics and leaves them as they were. The affinity objective
-(``affinity_prediction``, ``parallel > 1``) is not ported: no model of the
-port has the affinity head.
+statistics and leaves them as they were. With ``affinity_prediction`` the
+affinity mean squared error joins the objective (``_affinity_terms``: the
+residue-level model's affinity column, or the legacy all-atom model's one
+affinity per group of ``parallel`` poses).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..data.complex_graph import replicate_complex
 from ..models.all_atom_model import crop_to_caps
 from ..runtime import resolve_device
 from ..sampler import sampling
-from ..train.losses import atom_confidence_loss, confidence_loss
+from ..train.losses import affinity_loss, atom_confidence_loss, confidence_loss
 from ..train.train_loop import AverageMeter, TrainState, apply_gradients, batch_stats, init_train_state, \
     keep_batch_stats
 
@@ -64,16 +65,39 @@ def _maybe_compact(model, batch):
     return crop_to_caps(model.cfg, batch)[0]
 
 
-def _refuse_affinity(affinity_prediction: bool, parallel: int) -> None:
-    if affinity_prediction or parallel > 1:
-        raise NotImplementedError("the affinity objective (affinity_prediction, parallel > 1) is not ported: no model "
-                                  "of the port has the affinity head (ROADMAP.md Queue 1 item 7)")
+def _affinity_terms(out, labels_d: dict, parallel: int):
+    """(the confidence predictions without the affinity, the affinity loss)
+    in the model's layout: with ``parallel > 1`` (the legacy all-atom
+    model) one affinity per group of ``parallel`` consecutive poses against
+    the group's label, every group counted, and the filtering logits [B / P,
+    P] as one per pose, [B] in batch order (the JAX package compares them
+    unflattened with the [B] labels: the same loss at batch size P, a
+    broadcast error above it); otherwise the affinity is the confidence
+    head's last column and only poses below the RMSD cutoff
+    ("affinity_valid") count. As in the JAX package, the last column is
+    taken whatever the model (the all-atom model has no affinity column)."""
+    if "affinity" not in labels_d:
+        raise ValueError("affinity_prediction requires 'affinity' labels (FilteringDataset(affinities=...))")
+    if parallel > 1:
+        if out.affinity is None:
+            raise ValueError("parallel > 1 requires a model with affinity_prediction=True (legacy all-atom)")
+        return out.confidence.reshape(-1), affinity_loss(out.affinity, labels_d["affinity"][::parallel])
+    pred = out.confidence
+    aff_pred, pred = pred[..., -1], pred[..., :-1]
+    if pred.shape[-1] == 1 and labels_d["y"].ndim == 1:
+        pred = pred[..., 0]
+    return pred, affinity_loss(aff_pred, labels_d["affinity"], labels_d.get("affinity_valid"))
 
 
 def _losses(out, labels_d: dict, lig_mask, rmsd_prediction: bool, confidence_loss_weight: float,
-            atom_confidence_loss_weight: float, require_atom: bool):
-    """(weighted loss, pose loss, atom loss) of a forward's output."""
-    closs = confidence_loss(out.confidence, labels_d["y"], rmsd_prediction)
+            atom_confidence_loss_weight: float, require_atom: bool, affinity_prediction: bool = False,
+            affinity_loss_weight: float = 1.0, parallel: int = 1):
+    """(weighted loss, pose loss, atom loss, affinity loss, the confidence
+    predictions) of a forward's output."""
+    pred, afloss = (_affinity_terms(out, labels_d, parallel) if affinity_prediction
+                    else (out.confidence, None))
+    closs = confidence_loss(pred, labels_d["y"], rmsd_prediction)
+    afloss = closs.new_zeros(()) if afloss is None else afloss
     aloss = closs.new_zeros(())
     if atom_confidence_loss_weight > 0 and (require_atom or "atom_y" in labels_d):
         if out.atom_confidence is None:
@@ -81,7 +105,8 @@ def _losses(out, labels_d: dict, lig_mask, rmsd_prediction: bool, confidence_los
         if "atom_y" not in labels_d:
             raise ValueError("atom_confidence_loss_weight > 0 requires atom_y labels (set atom_label_cutoff)")
         aloss = atom_confidence_loss(out.atom_confidence, labels_d["atom_y"], lig_mask)
-    return confidence_loss_weight * closs + atom_confidence_loss_weight * aloss, closs, aloss
+    loss = confidence_loss_weight * closs + atom_confidence_loss_weight * aloss + affinity_loss_weight * afloss
+    return loss, closs, aloss, afloss, pred
 
 
 def make_confidence_train_step(model, cfg: TrainConfig, rmsd_prediction: bool = False,
@@ -90,23 +115,23 @@ def make_confidence_train_step(model, cfg: TrainConfig, rmsd_prediction: bool = 
                                parallel: int = 1) -> Callable:
     """-> step(state, batch, labels, generator, mark=None) -> metrics (0-d
     tensors, not synchronized): loss, confidence_loss, atom_confidence_loss,
-    affinity_loss (always 0: not ported) and accuracy. The forward runs with
-    dropout from ``generator`` and batch statistics; with
-    ``atom_confidence_loss_weight`` > 0 the per-atom head trains jointly.
+    affinity_loss and accuracy. The forward runs with dropout from
+    ``generator`` and batch statistics; with ``atom_confidence_loss_weight``
+    > 0 the per-atom head trains jointly, with ``affinity_prediction`` the
+    affinity (``_affinity_terms``).
     ``mark(name)``, when given, is called after the crop and forward
     ("forward"), after the backward ("backward") and after the update
     ("update"), e.g. to record CUDA events. ``model`` is the state's model
     (its config decides the crop)."""
-    _refuse_affinity(affinity_prediction, parallel)
-
     def step(state: TrainState, batch, labels, generator: torch.Generator, mark: Optional[Callable] = None):
         m = state.model
         labels_d = _label_tensors(labels, batch.lig_pos.device)
         batch = _maybe_compact(m, batch)
         saved = batch_stats(m)
         out = m(batch, deterministic=False, use_running_average=False, generator=generator)
-        loss, closs, aloss = _losses(out, labels_d, batch.lig_mask, rmsd_prediction, confidence_loss_weight,
-                                     atom_confidence_loss_weight, True)
+        loss, closs, aloss, afloss, pred = _losses(out, labels_d, batch.lig_mask, rmsd_prediction,
+                                                   confidence_loss_weight, atom_confidence_loss_weight, True,
+                                                   affinity_prediction, affinity_loss_weight, parallel)
         if mark:
             mark("forward")
         grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()], allow_unused=True)
@@ -118,8 +143,7 @@ def make_confidence_train_step(model, cfg: TrainConfig, rmsd_prediction: bool = 
         if mark:
             mark("update")
         return dict(loss=loss.detach(), confidence_loss=closs.detach(), atom_confidence_loss=aloss.detach(),
-                    affinity_loss=torch.zeros_like(closs.detach()),
-                    accuracy=_accuracy(out.confidence.detach(), labels_d["y"], rmsd_prediction))
+                    affinity_loss=afloss.detach(), accuracy=_accuracy(pred.detach(), labels_d["y"], rmsd_prediction))
 
     return step
 
@@ -127,10 +151,9 @@ def make_confidence_train_step(model, cfg: TrainConfig, rmsd_prediction: bool = 
 def make_confidence_eval_step(model, rmsd_prediction: bool = False, atom_confidence_loss_weight: float = 0.0,
                               confidence_loss_weight: float = 1.0, affinity_prediction: bool = False,
                               affinity_loss_weight: float = 1.0, parallel: int = 1) -> Callable:
-    """-> eval(state, batch, labels) -> (loss, confidences, affinity loss
-    (0: not ported)): the deterministic forward on the running statistics,
-    which it leaves as they were."""
-    _refuse_affinity(affinity_prediction, parallel)
+    """-> eval(state, batch, labels) -> (loss, confidences, affinity loss):
+    the deterministic forward on the running statistics, which it leaves as
+    they were."""
 
     @torch.no_grad()
     def step(state: TrainState, batch, labels):
@@ -138,9 +161,10 @@ def make_confidence_eval_step(model, rmsd_prediction: bool = False, atom_confide
         labels_d = _label_tensors(labels, batch.lig_pos.device)
         batch = _maybe_compact(m, batch)
         out = m(batch)
-        loss, _, _ = _losses(out, labels_d, batch.lig_mask, rmsd_prediction, confidence_loss_weight,
-                             atom_confidence_loss_weight, False)
-        return loss, out.confidence, torch.zeros_like(loss)
+        loss, _, _, afloss, pred = _losses(out, labels_d, batch.lig_mask, rmsd_prediction, confidence_loss_weight,
+                                           atom_confidence_loss_weight, False, affinity_prediction,
+                                           affinity_loss_weight, parallel)
+        return loss, pred, afloss
 
     return step
 
@@ -223,7 +247,8 @@ def train_confidence(model, dataset, cache, cfg: TrainConfig, n_epochs: int, bat
     cfg.batch_size)``; with ``val_dataset`` it then evaluates
     max(1, batches_per_epoch // 4) batches of it (loss, accuracy, ROC-AUC
     and, for trajectory sampling, the accuracy in 21 buckets of the
-    diffusion time) and the returned state is the one of the best
+    diffusion time; with ``affinity_prediction`` the affinity RMSE and the
+    predict-the-mean baseline's mean squared error) and the returned state is the one of the best
     validation accuracy (the model, EMA and optimizer put back to it).
     history: one dict per epoch, {"epoch", "train": the step metrics'
     means, "val": ...}."""
@@ -244,11 +269,14 @@ def train_confidence(model, dataset, cache, cfg: TrainConfig, n_epochs: int, bat
         entry = dict(epoch=epoch, train=meter.summary())
 
         if val_dataset is not None:
-            all_y, all_scores, losses, all_t = [], [], [], []
+            all_y, all_scores, losses, aflosses, all_affs, all_t = [], [], [], [], [], []
             for _ in range(max(1, batches_per_epoch // 4)):
                 batch, labels = val_dataset.sample_batch(val_cache, cfg.batch_size)
-                loss, scores, _ = eval_step(state, batch, labels)
+                loss, scores, afloss = eval_step(state, batch, labels)
                 losses.append(float(loss))
+                aflosses.append(float(afloss))
+                if affinity_prediction:
+                    all_affs.extend(np.asarray(labels["affinity"]).tolist())
                 y = labels["y"] if isinstance(labels, dict) else labels
                 s = scores.cpu().numpy()
                 if y.ndim >= 2 and y.shape[-1] > 1:
@@ -266,6 +294,10 @@ def train_confidence(model, dataset, cache, cfg: TrainConfig, n_epochs: int, bat
                 buckets = np.clip((t_ * 20).astype(int), 0, 20)
                 entry["val"]["per_t_accuracy"] = [float(correct[buckets == b].mean()) if (buckets == b).any() else None
                                                   for b in range(21)]
+            if affinity_prediction:
+                a = np.asarray(all_affs)
+                entry["val"]["affinity_rmse"] = float(np.sqrt(np.mean(aflosses)))
+                entry["val"]["affinity_mean_mse"] = float(((a - a.mean()) ** 2).mean()) if len(a) else 0.0
             if acc > best_acc:
                 best_acc, best = acc, (epoch, _snapshot(state))
         history.append(entry)

@@ -1,26 +1,28 @@
-"""Model factory: a config to the port's score or all-atom model, and the
-translation of a reference ``model_parameters.yml`` manifest.
+"""Model factory: a config to the port's score, all-atom or legacy model,
+and the translation of a reference ``model_parameters.yml`` manifest.
 
-Port of ``confidence_bootstrapping_tpu/models/factory.py``. ``get_model``
-refuses, with a ``ValueError`` naming every such field, a config whose
-non-default values ask for what the port's models do not implement (the JAX
-models read them: ``score_model.py``, ``all_atom_model.py``, ``legacy.py``):
+Port of ``confidence_bootstrapping_tpu/models/factory.py``: ``old_score_model``
+selects the legacy architectures (``models/legacy.py``; ``all_atoms`` the
+all-atom one). ``get_model`` refuses, with a ``ValueError`` naming every such
+field, a config whose non-default values ask for what the port's model of
+that architecture does not implement while the JAX package's reads them:
 
-* the legacy architectures: ``old_score_model`` and their knobs
-  ``separate_noise_schedule``, ``use_old_atom_encoder``,
-  ``no_aminoacid_identities``, ``smooth_edges`` and ``parallel != 1``;
-* ``use_second_order_repr``, ``tp_weights_layers != 2``,
-  ``depthwise_convolution``, ``sidechain_pred``, ``affinity_prediction``,
+* every architecture: ``use_second_order_repr``;
+* the modern models (``score_model.py``, ``all_atom_model.py``):
+  ``tp_weights_layers != 2``, ``depthwise_convolution``, ``sidechain_pred``,
   ``fixed_center_conv = false`` (the JAX package too runs only the fixed
-  center convolution);
-* what the port has not ported yet: the residue-level model at
-  ``sh_lmax != 1``, the all-atom model's score mode, and an all-atom model
-  with protein-embedding layers but ``embed_also_ligand = false``.
+  center convolution), the residue-level model at ``sh_lmax != 1``, the
+  all-atom model's score mode, and an all-atom model with protein-embedding
+  layers but ``embed_also_ligand = false``.
 
-Fields only training or the host reads pass through whatever their value:
-``dropout`` and ``confidence_dropout`` (training), ``parallel_aggregators``
-(read only with ``parallel > 1``) and ``c_alpha_max_neighbors``
-(featurization).
+The legacy knobs (``separate_noise_schedule``, ``use_old_atom_encoder``,
+``no_aminoacid_identities``, ``smooth_edges``, ``parallel``), which only the
+legacy models read, pass through the modern ones, as in the JAX package;
+``affinity_prediction`` gives the residue-level model its affinity column
+and the all-atom model nothing. Fields only training or the host reads pass
+through whatever their value: ``dropout`` and ``confidence_dropout``
+(training), ``parallel_aggregators`` (read only with ``parallel > 1``) and
+``c_alpha_max_neighbors`` (featurization).
 """
 
 from __future__ import annotations
@@ -31,25 +33,21 @@ from ..config import ScoreModelConfig
 from ..ops.schedules import SigmaParams
 from ..runtime import resolve_device
 from .all_atom_model import AllAtomScoreModel
+from .legacy import OldAllAtomScoreModel, OldTensorProductScoreModel
 from .score_model import TensorProductScoreModel
 
+_modern = lambda c: not c.old_score_model  # noqa: E731
 # (field, true where the config asks for what the port does not implement, what that is)
 _UNSUPPORTED = (
-    ("old_score_model", lambda c: c.old_score_model, "the legacy architectures"),
-    ("separate_noise_schedule", lambda c: c.separate_noise_schedule, "a legacy model's per-manifold sigma embedding"),
-    ("use_old_atom_encoder", lambda c: c.use_old_atom_encoder, "a legacy model's atom encoder"),
-    ("no_aminoacid_identities", lambda c: c.no_aminoacid_identities, "a legacy model's zeroed residue features"),
-    ("smooth_edges", lambda c: c.smooth_edges, "a legacy model's smoothed edge weights"),
-    ("parallel", lambda c: c.parallel != 1, "the affinity model's pose groups"),
     ("use_second_order_repr", lambda c: c.use_second_order_repr, "the second-order irreps ladder"),
-    ("tp_weights_layers", lambda c: c.tp_weights_layers != 2, "edge MLPs of other than 2 layers"),
-    ("depthwise_convolution", lambda c: c.depthwise_convolution, "the depthwise tensor product"),
-    ("sidechain_pred", lambda c: c.sidechain_pred, "the side-chain head"),
-    ("affinity_prediction", lambda c: c.affinity_prediction, "the affinity output"),
-    ("fixed_center_conv", lambda c: not c.fixed_center_conv, "a center convolution that is not fixed"),
-    ("sh_lmax", lambda c: c.sh_lmax != 1 and not c.all_atoms, "the residue-level model at lmax != 1"),
-    ("all_atoms", lambda c: c.all_atoms and not c.confidence_mode, "the all-atom model's score mode"),
-    ("embed_also_ligand", lambda c: c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
+    ("tp_weights_layers", lambda c: _modern(c) and c.tp_weights_layers != 2, "edge MLPs of other than 2 layers"),
+    ("depthwise_convolution", lambda c: _modern(c) and c.depthwise_convolution, "the depthwise tensor product"),
+    ("sidechain_pred", lambda c: _modern(c) and c.sidechain_pred, "the side-chain head"),
+    ("fixed_center_conv", lambda c: _modern(c) and not c.fixed_center_conv, "a center convolution that is not fixed"),
+    ("sh_lmax", lambda c: _modern(c) and c.sh_lmax != 1 and not c.all_atoms, "the residue-level model at lmax != 1"),
+    ("all_atoms", lambda c: _modern(c) and c.all_atoms and not c.confidence_mode, "the all-atom model's score mode"),
+    ("embed_also_ligand",
+     lambda c: _modern(c) and c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
      "protein-embedding layers without the ligand's"),
 )
 
@@ -61,14 +59,17 @@ def unsupported_fields(cfg: ScoreModelConfig) -> list:
 
 
 def get_model(cfg: ScoreModelConfig, device=None, seed: int = 0):
-    """The model ``cfg`` describes, ``AllAtomScoreModel`` or
-    ``TensorProductScoreModel``, with weights drawn from ``seed``, on
+    """The model ``cfg`` describes (``OldAllAtomScoreModel``,
+    ``OldTensorProductScoreModel``, ``AllAtomScoreModel`` or
+    ``TensorProductScoreModel``), with weights drawn from ``seed``, on
     ``device`` (default: the GPU; ``runtime.resolve_device``). Raises
     ``ValueError`` for a config the port does not implement."""
     bad = unsupported_fields(cfg)
     if bad:
         raise ValueError("the port does not implement this model config: " + "; ".join(bad))
     device = resolve_device(device)
+    if cfg.old_score_model:
+        return (OldAllAtomScoreModel if cfg.all_atoms else OldTensorProductScoreModel)(cfg, device=device, seed=seed)
     if cfg.all_atoms:
         return AllAtomScoreModel(cfg, device=device, seed=seed)
     return TensorProductScoreModel(cfg, device=device, seed=seed)

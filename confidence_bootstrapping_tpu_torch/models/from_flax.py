@@ -15,8 +15,11 @@ module tree mirrors the Flax one, so each path maps mechanically:
   other parameters (batch norms' ``weight``/``bias``/``scale``) keep theirs.
 
 This covers the score model (in score mode, and in confidence mode with its
-``ConfidenceHead``s) and the all-atom confidence model (its 4- and 9-group
-``TPConv``s and its ``ConfidenceHead``s). Training adds no parameter
+``ConfidenceHead``s), the all-atom confidence model (its 4- and 9-group
+``TPConv``s and its ``ConfidenceHead``s) and the legacy models (their
+per-group conv lists, ``lig_conv_layers_0`` to ``ra_conv_layers_3``; the
+old atom encoder's ``Embed_*`` and ``Dense_0``/``Dense_1``; the
+``affinity_predictor``). Training adds no parameter
 or buffer (dropout rates are plain attributes), so the same map carries a
 JAX training state's parameters and batch statistics into the trainable
 model, and its gradients into parameter names

@@ -34,7 +34,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda.tpconv_common import SH2_IRREPS, SH_IRREPS, PackedWeights, pack_weights
+from ..ops.cuda.tpconv_common import SH2_IRREPS, SH_IRREPS, PackedWeights, edge_messages, pack_weights, \
+    takes_harmonics
+from ..ops.cuda.tpconv_edge import edge_build, fused_tpconv_edge
 from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
 from ..ops.cuda.tpconv_lig import fused_tpconv_cross_rev, fused_tpconv_pb
 from ..ops.cuda.tpconv_rec import fused_tpconv_cross, fused_tpconv_rec
@@ -183,13 +185,23 @@ class TPConv(nn.Module):
     """Tensor-product convolution: edge MLP -> TP weights -> messages, then
     masked mean, batch norm and residual in ``finalize``.
 
-    ``num_groups`` edge groups share the TP but have their own edge MLP."""
+    ``num_groups`` edge groups share the TP but have their own edge MLP.
+    ``edge_kernel``: ``messages`` at inference runs the edge-list kernel
+    (the legacy models' layers). The modern models keep the JAX package's
+    plain TP for their per-edge calls at inference (bonds, center and
+    torsion convolutions), the routing that the launch counts of their
+    kernels follow. Fixed when the layer is built: a layer whose harmonics
+    no kernel takes (``kernel_harmonics`` false: the legacy torsion head's,
+    up to l=4) computes its messages in plain PyTorch in every mode."""
 
     def __init__(self, in_irreps: str, sh_irreps: str, out_irreps: str, n_edge_features: int, num_groups: int = 1,
                  hidden_features: Optional[int] = None, batch_norm: bool = True, residual: bool = True,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, edge_kernel: bool = False):
         super().__init__()
+        self.n_edge_features = n_edge_features
         self.in_irreps, self.sh_irreps, self.out_irreps = str(Irreps(in_irreps)), str(Irreps(sh_irreps)), str(Irreps(out_irreps))
+        self.kernel_harmonics = takes_harmonics(self.sh_irreps)
+        self.edge_kernel = edge_kernel and self.kernel_harmonics
         self.tp = WeightedTensorProduct(in_irreps, sh_irreps, out_irreps)
         hidden = hidden_features or n_edge_features
         self.hidden = hidden
@@ -234,8 +246,9 @@ class TPConv(nn.Module):
         """An edge-list op over [..., K, *] edge tensors, broadcast to one
         shape and flattened to contiguous [M, K, *]: in training the
         differentiable op (dropout drawn from ``generator``), at inference
-        the lmax=1 kernel (``fused_tpconv_nbr`` for sums,
-        ``fused_tpconv_msgs`` per edge). -> [..., out_dim] (sum_k) or
+        the edge-list kernel (with lmax=1 harmonics ``fused_tpconv_nbr`` for
+        sums, ``fused_tpconv_msgs`` per edge; otherwise
+        ``fused_tpconv_edge``). -> [..., out_dim] (sum_k) or
         [..., K, out_dim]."""
         lead = torch.broadcast_shapes(sender_attr.shape[:-1], edge_sh.shape[:-1], edge_attr.shape[:-1], edge_mask.shape)
         K = lead[-1]
@@ -246,19 +259,41 @@ class TPConv(nn.Module):
         if train:
             out = fused_tpconv_train(*args, self.in_irreps, self.sh_irreps, self.out_irreps,
                                      dmask=self._dmask(mask.shape, generator, mask.device), sum_k=sum_k, packed=packed)
-        else:
+        elif self.lmax1:
             out = (fused_tpconv_nbr if sum_k else fused_tpconv_msgs)(*args, self.in_irreps, self.out_irreps,
                                                                       packed=packed)
+        else:
+            out = fused_tpconv_edge(*args, self.in_irreps, self.sh_irreps, self.out_irreps, sum_k=sum_k, packed=packed)
         return out.reshape((lead[:-1] if sum_k else lead) + (out.shape[-1],))
 
+    def edge_build(self, K: int) -> tuple:
+        """(tensor cores?, edges a chunk): the build of the edge-list kernel
+        that a launch of this layer takes for lists of K edges
+        (``tpconv_edge.edge_build``; raises where none fits)."""
+        return edge_build(self.in_irreps, self.sh_irreps, self.out_irreps, self.n_edge_features, self.hidden, K)
+
     def messages(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, edge_weight=None):
         """Per-edge messages [..., out_dim]; masked edges are zero. In
-        training, the differentiable edge-list op (per-edge messages)."""
-        if not deterministic:
-            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False, True, generator)
-        msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr))
-        return torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
+        training the differentiable edge-list op; at inference the plain TP,
+        or with ``edge_kernel`` the edge-list kernel; without
+        ``kernel_harmonics`` the plain composition in both. ``edge_weight``
+        [...] (the legacy models' smooth edges) scales each edge's TP
+        weights, so it multiplies the message (the TP is linear in its
+        weights)."""
+        if not self.kernel_harmonics:
+            lead = torch.broadcast_shapes(sender_attr.shape[:-1], edge_sh.shape[:-1], edge_attr.shape[:-1],
+                                          edge_mask.shape)
+            dmask = None if deterministic else self._dmask(lead, generator, edge_attr.device)
+            msg = edge_messages(edge_attr, sender_attr, edge_sh, edge_mask, *self.mlp_weights(group), self.in_irreps,
+                                self.out_irreps, self.sh_irreps, dmask)
+        elif not deterministic or self.edge_kernel:
+            msg = self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False, not deterministic,
+                                  generator)
+        else:
+            msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr))
+            msg = torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
+        return msg if edge_weight is None else msg * edge_weight[..., None]
 
     def conv_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):

@@ -74,8 +74,9 @@ class ScoreOutput(NamedTuple):
 
 
 class ConfidenceOutput(NamedTuple):
-    confidence: torch.Tensor  # [B] (or [B, num_confidence_outputs])
+    confidence: torch.Tensor  # [B] (or [B, num_confidence_outputs (+ 1 with the affinity column)]; [B / P, P] with parallel P)
     atom_confidence: Optional[torch.Tensor] = None  # [B, L, atom_num_confidence_outputs]
+    affinity: Optional[torch.Tensor] = None  # [B / parallel] with parallel > 1 (the legacy all-atom model)
 
 
 class FinalNormMLP(nn.Module):
@@ -468,10 +469,18 @@ class ConfidenceHead(nn.Module):
         return self.layers[2](x)
 
 
+def affinity_column(c: ScoreModelConfig) -> bool:
+    """Whether the pose head carries the affinity as its last column: the
+    residue-level model with ``affinity_prediction`` (the all-atom model has
+    no such column, as in the JAX package)."""
+    return c.affinity_prediction and not c.all_atoms
+
+
 def add_confidence_heads(model: nn.Module, c: ScoreModelConfig) -> None:
     """The confidence model's heads on ``model``: with ``atom_confidence`` a
     per-atom head whose last ns outputs feed the pose head, then the pose
-    head (``confidence_dropout`` in both)."""
+    head (``confidence_dropout`` in both; one more output for the affinity
+    column, ``affinity_column``)."""
     ns = c.ns
     head_in = ns + (c.nv if c.reduce_pseudoscalars else ns) if c.num_prot_emb_layers + c.num_conv_layers >= 3 else ns
     bn = not c.confidence_no_batchnorm
@@ -479,7 +488,8 @@ def add_confidence_heads(model: nn.Module, c: ScoreModelConfig) -> None:
         model.atom_confidence_predictor = ConfidenceHead(head_in, ns, c.atom_num_confidence_outputs + ns, bn,
                                                          c.confidence_dropout)
         head_in = ns
-    model.confidence_predictor = ConfidenceHead(head_in, ns, c.num_confidence_outputs, bn, c.confidence_dropout)
+    model.confidence_predictor = ConfidenceHead(head_in, ns, c.num_confidence_outputs + int(affinity_column(c)), bn,
+                                                c.confidence_dropout)
 
 
 def confidence_heads(model: nn.Module, lig_attr, lig_mask, deterministic: bool = True,
@@ -502,7 +512,7 @@ def confidence_heads(model: nn.Module, lig_attr, lig_mask, deterministic: bool =
     m = lig_mask.to(scal.dtype)[..., None]
     pooled = torch.sum(scal * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
     conf = model.confidence_predictor(pooled, None, det, ura, gen)
-    if c.num_confidence_outputs == 1:
+    if c.num_confidence_outputs == 1 and not affinity_column(c):
         conf = conf[..., 0]
     return ConfidenceOutput(conf, atom_conf)
 

@@ -79,14 +79,21 @@ class TPLayout(NamedTuple):
     epi_start: np.ndarray  # [n_tiles + 1] int32
 
 
+def _sh_dims() -> dict:
+    return {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9, str(Irreps(TOR_SH_IRREPS)): 20}
+
+
+def takes_harmonics(irreps_sh: str) -> bool:
+    """Whether the TP-conv kernels take these harmonics (``sh_dim``)."""
+    return str(Irreps(irreps_sh)) in _sh_dims()
+
+
 def sh_dim(irreps_sh: str) -> int:
     """Width of the kernels' harmonic vector: 4 (lmax=1), 9 (lmax=2) or 20
     (the torsion head's, edge-list kernel only)."""
-    dims = {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9, str(Irreps(TOR_SH_IRREPS)): 20}
-    key = str(Irreps(irreps_sh))
-    if key not in dims:
+    if not takes_harmonics(irreps_sh):
         raise ValueError(f"TP-conv kernels take {SH_IRREPS}, {SH2_IRREPS} or {TOR_SH_IRREPS} harmonics, got {irreps_sh}")
-    return dims[key]
+    return _sh_dims()[str(Irreps(irreps_sh))]
 
 
 @functools.lru_cache(maxsize=None)

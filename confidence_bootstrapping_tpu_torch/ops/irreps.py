@@ -97,8 +97,9 @@ def spherical_harmonics_irreps(lmax: int) -> Irreps:
 # --------------------------------------------------------------------------
 
 # Monomial bases per l, {(ax, ay, az): coeff}: the standard real solid
-# harmonics, normalized below so E_{u~S^2}[Y_m(u)^2] = 1. Degree 3 is needed
-# only to fit the Wigner-D matrices behind the l_out = 3 CG paths.
+# harmonics, normalized below so E_{u~S^2}[Y_m(u)^2] = 1. Degrees 3 and 4 are
+# needed only to fit the Wigner-D matrices behind the l_out = 3 and 4 CG paths
+# (the torsion head's sh (x) 2e product at lmax=1 and lmax=2).
 _POLY_BASES = {
     0: [{(0, 0, 0): 1.0}],
     1: [{(1, 0, 0): 1.0}, {(0, 1, 0): 1.0}, {(0, 0, 1): 1.0}],
@@ -117,6 +118,17 @@ _POLY_BASES = {
         {(1, 0, 2): 4.0, (3, 0, 0): -1.0, (1, 2, 0): -1.0},
         {(2, 0, 1): 1.0, (0, 2, 1): -1.0},
         {(3, 0, 0): 1.0, (1, 2, 0): -3.0},
+    ],
+    4: [
+        {(3, 1, 0): 1.0, (1, 3, 0): -1.0},
+        {(2, 1, 1): 3.0, (0, 3, 1): -1.0},
+        {(1, 1, 2): 6.0, (3, 1, 0): -1.0, (1, 3, 0): -1.0},
+        {(0, 1, 3): 4.0, (2, 1, 1): -3.0, (0, 3, 1): -3.0},
+        {(4, 0, 0): 3.0, (0, 4, 0): 3.0, (0, 0, 4): 8.0, (2, 2, 0): 6.0, (2, 0, 2): -24.0, (0, 2, 2): -24.0},
+        {(1, 0, 3): 4.0, (3, 0, 1): -3.0, (1, 2, 1): -3.0},
+        {(2, 0, 2): 6.0, (0, 2, 2): -6.0, (4, 0, 0): -1.0, (0, 4, 0): 1.0},
+        {(3, 0, 1): 1.0, (1, 2, 1): -3.0},
+        {(4, 0, 0): 1.0, (2, 2, 0): -6.0, (0, 4, 0): 1.0},
     ],
 }
 

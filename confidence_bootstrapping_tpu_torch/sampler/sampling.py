@@ -418,7 +418,11 @@ def _receptors_identical(batch: ComplexBatch) -> bool:
 def receptor_cache(model, batch: ComplexBatch, shared: bool = True):
     """The receptor embedding; with ``shared`` and a batch of replicas of
     one complex, embedded once at B=1 and copied to every pose. A batch of
-    distinct receptors is embedded per element."""
+    distinct receptors is embedded per element. None for a model with no
+    cacheable receptor phase (the legacy models, whose forward ignores
+    ``rec_cache``)."""
+    if not hasattr(model, "embed_receptor"):
+        return None
     B = batch.batch_size
     if B == 1 or not shared or not _receptors_identical(batch):
         return model.embed_receptor(batch)

@@ -10,9 +10,10 @@ Port of ``confidence_bootstrapping_tpu/train/losses.py``:
 * ``confidence_loss`` (binary cross-entropy on logits, the one-hot binned
   cross-entropy, or the RMSD mean squared error) and
   ``atom_confidence_loss`` (binary or binned, padded atoms masked out of the
-  mean), the confidence model's.
-
-``affinity_loss`` is not ported: no model of the port has the affinity head.
+  mean), the confidence model's;
+* ``affinity_loss``: the binding-affinity mean squared error, over the poses
+  a validity mask keeps (the combined head) or over every group (the legacy
+  affinity model).
 """
 
 from __future__ import annotations
@@ -96,3 +97,15 @@ def atom_confidence_loss(atom_pred, atom_labels, lig_mask):
         atom_pred = atom_pred[..., 0] if atom_pred.ndim == 3 else atom_pred
         per_atom = _bce_with_logits(atom_pred, atom_labels)
     return torch.sum(per_atom * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def affinity_loss(affinity_pred, affinity_labels, valid=None):
+    """Binding-affinity mean squared error. With ``valid`` (the combined
+    head: poses whose RMSD is below the classification cutoff) the mean over
+    the poses it keeps, zero when none is; otherwise (the legacy model's one
+    affinity per pose group) over every element."""
+    se = (affinity_pred - affinity_labels) ** 2
+    if valid is None:
+        return torch.mean(se)
+    v = valid.to(torch.float32)
+    return torch.sum(se * v) / torch.clamp(torch.sum(v), min=1.0)

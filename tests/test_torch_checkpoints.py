@@ -45,7 +45,7 @@ from confidence_bootstrapping_tpu.models.score_model import TensorProductScoreMo
 from confidence_bootstrapping_tpu.train import checkpoints as jcheckpoints
 from confidence_bootstrapping_tpu_torch import config, yaml_io
 from confidence_bootstrapping_tpu_torch.cli.dock import load_or_init_model, peek_model_config
-from confidence_bootstrapping_tpu_torch.models import factory, from_flax
+from confidence_bootstrapping_tpu_torch.models import factory, from_flax, legacy
 from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel
 from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
 from confidence_bootstrapping_tpu_torch.train import checkpoints, flax_msgpack
@@ -358,12 +358,27 @@ _REFUSED = [("old_score_model", True), ("separate_noise_schedule", True), ("use_
             ("sh_lmax", 2), ("all_atoms", True)]
 
 
+# refused until the legacy models and the affinity heads were ported: now built (the legacy knobs pass
+# through the modern models, which do not read them, as in the JAX package)
+_LIFTED = {"old_score_model", "separate_noise_schedule", "use_old_atom_encoder", "no_aminoacid_identities",
+           "smooth_edges", "parallel", "affinity_prediction"}
+
+
 @pytest.mark.parametrize("field,value", _REFUSED)
-def test_get_model_refuses_fields_the_port_does_not_implement(field, value):
+def test_get_model_refuses_fields_the_port_does_not_implement(field, value, monkeypatch):
     cfg = config.ScoreModelConfig(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0,
                                   **{field: value})
-    with pytest.raises(ValueError, match=rf"{field}={value!r}"):
-        factory.get_model(cfg, device="cpu")
+    if field not in _LIFTED:
+        with pytest.raises(ValueError, match=rf"{field}={value!r}"):
+            factory.get_model(cfg, device="cpu")
+        return
+    install_jax_score_norms(monkeypatch)
+    model = factory.get_model(cfg, device="cpu")
+    assert not factory.unsupported_fields(cfg)
+    assert isinstance(model, legacy.OldTensorProductScoreModel if field == "old_score_model"
+                      else TensorProductScoreModel)
+    _, tb = both_batches(padded_1a0q(0), 2, t=0.3)
+    assert all(torch.isfinite(t).all() for t in model(tb) if t is not None)
 
 
 @pytest.mark.parametrize("field,value", [("confidence_mode", True), ("crop_beyond", 20.0)])
@@ -387,7 +402,7 @@ def test_get_model_names_every_refused_field_and_builds_the_rest(tmp_path):
                                   confidence_dropout=0.2, c_alpha_max_neighbors=10, parallel_aggregators="mean")
     with pytest.raises(ValueError) as err:
         factory.get_model(cfg, device="cpu")
-    assert "tp_weights_layers=1" in str(err.value) and "parallel=2" in str(err.value)
+    assert "tp_weights_layers=1" in str(err.value) and "parallel" not in str(err.value)  # parallel: ported
     ok = dataclasses.replace(cfg, tp_weights_layers=2, parallel=1, num_conv_layers=2, num_prot_emb_layers=1)
     assert isinstance(factory.get_model(ok, device="cpu"), TensorProductScoreModel)
     conf = config.confidence_model_config(ns=8, nv=2, num_conv_layers=2, lm_embedding_dim=0)
@@ -475,4 +490,5 @@ print(",".join(names), sorted(m for m in sys.modules if m.split(".")[0] in BLOCK
     assert {f"confidence_bootstrapping_tpu_torch.confidence.{m}" for m in ("dataset", "train")} <= set(names)
     assert {f"confidence_bootstrapping_tpu_torch.{m}" for m in (
         "data.mol_io", "data.parse_chi", "data.featurize", "data.conformers", "data.dataset", "data.moad",
-        "data.esm_prep", "eval.relax", "cli.dock", "cli.infer")} <= set(names)
+        "data.esm_prep", "eval.relax", "cli.dock", "cli.infer", "models.legacy", "models.convert",
+        "cli.convert")} <= set(names)

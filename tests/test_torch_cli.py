@@ -182,11 +182,45 @@ def test_infer_selection_and_sampler_flags(files, tmp_path, monkeypatch):
     assert m["failures"] == 0 and m["no_overlap_n_complexes"] == 1 and "no_overlap_rmsds_below_2" in m
 
 
+def test_infer_old_score_model_on_a_converted_directory(files, tmp_path, monkeypatch):
+    """A legacy score model (sh_lmax=2, smooth edges) as a reference .pt and
+    manifest, converted by ``cli.convert --old_score_model``, served by
+    ``infer --old_score_model`` with the legacy all-atom confidence model
+    for the rerank: every complex sampled and scored."""
+    install_jax_tables(monkeypatch)
+    import chip_smoke
+    from confidence_bootstrapping_tpu_torch import yaml_io
+    from confidence_bootstrapping_tpu_torch.cli import convert
+
+    dirs = {}
+    for name, cfg in (("score", ScoreModelConfig(ns=8, nv=2, sh_lmax=2, num_conv_layers=2, lm_embedding_dim=0,
+                                                 old_score_model=True, smooth_edges=True)),
+                      ("conf", confidence_model_config(ns=8, nv=2, num_conv_layers=2, lm_embedding_dim=0,
+                                                       old_score_model=True, crop_res_cap=32, crop_atom_cap=256))):
+        src = tmp_path / f"ref_{name}"
+        src.mkdir()
+        sd = chip_smoke.reference_state_dict(get_model(cfg, device="cpu", seed=3))
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, str(src / "model.pt"))
+        manifest = dict(ns=8, nv=2, sh_lmax=2, num_conv_layers=2, all_atoms=cfg.all_atoms,
+                        smooth_edges=cfg.smooth_edges)
+        if cfg.confidence_mode:
+            manifest.update(rmsd_classification_cutoff=2.0, num_prot_emb_layers=0, reduce_pseudoscalars=False,
+                            crop_beyond=20.0)
+        (src / "model_parameters.yml").write_text(yaml_io.dump(manifest))
+        dirs[name] = str(tmp_path / name)
+        convert.main(["--checkpoint", str(src / "model.pt"), "--out_dir", dirs[name], "--old_score_model"])
+    m = infer.main(["--data_dir", files["data"], "--samples_per_complex", "2", "--inference_steps", "2",
+                    "--model_dir", dirs["score"], "--confidence_model_dir", dirs["conf"], "--old_score_model",
+                    "--out_dir", str(tmp_path / "run"), "--device", "cpu"])
+    assert m["failures"] == 0 and np.isfinite(m["rmsds_below_2"])
+
+
 def test_unported_flags_and_devices_raise(files, tmp_path):
     base = ["--data_dir", files["data"], "--out_dir", str(tmp_path), "--device", "cpu"]
-    for flag, item in (("--data_parallel", "item 8"), ("--old_score_model", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            infer.main(base + [flag])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        infer.main(base + ["--data_parallel"])
+    with pytest.raises(SystemExit, match="modern architecture"):  # --old_score_model on a modern checkpoint
+        infer.main(base + ["--old_score_model", "--model_dir", files["score"]])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             infer.main(base[:-2])

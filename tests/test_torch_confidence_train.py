@@ -391,10 +391,65 @@ def test_filtering_dataset_picks_and_labels_match_jax(mode):
 
 
 def test_filtering_dataset_refuses_affinities():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dataset.FilteringDataset(_targets()[1], _synthetic_cache(), affinities={"AAAA_1": 5.0}, device="cpu")
-    with pytest.raises(NotImplementedError, match="affinity"):
-        ctrain.make_confidence_train_step(None, TrainConfig(), parallel=2)
+    """Refused until the affinity heads were ported; now the affinity labels
+    ("affinity", and "affinity_valid" below the cutoff) in both layouts
+    (one pose a row; groups of 2 poses of one complex) equal the JAX
+    package's, as do the affinity terms and losses of both head layouts: the
+    combined head's last column (only valid poses count) and the legacy
+    model's one affinity per group (every group counts; its [B / P, P]
+    filtering logits as one per pose, the JAX loss at batch size P)."""
+    jts, tts = _targets()
+    cache = _synthetic_cache()
+    affs = {"AAAA_1": 5.0, "BBBB_1": -1.5}
+    for parallel in (1, 2):
+        jds = jdataset.FilteringDataset(jts, cache, seed=3, affinities=affs, parallel=parallel, balance=False)
+        tds = dataset.FilteringDataset(tts, cache, seed=3, affinities=affs, parallel=parallel, balance=False,
+                                       device="cpu")
+        jl, tl = jds.sample_batch(cache, 4)[1], tds.sample_batch(cache, 4)[1]
+        assert tl.keys() == jl.keys() >= {"affinity", "affinity_valid"}
+        for k in jl:
+            np.testing.assert_array_equal(tl[k], jl[k], err_msg=k)
+    rng = np.random.RandomState(1)
+    y = (rng.rand(2) > 0.5).astype(np.float32)
+    labels = dict(y=y, affinity=rng.randn(2).astype(np.float32), affinity_valid=np.array([1.0, 0.0], np.float32))
+    tlabels = {k: torch.as_tensor(v) for k, v in labels.items()}
+    conf, aff = rng.randn(2, 2).astype(np.float32), rng.randn(1).astype(np.float32)
+    Out = lambda confidence, affinity=None: type("Out", (), dict(confidence=confidence, affinity=affinity))
+    for parallel, c, a in ((1, conf, None), (2, conf[:1], aff)):
+        jpred, jloss = jtrain._affinity_terms(Out(jnp.asarray(c), None if a is None else jnp.asarray(a)), labels,
+                                              parallel)
+        pred, loss = ctrain._affinity_terms(Out(torch.as_tensor(c), None if a is None else torch.as_tensor(a)),
+                                            tlabels, parallel)
+        np.testing.assert_allclose(pred.numpy(), np.asarray(jpred).reshape(-1), rtol=1e-6)
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
+        np.testing.assert_allclose(losses.confidence_loss(pred, tlabels["y"]).item(),
+                                   float(jlosses.confidence_loss(jpred, jnp.asarray(y))), rtol=1e-6)
+    for valid in (None, labels["affinity_valid"], np.zeros(2, np.float32)):
+        got = losses.affinity_loss(torch.as_tensor(conf[:, 0]), tlabels["affinity"],
+                                   None if valid is None else torch.as_tensor(valid))
+        want = jlosses.affinity_loss(jnp.asarray(conf[:, 0]), jnp.asarray(labels["affinity"]),
+                                     None if valid is None else jnp.asarray(valid))
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+
+
+def test_parallel_logits_above_batch_size_parallel_deviate_from_jax():
+    """A recorded deviation: with ``parallel`` P the JAX step compares the
+    legacy model's [B / P, P] filtering logits with the [B] labels as they
+    are, which broadcasts only at B = P and raises above it; the port takes
+    them as one logit per pose in batch order, so at B = 4, P = 2 it
+    computes what the JAX loss gives on the flattened logits."""
+    rng = np.random.RandomState(4)
+    labels = dict(y=(rng.rand(4) > 0.5).astype(np.float32), affinity=rng.randn(4).astype(np.float32))
+    conf, aff = rng.randn(2, 2).astype(np.float32), rng.randn(2).astype(np.float32)
+    Out = lambda confidence, affinity: type("Out", (), dict(confidence=confidence, affinity=affinity))
+    jpred, _ = jtrain._affinity_terms(Out(jnp.asarray(conf), jnp.asarray(aff)), labels, 2)
+    with pytest.raises((TypeError, ValueError)):
+        jlosses.confidence_loss(jpred, jnp.asarray(labels["y"]))
+    pred, _ = ctrain._affinity_terms(Out(torch.as_tensor(conf), torch.as_tensor(aff)),
+                                     {k: torch.as_tensor(v) for k, v in labels.items()}, 2)
+    np.testing.assert_allclose(losses.confidence_loss(pred, torch.as_tensor(labels["y"])).item(),
+                               float(jlosses.confidence_loss(jnp.asarray(conf).reshape(-1),
+                                                             jnp.asarray(labels["y"]))), rtol=1e-6)
 
 
 def _inject_sampler(monkeypatch, frames):

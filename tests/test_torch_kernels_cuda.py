@@ -10,7 +10,8 @@ and without a dropout mask, rec and rec_g with one, the edge backward) and
 the autograd ops over them, the composed route's kernels (the one-direction
 cross kernel at K off the 16-grid, the edge-list kernel's inference instance
 for sums and per-edge messages, the v1 API over it, and TPConv's routing to
-them), and the wrappers' input checks. The rec (with and without the
+them), the legacy models' per-edge messages with edge weights, and the
+wrappers' input checks. The rec (with and without the
 dropout mask), pb, cross_rev, rec_g, row 4 and edge-list kernels run the
 H -> W product on the tensor cores (3xTF32) at the score model's ns=32
 layers: their cases include the full-width 100 -> 100 layer, H not a
@@ -550,6 +551,47 @@ def test_edge_kernel_matches_plain(dev, irreps_sh, irreps_out, M, K, dropout, su
         assert float(got[:3].abs().max()) == 0.0
         if not sum_k:
             assert float(got[~inputs[3]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("irreps_in,irreps_out,tc", [
+    (CONF_TRUNK, CONF_TRUNK, True),  # the legacy all-atom model at ns=24, nv=6 (H=72): the tensor-core build
+    ("24x0e", "24x0e + 6x1o", True),  # its first layer
+    (WIDE, WIDE, False),  # DiffDock's legacy score model at ns=48, nv=10 (H=144): float32 at 32 edges a chunk
+])
+def test_legacy_layers_take_the_edge_kernel_with_edge_weights(dev, irreps_in, irreps_out, tc):
+    """A legacy layer's per-edge messages at inference (``TPConv(edge_kernel=
+    True).messages`` with the smooth edge weights, lmax=2 harmonics): one
+    launch of the edge-list kernel, times the weights, against the same
+    call on the CPU (the kernel's plain version); the same bits on a second
+    call; masked edges exactly zero."""
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    g = _gen(21)
+    ns = _ns(irreps_in)
+    layer = TPConv(irreps_in, SH2, irreps_out, 3 * ns, hidden_features=3 * ns, residual=False, edge_kernel=True)
+    for p in layer.parameters():
+        p.data = torch.randn(p.shape, generator=g) * 0.2
+    B, M, K = 2, 13, 24
+    x = torch.randn(B, M, K, WeightedTensorProduct(irreps_in, SH2, irreps_out).irreps_in.dim, generator=g)
+    vec = torch.randn(B, M, K, 3, generator=g)
+    from confidence_bootstrapping_tpu_torch.ops.irreps import spherical_harmonics
+
+    sh = spherical_harmonics(2, vec)
+    attr = torch.randn(B, M, K, 3 * ns, generator=g)
+    mask = torch.rand(B, M, K, generator=g) > 0.3
+    w = 0.5 * (torch.cos(torch.rand(B, M, K, generator=g) * 3.1) + 1)
+    want = layer.messages(0, x, sh, attr, mask, edge_weight=w)
+    layer.to(dev)
+    assert layer.edge_build(K) == (tc, tpconv_common.TM if tc else tpconv_common.TM_WIDE)
+    before = tpconv_edge.fused_tpconv_edge.launches
+    ins = [t.to(dev) for t in (x, sh, attr, mask)]
+    got = layer.messages(0, *ins, edge_weight=w.to(dev))
+    again = layer.messages(0, *ins, edge_weight=w.to(dev))
+    torch.cuda.synchronize()
+    assert tpconv_edge.fused_tpconv_edge.launches == before + 2
+    _close(got, want)
+    assert torch.equal(got, again)
+    assert float(got[~ins[3]].abs().max()) == 0.0
 
 
 def test_training_and_composed_kernels_at_the_wide_ladder(dev):

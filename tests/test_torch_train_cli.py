@@ -281,6 +281,28 @@ def test_confidence_train_cli_transfer_cache_and_test(files, tmp_path, monkeypat
     assert os.path.exists(wd / "trajectory_sweep.json")
 
 
+def test_confidence_train_cli_affinity_heads(files, tmp_path, monkeypatch):
+    """--affinity_prediction with --affinity_csv labels: --parallel 2 trains
+    the legacy all-atom model's grouped-pose affinity head, --transfer_weights
+    the residue-level model with its affinity column; both workdirs load back
+    and report the affinity validation metrics."""
+    install_jax_tables(monkeypatch)
+    csv = tmp_path / "affinity.csv"
+    csv.write_text("# complex,affinity\n" + "".join(f"{n},{5.0 + i}\n" for i, n in enumerate(sorted(
+        os.listdir(files / "data")))))
+    base = ["--data_dir", str(files / "data"), "--cache_path", str(tmp_path / "cache"), "--original_model_dir",
+            str(files / "score"), "--samples_per_complex", "2", "--inference_steps", "2", "--limit_complexes", "1",
+            "--device", "cpu", "--n_epochs", "1", "--batches_per_epoch", "1", "--batch_size", "2",
+            "--affinity_prediction", "--affinity_csv", str(csv)]
+    for wd, extra in (("legacy", ["--parallel", "2", "--ns", "8", "--nv", "2"]), ("column", ["--transfer_weights"])):
+        _, history = confidence_train.main(base + ["--workdir", str(tmp_path / wd)] + extra)
+        val = history[0]["val"]
+        assert np.isfinite(history[0]["train"]["affinity_loss"]) and np.isfinite(val["affinity_rmse"])
+        model, cfg = load_or_init_model(str(tmp_path / wd), "last_model", device="cpu")
+        assert cfg.affinity_prediction and cfg.old_score_model == (wd == "legacy")
+        assert (cfg.parallel, cfg.all_atoms) == ((2, True) if wd == "legacy" else (1, False))
+
+
 def test_transfer_matching_variables_matches_jax():
     src = get_model(ScoreModelConfig(**TINY), device="cpu", seed=1)
     dst = get_model(ScoreModelConfig(**dict(TINY, num_conv_layers=2), confidence_mode=True), device="cpu", seed=2)
@@ -298,10 +320,13 @@ def test_unported_flags_and_devices_raise(files, tmp_path, monkeypatch):
     for call, item in ((lambda: train.main(_train_argv(files, tmp_path, "--data_parallel")), "parallel/mesh"),
                        (lambda: finetune.main(["--data_dir", "x", "--data_parallel", "--device", "cpu"]),
                         "parallel/mesh"),
-                       (lambda: confidence_train.main(conf_base + ["--affinity_prediction"]), "models/legacy"),
-                       (lambda: confidence_train.main(conf_base + ["--parallel", "2"]), "models/legacy")):
+                       ):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the affinity flags, ported: their labels and the legacy model they need are checked before any rollout
+    for flags, what in ((["--affinity_prediction"], "affinity_csv"), (["--parallel", "2"], "affinity_prediction")):
+        with pytest.raises(SystemExit, match=what):
+            confidence_train.main(conf_base + flags)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: train.main(_train_argv(files, tmp_path)[:-2]),  # no --device
                  lambda: bootstrap_gen.main(["--data_dir", str(files / "data"), "--model_dir", str(files / "score")]),
