@@ -79,7 +79,7 @@ Phases (each one fails the script when it fails):
      shared-memory layouts against every library's exported bytes; one
      B=2 training step's calls (the edge backward at H=144, the edge-list
      forward and rec with the dropout mask) replayed through kernel and
-     plain version; a 3-step ODE sample at B=8, card against CPU; then the
+     plain version; a 3-step ODE sample at B=4, card against CPU; then the
      B=32 20-step 1a0q sample: one run recorded and every rec, pb and
      cross_rev call of it (each layer pair, each phase's N, with and
      without reverse weights; the float32 builds at 32 edges a chunk)
@@ -90,7 +90,7 @@ Phases (each one fails the script when it fails):
      Flax msgpack bundle, ``train.checkpoints.save_model_dir``; bytes and
      ms printed), loaded back onto the card with
      ``cli.dock.load_or_init_model`` (every parameter and buffer bit for
-     bit), a model_config.yml with ``tp_weights_layers: 3`` refused; then
+     bit), a model_config.yml with ``sh_lmax: 3`` refused; then
      the dock path from the loaded models, timed once: phase 5's sample
      (poses, plan, noise), the rerank and the ranking, every kernel's
      launches against the config, every cross_g call on its tensor-core
@@ -187,7 +187,7 @@ Phases (each one fails the script when it fails):
      sh_lmax=2) and the legacy all-atom model at phase 6's widths, seeded,
      lm 0, through the same files and converter: each layer's route (the
      edge-list kernel's build with its shared-memory bytes at 24- and
-     1-edge lists, or the plain TP), B=2 forwards and a 3-step B=8 ODE sample card against CPU,
+     1-edge lists, or the plain TP), B=2 forwards and a 2-step B=8 ODE sample card against CPU,
      ``cli.infer --old_score_model`` on 1a0q (8 poses x 20 steps, the
      legacy rerank; messages by route, launches against the config, every
      ns=24 layer on a tensor-core build), one sample and rerank recorded and
@@ -203,10 +203,28 @@ Phases (each one fails the script when it fails):
      where a float64 CPU step sides with one device, at most 4 rows) and
      its training-kernel calls replayed. Every line carries
      the card's name and power limit.
+ 16. the score-model remainder: phase 5's score model with one field changed
+     each, seeded, full width on 1a0q: (A) the all-atom model in score mode
+     at lmax=2 with the 3183 seeded atoms, (B) the residue-level model at
+     lmax=2, (C) the second-order irreps ladder at lmax=1 (l = 2 node
+     blocks). Per path: each layer's route, builds and shared-memory bytes; a
+     B=1 forward card against CPU; a warm and a timed B=32 20-step sample
+     (poses/s; the launches of rec_g, cross_g and the edge-list kernel
+     against the config; no plain version called on the card), its poses
+     reranked by phase 6's model (ms; A also with ``embed_full_receptor``);
+     every kernel call of one sample replayed through kernel and plain
+     version (bit for bit across two launches; timed at C, whose rows enter
+     the ``kernels`` line); a warm-up and 3 B=16 ``TrainConfig()`` steps
+     (median ms, launches against the config) and one step's kernel and op
+     calls replayed (timed at C). Then the plain configurations (depthwise,
+     3-layer edge MLPs, the side-chain head): a B=1 forward card against CPU,
+     a B=16 forward's launches and one training step. Every line carries the
+     card's name and power limit.
 Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
-phase 12's rec_g with the mask; ``bound_ms`` the tensor-core bound,
+phase 12's rec_g with the mask, per sample and per training step of phase
+16's path C for the rows named ", path C"; ``bound_ms`` the tensor-core bound,
 ``bound_fp32_ms`` the float32 one), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -232,10 +250,13 @@ TC_PRODUCTS = 3  # 3xTF32: h_lo w_hi + h_hi w_lo + h_hi w_hi for float32 accurac
 # {library: its kernels that run H x W products on wgmma, by a part of their mangled names}
 TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel", "23tpconv_rec_dm_tc_kernel"), "tpconv_pb": ("16tpconv_pb_kernel",),
               "tpconv_cross_rev": ("23tpconv_cross_rev_kernel",),
-              "tpconv_rec_g": ("19tpconv_rec_g_kernel", "25tpconv_rec_g_dm_tc_kernel"),
-              "tpconv_cross": ("22tpconv_cross_tc_kernel",), "tpconv_cross_g": ("24tpconv_cross_g_tc_kernel",),
-              "tpconv_edge": tuple(f"21tpconv_edge_tc_kernelILi{shd}ELb{dm}E" for shd in (4, 9, 20) for dm in (0, 1)),
-              "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
+              "tpconv_rec_g": tuple(f"{k}ILi{shd}ELi{di}E" for k in ("19tpconv_rec_g_kernel", "25tpconv_rec_g_dm_tc_kernel")
+                                    for shd in (4, 9) for di in (3, 5)),
+              "tpconv_cross": ("22tpconv_cross_tc_kernel",),
+              "tpconv_cross_g": tuple(f"24tpconv_cross_g_tc_kernelILi{shd}ELi{di}E" for shd in (4, 9) for di in (3, 5)),
+              "tpconv_edge": tuple(f"{k}ILi{shd}ELb{dm}E" for k in ("21tpconv_edge_tc_kernel", "22tpconv_edge_tc5_kernel")
+                                   for shd in (4, 9, 20) for dm in (0, 1)),
+              "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "26tpconv_bwd_edge_tc5_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
                              "17tn_gemm_tc_kernelILi96ELb1E")}
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
 MODEL_RTOL = 1e-3  # CUDA vs CPU forward, per output, relative to its max |value|
@@ -622,7 +643,7 @@ def model_phase(dev) -> None:
                                                            rec_phase_caps=(256, 128)), device=device)
         if ref_pos is None:
             torch.cuda.synchronize()
-            got = [t.cpu() for t in out]
+            got = [t.cpu() for t in out[:3]]  # tr, rot, tor (sidechain_pred: None)
             ref_pos = final.lig_pos.cpu()
             continue
         for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred"), got, out):
@@ -796,7 +817,8 @@ def confidence_phase(dev, final_pos) -> tuple:
 
     # the timed forward, on poses near the crystal pose
     poses = near_crystal_poses(padded, B_POSES).to(dev)
-    _, stats = compact_crop(batch.replace(lig_pos=poses), float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)
+    stats = compact_crop(batch.replace(lig_pos=poses), None, float(cfg.crop_beyond), cfg.crop_res_cap,
+                         cfg.crop_atom_cap)[2]
     st = {k: v.cpu().numpy() for k, v in stats.items()}
     print(f"crop per pose: kept residues {st['kept_res'].min()}-{st['kept_res'].max()} (overflow "
           f"{st['res_overflow'].max()}), kept atoms {st['kept_atoms'].min()}-{st['kept_atoms'].max()} (overflow "
@@ -1553,7 +1575,7 @@ def composed_pairs_phase(dev) -> tuple:
         batch = replicate_complex(padded, B_8B, device=device).replace(lig_pos=torch.as_tensor(pos, device=device))
         fwd = model(batch.map(lambda a: a[:2]).set_time(0.5, 0.5, 0.5))
         final, _ = sample(model, batch, cfg, scfg, device=device)
-        res.append(([t.cpu() for t in fwd], final.lig_pos.cpu()))
+        res.append(([t.cpu() for t in fwd[:3]], final.lig_pos.cpu()))
     (fc, pc), (fg, pg) = res
     for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred"), fg, fc):
         err, peak = (g - w).abs().max().item(), w.abs().max().item()
@@ -1624,7 +1646,7 @@ def replay_v1(calls: dict) -> None:
 
 
 WIDE_NS, WIDE_NV = 48, 10  # DiffDock's published score-model width: H = 3 ns = 144, above the tensor-core stage's 96
-B_WIDE_CHECK, STEPS_WIDE_CHECK = 8, 3  # the card-against-CPU sample at the wide ladder
+B_WIDE_CHECK, STEPS_WIDE_CHECK = 4, 3  # the card-against-CPU sample at the wide ladder
 
 
 def ladder_pairs(ns: int, nv: int, reduce_pseudoscalars: bool = False) -> list:
@@ -1848,12 +1870,12 @@ def model_dir_phase(dev, model, b0, final_pos, rerank) -> None:
         with open(os.path.join(MODEL_DIRS, "score", checkpoints.CONFIG_NAME)) as f:
             fields = yaml_io.load(f.read())
         with open(os.path.join(bad, checkpoints.CONFIG_NAME), "w") as f:
-            f.write(yaml_io.dump(dict(fields, tp_weights_layers=3)))
+            f.write(yaml_io.dump(dict(fields, sh_lmax=3)))
         try:
             load_or_init_model(bad, "last_model", device=dev)
-            fail("a model_config.yml with tp_weights_layers: 3 was not refused")
+            fail("a model_config.yml with sh_lmax: 3 was not refused")
         except ValueError as e:
-            print(f"tp_weights_layers: 3 refused: {e}", flush=True)
+            print(f"sh_lmax: 3 refused: {e}", flush=True)
     finally:
         shutil.rmtree(MODEL_DIRS, ignore_errors=True)
     dock_from(loaded["score"], loaded["confidence"], b0, final_pos, rerank, "the model directories")
@@ -2221,7 +2243,7 @@ def cb_run(dev, conf_model) -> None:
     with torch.no_grad():
         control(batch)  # packs epoch 0's EMA
         keep_stale_packs(load_weights(control, roll["ema"], roll["buffers"]))
-        got, ref, ctl = roll["model"](batch), fresh(batch), control(batch)
+        got, ref, ctl = (out[:3] for out in (roll["model"](batch), fresh(batch), control(batch)))  # tr, rot, tor
     limit = [MODEL_RTOL * max(1.0, w.abs().max().item()) for w in ref]
     err = max((g - w).abs().max().item() / lim for g, w, lim in zip(got, ref, limit))
     ctl_err = max((c - w).abs().max().item() / lim for c, w, lim in zip(ctl, ref, limit))
@@ -3631,7 +3653,7 @@ def reference_state_dict(model) -> dict:
 
 LEGACY_DIR = os.path.join(ROOT, "build", "legacy")  # reference files, converted directories, 1a0q, workdirs; removed
 LEGACY_SCORE = dict(ns=48, nv=10, num_conv_layers=6, sh_lmax=2)  # DiffDock's published score model
-LEGACY_B, LEGACY_CPU_STEPS = 8, 3  # infer's batch of poses; the card-vs-CPU sample's steps
+LEGACY_B, LEGACY_CPU_STEPS = 8, 2  # infer's batch of poses; the card-vs-CPU sample's steps
 AFF_SAMPLES, AFF_BATCH, AFF_BATCHES, AFF_CPU_B = 4, 16, 2, 8  # the affinity runs' cache, batch, steps; CPU check batch
 
 
@@ -3894,7 +3916,7 @@ def legacy_run(dev, score_model, conf_model, b0, final_pos, rerank) -> None:
                       f"{mod.sh_irreps}: {edge_route_line(mod, 24)}", flush=True)
     marks.append(("legacy convert", time.perf_counter()))
 
-    # B=2 forwards and a 3-step B=8 ODE sample, card against CPU
+    # B=2 forwards and a LEGACY_CPU_STEPS-step B=8 ODE sample, card against CPU
     padded = host_complex(0)[0]
     padded_aa = host_complex(0, all_atoms=True)[0]
     rng = np.random.RandomState(5)
@@ -3916,7 +3938,7 @@ def legacy_run(dev, score_model, conf_model, b0, final_pos, rerank) -> None:
         final, _ = sample(sm, b8, leg_cfg, SamplerConfig(inference_steps=LEGACY_CPU_STEPS, ode=True), device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        res[device.type] = ([t.cpu() for t in out] + [conf.cpu()], final.lig_pos.cpu(), time.perf_counter() - t0)
+        res[device.type] = ([t.cpu() for t in out[:3]] + [conf.cpu()], final.lig_pos.cpu(), time.perf_counter() - t0)
     (got, got_pos, t_card), (want, want_pos, t_cpu) = res[dev.type], res["cpu"]
     for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred", "legacy confidence"), got, want):
         err, peak = (g - w).abs().max().item(), w.abs().max().item()
@@ -4138,7 +4160,7 @@ def edge_route_line(mod, K: int) -> str:
     """The edge-list build a layer's launches take for lists of K edges and
     for lists of one edge (the most receivers a block, so the most shared
     memory: if that fits, no list length moves the layer off the build),
-    with the shared memory of each (``tpconv_common``); or why it keeps the
+    with the shared memory of each (``layout_bytes``); or why it keeps the
     plain TP. Raises where no build fits (``pick_build``), as the layer's
     launch would."""
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_common as tc
@@ -4147,17 +4169,8 @@ def edge_route_line(mod, K: int) -> str:
     if not mod.kernel_harmonics:
         return "plain TP: the kernels do not take these harmonics"
     lay = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps)
-    layc = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps, tc.TNC)
     d = tc.Dims(mod.n_edge_features, 0, mod.n_edge_features, mod.hidden, lay.din, lay.dout)
-    parts = []
-    for k in (K, 1):
-        on_tc, cm = mod.edge_build(k)
-        rt = cross_rows_per_block(k)
-        need = (tc.engine_smem_bytes(tc.sh_dim(mod.sh_irreps), tc.TM, d, layc.n_x, rt, True, len(layc.cg),
-                                     len(layc.epi), layc.n_tiles) + tc.engine_static_bytes(tc.TM, True) if on_tc
-                else tc.engine_smem_bytes(tc.sh_dim(mod.sh_irreps), cm, d, lay.n_x, rt)
-                + tc.engine_static_bytes(cm, False))
-        parts.append(f"K={k}: " + ("tensor cores" if on_tc else f"float32 at {cm} edges a chunk") + f", {need} bytes")
+    parts = [layout_bytes(f"K={k}:", mod, d, cross_rows_per_block(k), mod.edge_build(k)) for k in (K, 1)]
     return "; ".join(parts) + f" (of {tc.SMEM_LIMIT})"
 
 
@@ -4204,6 +4217,397 @@ def check_tc_spills(spills: dict) -> None:
                 fail(f"{lib}: ptxas reported {len(found)} kernels matching {k}, not 1")
     if any(v for k in spills.values() for v in k.values()):
         fail("every tensor-core kernel must build with no spill")
+
+
+# ---------------------------------------------------------------------------- phase 16: the score-model remainder
+
+
+REM_PATHS = {  # the slice's kernel paths: phase 5's score model (seeded, full width) with these fields
+    "A": dict(all_atoms=True, sh_lmax=2),  # the all-atom model in score mode, on 1a0q with its seeded atoms
+    "B": dict(sh_lmax=2),  # the residue-level model at lmax=2
+    "C": dict(use_second_order_repr=True),  # the second-order irreps ladder at lmax=1: l = 2 node blocks
+}
+REM_PLAIN = {  # the plain configurations: layers no kernel takes, or a head of their own
+    "depthwise": dict(depthwise_convolution=True), "tp_weights_layers 3": dict(tp_weights_layers=3),
+    "sidechain": dict(sidechain_pred=True),
+}
+REM_TIMED = "C"  # the path whose replays are timed: rows 7-12 at l = 2 node blocks
+REM_TRAIN_STEPS = 3  # timed training steps a path, after a warm-up
+REM_KERNELS = ("tpconv_rec_g", "tpconv_cross_g", "tpconv_edge")  # the general route's inference kernels
+REM_CPU_B = 1  # the card-against-CPU forward's batch
+REM_TRAIN_B = 16  # TrainConfig().batch_size: the training step's and the plain configurations' forward batch
+
+
+def expected_remainder_launches(model, steps: int) -> dict:
+    """Kernel launches of one shared-receptor sample of a general-route model
+    (the JAX package's routing for layouts off the lmax=1 ladder): the
+    receptor embedding once, then per step: the residue-level model's ligand
+    pairs (embedding and trunk) on the edge-list kernel (sums; their bonds
+    take the plain TP), per trunk layer the ligand <- receptor lists on
+    cross_g and, but for the last, the receptor kNN group on rec_g and the
+    receptor <- ligand lists on the edge-list kernel (per edge); the all-atom
+    model's residue and atom kNN groups on rec_g and its two ligand cross
+    groups on cross_g (every other group takes the plain TP). No ladder kernel."""
+    want = {name: 0 for name in all_counters()}
+    P, C = len(model.rec_emb_layers), len(model.conv_layers)
+    if model.cfg.all_atoms:
+        want.update(tpconv_rec_g=2 * P + 2 * (C - 1) * steps, tpconv_cross_g=2 * C * steps)
+    else:
+        want.update(tpconv_rec_g=P + (C - 1) * steps, tpconv_cross_g=C * steps,
+                    tpconv_edge=(len(model.lig_emb_layers) + 2 * C - 1) * steps)
+    return want
+
+
+def expected_remainder_train_launches(model) -> dict:
+    """Kernel launches of one training step of a score model off the ladder
+    route: phase 7's (``expected_train_launches``) or phase 12's
+    (``expected_conf_train_launches``) groups with rec_g's masked variant for
+    the kNN groups, plus the center convolution and, where its harmonics
+    take a kernel, the torsion convolution on the edge-list kernel; layers on
+    no kernel route (``TPConv.route`` None) launch nothing."""
+    want = {name: 0 for name in all_counters()}
+    routed = lambda mod: mod is not None and mod.route is not None  # noqa: E731
+    heads = int(routed(getattr(model, "final_conv", None))) + int(routed(getattr(model, "tor_bond_conv", None)))
+    P, C = len(model.rec_emb_layers), len(model.conv_layers)
+    if not routed(model.conv_layers[0]):
+        edge, rec = 0, 0
+    elif model.cfg.all_atoms:
+        conf = expected_conf_train_launches(model)
+        edge, rec = conf["tpconv_edge"], conf["tpconv_rec_g_dm"]
+    else:
+        edge = 2 * (len(model.lig_emb_layers) + C) + C + (C - 1)
+        rec = P + C - 1
+    kind = "tpconv_rec_dm" if model.conv_layers[0].ladder else "tpconv_rec_g_dm"
+    want.update(tpconv_edge=edge + heads, tpconv_bwd=edge + heads + rec, **{kind: rec})
+    return want
+
+
+def layout_bytes(what: str, mod, d, rt: int, tc_cm: tuple) -> str:
+    """A layer's build of one kernel (``pick_build``'s choice) and its shared
+    memory, dynamic and static, as the host mirror counts it."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_common as tc
+
+    on_tc, cm = tc_cm
+    shd = tc.sh_dim(mod.sh_irreps)
+    if on_tc:
+        lay = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps, tc.TNC)
+        b = tc.engine_smem_bytes(shd, tc.TM, d, lay.n_x, rt, True, len(lay.cg), len(lay.epi), lay.n_tiles)
+    else:
+        b = tc.engine_smem_bytes(shd, cm, d, tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps).n_x, rt)
+    b += tc.engine_static_bytes(tc.TM if on_tc else cm, on_tc)
+    return f"{what} {'tensor cores' if on_tc else f'float32 at {cm} edges a chunk'}, {b} bytes"
+
+
+def layer_builds(model, K_cross: int, K_edge: int) -> list:
+    """One line per TP-conv layer of ``model``: its route and, on a kernel
+    route, the build and shared-memory bytes of rec_g (with and without the
+    dropout mask), cross_g at K_cross senders a receiver and the edge-list
+    kernel at K_edge edges a row (``pick_build`` raises where none fits, as
+    the launch would)."""
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_common as tc, tpconv_edge, tpconv_g
+    from confidence_bootstrapping_tpu_torch.ops.irreps import Irreps
+
+    lines = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, TPConv):
+            continue
+        shd = tc.sh_dim(mod.sh_irreps) if mod.kernel_harmonics else "up to l=4"
+        head = f"{name}: {Irreps(mod.in_irreps).dim} -> {Irreps(mod.out_irreps).dim}, harmonics {shd}"
+        if mod.route is None:
+            lines.append(f"{head}: plain ({'depthwise' if mod.depthwise else 'no kernel route'})")
+            continue
+        lay = tc.tp_layout(mod.in_irreps, mod.out_irreps, mod.sh_irreps)
+        F, H, ns = mod.n_edge_features, mod.hidden, model.cfg.ns
+        parts = [f"route {mod.route}"]
+        if mod.route == "general" and F == 3 * ns and not name.startswith("tor_bond_conv"):
+            d = tc.Dims(ns, ns, F, H, lay.din, lay.dout)
+            for dm in (False, True):
+                parts.append(layout_bytes("rec_g" + (" with the mask" if dm else ""), mod, d, tpconv_g.RT_REC,
+                                          tpconv_g.rec_g_build(mod.in_irreps, mod.sh_irreps, mod.out_irreps, ns, ns,
+                                                               H, dm)))
+            parts.append(layout_bytes(f"cross_g K={K_cross}", mod, d, tpconv_g.cross_rows_per_block(K_cross),
+                                      tpconv_g.cross_build("tpconv_cross_g", mod.in_irreps, mod.out_irreps,
+                                                           mod.sh_irreps, ns, ns, H, K_cross)))
+        d = tc.Dims(F, 0, F, H, lay.din, lay.dout)
+        parts.append(layout_bytes(f"edge K={K_edge}", mod, d, tpconv_g.cross_rows_per_block(K_edge),
+                                  tpconv_edge.edge_build(mod.in_irreps, mod.sh_irreps, mod.out_irreps, F, H, K_edge)))
+        lines.append(f"{head}: " + ", ".join(parts))
+    return lines
+
+
+def remainder_kernels() -> dict:
+    """The general route's inference kernels with their plain versions, work
+    and the TPU kernels they replace, as ``replay`` takes them; the
+    edge-list kernel's calls carry (dmask, sum_k) at the end of their
+    arguments (``edge_calls``)."""
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_g
+
+    return {
+        "tpconv_rec_g": (tpconv_g.fused_tpconv_rec_g, tpconv_g.tpconv_rec_g_plain, rec_work,
+                         "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
+        "tpconv_cross_g": (tpconv_g.fused_tpconv_cross_g, tpconv_g.tpconv_cross_g_plain, cross_g_work,
+                           "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:547"),
+        "tpconv_edge": (lambda *a, **kw: tpconv_edge.fused_tpconv_edge(*a[:11], dmask=a[11], sum_k=a[12], **kw),
+                        tpconv_edge.tpconv_edge_plain, edge_work, "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:303"),
+    }
+
+
+def edge_calls(calls: dict) -> dict:
+    """Recorded calls with the edge-list kernel's ``sum_k`` moved into its
+    arguments (after a None dropout mask), the order its plain version takes."""
+    out = dict(calls)
+    out["tpconv_edge"] = [(a + (None, kw.get("sum_k", True)), {"packed": kw.get("packed")})
+                          for a, kw in calls["tpconv_edge"]]
+    return out
+
+
+def counted_all(run) -> tuple:
+    """(run()'s result, every kernel counter's launches in it, the plain
+    versions' calls in it): counts set to 0 just before, read just after,
+    synchronised. The plain versions run only for CPU tensors, so on the card
+    any call would be a plain TP on a kernel route."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_edge, tpconv_g
+
+    plains = {"tpconv_rec_g_plain": tpconv_g, "tpconv_cross_g_plain": tpconv_g, "tpconv_edge_plain": tpconv_edge}
+    seen = {name: 0 for name in plains}
+    orig = {name: getattr(mod, name) for name, mod in plains.items()}
+
+    def counting(name):
+        def call(*a, **kw):
+            seen[name] += 1
+            return orig[name](*a, **kw)
+        return call
+
+    for fn, attr in all_counters().values():
+        setattr(fn, attr, 0)
+    try:
+        for name, mod in plains.items():
+            setattr(mod, name, counting(name))
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for name, mod in plains.items():
+            setattr(mod, name, orig[name])
+    return out, read_counters(), seen
+
+
+def card_vs_cpu_forward(dev, cfg, padded, what: str) -> None:
+    """The model of ``cfg`` (seed 0) at B=REM_CPU_B on poses near the crystal
+    pose: the card against the CPU, per output within MODEL_RTOL."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+
+    poses = near_crystal_poses(padded, REM_CPU_B)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = get_model(cfg, device=device, seed=0)
+        batch = replicate_complex(padded, REM_CPU_B, device=device).replace(lig_pos=poses.to(device))
+        with torch.no_grad():
+            outs.append([None if t is None else t.cpu() for t in model(batch.set_time(0.5, 0.5, 0.5))])
+    for name, g, w in zip(("tr_pred", "rot_pred", "tor_pred", "sidechain_pred"), *outs):
+        if w is None:
+            continue
+        err, peak = (g - w).abs().max().item(), w.abs().max().item()
+        print(f"{what}: forward card vs CPU at B={REM_CPU_B}, {name}: max_abs_err {err:.3g} (max |cpu| {peak:.3g}, "
+              f"tolerance {MODEL_RTOL} x max(1, max |cpu|))", flush=True)
+        if not (err <= MODEL_RTOL * max(1.0, peak) and torch.isfinite(g).all()):
+            fail(f"{what}: the card disagrees with the CPU ({name})")
+
+
+def remainder_train(model, batch, what: str, timed: bool) -> tuple:
+    """One path's training: a warm-up and REM_TRAIN_STEPS timed
+    ``TrainConfig()`` steps (median ms, launches per step against the
+    config), then one step's kernel calls recorded and replayed through
+    kernel and plain version (timed with ``timed``). -> (median ms, the JSON
+    rows, the launches of a step)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import TrainConfig
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    tcfg = TrainConfig()
+    state = train_loop.init_train_state(model, tcfg)
+    step = train_loop.make_train_step(model.cfg, tcfg)
+    gen = torch.Generator(device=batch.lig_pos.device).manual_seed(13)
+    step(state, batch, gen)  # warm-up
+    walls, launches, losses = [], [], []
+    for _ in range(REM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (metrics, counts, plain) = counted_all(lambda: step(state, batch, gen))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(counts)
+        losses.append(metrics["loss"].item())
+        if any(plain.values()):
+            fail(f"{what}: a training step ran a plain TP on a kernel route ({plain})")
+    want = expected_remainder_train_launches(model)
+    med = float(np.median(walls))
+    print(f"{what}: training step (B={batch.batch_size}, TrainConfig(), dropout {model.cfg.dropout}) median {med:.2f} "
+          f"ms over {REM_TRAIN_STEPS} ({', '.join(f'{w:.1f}' for w in walls)}), {batch.batch_size / med * 1e3:.3f} "
+          f"training poses/s; losses {', '.join(f'{v:.4f}' for v in losses)}; launches a step "
+          f"{nonzero(launches[-1])}, expected from the config {nonzero(want)}", flush=True)
+    if any(n != want for n in launches) or not all(np.isfinite(losses)):
+        fail(f"{what}: a training step's launches differ from the config's, or its loss is not finite")
+    if not any(want.values()):
+        return med, [], launches[-1]
+    calls = record_train_calls(lambda: step(state, batch, gen))
+    torch.cuda.synchronize()
+    print(f"{what}: training builds {edge_builds(calls)}; backward builds {bwd_builds(calls)}", flush=True)
+    rows = replay_train_kernels(calls, timed=timed)
+    rows += replay_train_ops(calls, timed=timed)
+    return med, rows, launches[-1]
+
+
+def remainder_path(dev, path: str, conf, card: str) -> tuple:
+    """One of the slice's kernel paths (``REM_PATHS``): the layers' builds
+    and bytes, a B=1 forward card against CPU, the B=32 20-step sample
+    (warm, then timed: poses/s; launches against the config; no plain
+    version called), its poses reranked by phase 6's confidence model
+    (timed; path A also with ``embed_full_receptor``), every kernel call of
+    one sample replayed through kernel and plain version (bit for bit across
+    two launches; timed for REM_TIMED), then the B=16 training step
+    (``remainder_train``). -> the JSON rows of REM_TIMED's kernels, with
+    their launches per sample (inference) or per step (training)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, score_confidence
+
+    conf_model, conf_batch = conf[0], conf[1]
+    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM, **REM_PATHS[path])
+    what = f"path {path} ({', '.join(f'{k}={v}' for k, v in REM_PATHS[path].items())})"
+    padded = host_complex(LM_DIM, all_atoms=cfg.all_atoms)[0]
+    model = get_model(cfg, device=dev, seed=0)
+    K = cfg.effective_cross_cap(padded["rec_pos"].shape[0])
+    print(f"{what}: ns={cfg.ns} nv={cfg.nv}, {cfg.num_prot_emb_layers} embedding and {cfg.num_conv_layers} trunk "
+          f"layers, lm_dim {LM_DIM}; 1a0q N={padded['rec_pos'].shape[0]}"
+          + (f" A={padded['atom_pos'].shape[0]}" if cfg.all_atoms else "") + f", cross cap {K}; layers by route:",
+          flush=True)
+    for line in layer_builds(model, K, padded["lig_pos"].shape[0]):
+        print(f"  {line}", flush=True)
+    card_vs_cpu_forward(dev, cfg, padded, what)
+
+    batch = replicate_complex(padded, B_POSES, device=dev)
+    b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
+    run, plan = sample_run(model, b0)
+    t0 = time.perf_counter()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (final, _), launches, plain = counted_all(run)
+    secs = time.perf_counter() - t0
+    moved = (final.lig_pos - b0.lig_pos)[b0.lig_mask].norm(dim=-1).mean().item()
+    want = expected_remainder_launches(model, STEPS)
+    print(f"{what}: sample B={B_POSES}, {STEPS} steps, plan {plan if not cfg.all_atoms else 'none (all-atom)'}: warm-up "
+          f"{warm:.3f} s, timed {secs:.4f} s, {B_POSES / secs:.3f} poses/s; mean atom displacement {moved:.3g} A; "
+          f"launches {nonzero(launches)}, expected from the config {nonzero(want)}; plain versions called {plain}",
+          flush=True)
+    if launches != want or any(plain.values()):
+        fail(f"{what}: the sample did not run every TP-conv of a kernel route through its kernel")
+    if not (torch.isfinite(final.lig_pos).all() and moved > 0.1):
+        fail(f"{what}: final poses are not finite or did not move")
+
+    rerank = lambda full=False: score_confidence(conf_model, conf_batch, lig_pos=final.lig_pos,  # noqa: E731
+                                                 embed_full_receptor=full)
+    for full in ((False, True) if cfg.all_atoms else (False,)):
+        rerank(full)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = rerank(full)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"{what}: rerank of the {B_POSES} poses by phase 6's model{' (embed_full_receptor)' if full else ''}: "
+              f"{ms:.1f} ms; confidences {c.min().item():.4f} to {c.max().item():.4f}", flush=True)
+        if not torch.isfinite(c).all():
+            fail(f"{what}: the rerank's confidences are not finite")
+
+    calls = edge_calls(record_calls(run, REM_KERNELS))
+    torch.cuda.synchronize()
+    print(f"{what}: inference builds {edge_builds(calls)}", flush=True)
+    timed = path == REM_TIMED
+    with torch.no_grad():
+        rows = replay(calls, {k: v for k, v in remainder_kernels().items() if calls[k]}, bitwise=REM_KERNELS,
+                      timed=timed)
+    del calls
+    torch.cuda.empty_cache()
+    tbatch = replicate_complex(padded, REM_TRAIN_B, device=dev)
+    model.requires_grad_(True)
+    train_ms, train_rows, train_launches = remainder_train(model, tbatch, what, timed)
+    print(f"{what}: {B_POSES / secs:.3f} poses/s, rerank above, training step {train_ms:.2f} ms", flush=True)
+    if not timed:
+        return []
+    ops = {"fused_tpconv_train": "tpconv_edge", "fused_tpconv_rec_train": "tpconv_rec_g_dm"}  # an op's launches: its forward's
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        r["name"] += f", path {path}"
+    for r in train_rows:
+        r["launches"] = train_launches[ops.get(r["name"], r["name"])]
+        r["name"] += f", path {path} training"
+    return rows + train_rows
+
+
+def remainder_plain(dev, name: str) -> None:
+    """A plain configuration (``REM_PLAIN``) at phase 5's widths: its layers'
+    routes, a B=1 forward card against CPU, one B=16 forward (launches:
+    phase 5's kernels where the trunk keeps the ladder route, none where its
+    layers are plain) and one training step (``remainder_train``)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+
+    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM, **REM_PLAIN[name])
+    what = f"plain configuration {name}"
+    padded = host_complex(LM_DIM)[0]
+    model = get_model(cfg, device=dev, seed=0)
+    routes = {str(layer.route) for layer in model.conv_layers}
+    print(f"{what}: trunk routes {routes}", flush=True)
+    card_vs_cpu_forward(dev, cfg, padded, what)
+    batch = replicate_complex(padded, REM_TRAIN_B, device=dev).replace(
+        lig_pos=near_crystal_poses(padded, REM_TRAIN_B).to(dev)).set_time(0.5, 0.5, 0.5)
+    with torch.no_grad():
+        out, launches, plain = counted_all(lambda: model(batch))
+    want = {k: 0 for k in launches}
+    if model.conv_layers[0].ladder:
+        want.update(expected_launches(model, 1))
+    print(f"{what}: forward B={REM_TRAIN_B} launches {nonzero(launches)}, expected {nonzero(want)}", flush=True)
+    if launches != want or any(plain.values()) or not all(torch.isfinite(t).all() for t in out if t is not None):
+        fail(f"{what}: the forward's launches differ from the config's, or an output is not finite")
+    if cfg.sidechain_pred and tuple(out.sidechain_pred.shape) != (REM_TRAIN_B, padded["rec_pos"].shape[0], 10):
+        fail(f"{what}: the side-chain head's output has the wrong shape")
+    model.requires_grad_(True)
+    remainder_train(model, replicate_complex(padded, REM_TRAIN_B, device=dev), what, timed=False)
+
+
+def remainder_phase(dev, conf, card: str) -> tuple:
+    """Phase 16 (see the module docstring); every line ends with the card's
+    name and power limit. -> the JSON rows of the timed path's kernels."""
+    import torch
+
+    t0 = time.perf_counter()
+    stdout = sys.stdout
+    sys.stdout = Tagged(stdout, card)
+    try:
+        rows = []
+        for path in REM_PATHS:
+            rows += remainder_path(dev, path, conf, card)
+            torch.cuda.empty_cache()
+        for name in REM_PLAIN:
+            remainder_plain(dev, name)
+            torch.cuda.empty_cache()
+        print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        sys.stdout.flush()
+        sys.stdout = stdout
+    return rows
 
 
 def main() -> None:
@@ -4270,6 +4674,8 @@ def main() -> None:
     torch.cuda.synchronize()
     legacy_phase(dev, model, rerank[0], b0, final_pos, rerank, card)
     torch.cuda.synchronize()
+    remainder_rows = remainder_phase(dev, rerank, card)
+    torch.cuda.synchronize()
 
     launches.update(conf_launches)
     launches.update(train_launches)
@@ -4279,6 +4685,7 @@ def main() -> None:
     rows += conf_rows + train_rows + conf_train_rows + eval_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows += remainder_rows  # phase 16's path C, launches per sample or training step of that path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

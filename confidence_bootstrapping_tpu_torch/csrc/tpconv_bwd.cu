@@ -472,7 +472,12 @@ __device__ void load_senders(float* xs, float* shs, const BLayoutTC& L, const Bw
   gather_rows(shs, L.ldsh, a.sh, a.Dsh, rows, nrow);
 }
 
-__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) {
+// The per-edge tensor-core kernel's body, its d_w loop unrolled to output
+// blocks of at most NC components: 3 (l <= 1) or 5 (the second-order
+// ladder's l = 2 blocks), each a kernel of its own so that the l <= 1 layers
+// keep their code.
+template <int NC>
+__device__ __forceinline__ void bwd_edge_tc(BwdArgsTC a) {
   using namespace cbt;
   extern __shared__ __align__(16) float sm[];
   __shared__ int rows[CMT];
@@ -596,7 +601,8 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) {
 #pragma unroll
       for (int q = 0; q < 6; ++q) b2[q] = a.W.b2[(t + 1) * TNC + col + (q >> 1) * 8 + (q & 1)];
     }
-    // d_w of the tile (the output components of a column: 1 or 3)
+    // d_w of the tile (the output components of a column: 1 or 3; 5 at the
+    // second-order ladder's l = 2 blocks)
 #pragma unroll 4
     for (int i = tid; i < nrow * TNC; i += NTB) {
       const int m = i / TNC, n = i % TNC;
@@ -606,7 +612,7 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) {
       const int nc = r[2];
       float v = 0.f;
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
+      for (int c = 0; c < NC; ++c)
         if (c < nc) v = fmaf(gr[c], xr[c], v);
       a.dwbuf[(size_t)(r0 + m) * a.Wpad + t * TNC + n] = v;
     }
@@ -656,7 +662,7 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) {
       const float* cc = vcg + e[3];
       float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < 7; ++q)  // n <= 7: a harmonic block of l <= 3, or an input block of l <= 1
+      for (int q = 0; q < 7; ++q)  // n <= 7: a harmonic block of l <= 3, or an input block of l <= 2
         if (q < n) s = fmaf(vv[q], cc[q * e[4]], s);
       s_acc = fmaf(dX[m * L.ldX + e[0]], s, s_acc);
     }
@@ -666,6 +672,10 @@ __global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) {
       a.d_sh[(size_t)rows[m] * a.Dsh + o - a.Din] = s_acc;
   }
 }
+
+__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc_kernel(BwdArgsTC a) { bwd_edge_tc<3>(a); }
+
+__global__ void __launch_bounds__(NTB) tpconv_bwd_edge_tc5_kernel(BwdArgsTC a) { bwd_edge_tc<5>(a); }
 
 // dh = dh * dm * (h > 0) in place and d_attr[edge] = dh w1^T, for the 64
 // compacted rows of a block; w1 staged k-major ([H][F4], F4 = F rounded up to
@@ -1064,8 +1074,9 @@ extern "C" long long cbt_bwd_smem_bytes(int bt, int F, int H, int Din, int Dsh, 
 // of each; bcol/bepi for TNC-column tiles (Wpad = n_tiles * TNC); n_cg floats
 // in cg, n_vtab rows of vtab. scratch: cbt_bwd_tc_scratch_floats floats.
 // d_attr [T, F], d_x, d_sh are zeroed here (masked edges keep zero); dw2
-// [H + 1, Wpad], dw1 [F + 1, H] as in cbt_tpconv_bwd. Returns a CUDA error
-// code.
+// [H + 1, Wpad], dw1 [F + 1, H] as in cbt_tpconv_bwd. nc: the widest output
+// block, 3 or 5 (the per-edge kernel's build, tpconv_bwd_edge_tc_kernel or
+// tpconv_bwd_edge_tc5_kernel). Returns a CUDA error code.
 extern "C" int cbt_tpconv_bwd_tc(const float* attr, const float* x, const float* sh, const float* g,
                                  const float* dm, int hd, const uint8_t* valid, const int* csum, const float* w1,
                                  const float* b1, const float* w2, const float* b2, const float* cscale,
@@ -1073,8 +1084,9 @@ extern "C" int cbt_tpconv_bwd_tc(const float* attr, const float* x, const float*
                                  const int* bepi_start, const int* vtab, const int* vtab_start, int T, int F, int H,
                                  int W, int Din, int Dsh, int Dout, int S, int n_tiles, int Wpad, int n_cg, int n_vtab,
                                  float* d_attr, float* d_x, float* d_sh, float* scratch, int splits_w2, int splits_w1,
-                                 float* dw2, float* dw1, void* stream) {
-  if (H > cbt::KMAX || T <= 0 || Wpad != n_tiles * cbt::TNC || valid == nullptr || csum == nullptr)
+                                 float* dw2, float* dw1, int nc, void* stream) {
+  if (H > cbt::KMAX || T <= 0 || Wpad != n_tiles * cbt::TNC || valid == nullptr || csum == nullptr ||
+      (nc != 3 && nc != 5))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Scratch sc = scratch_layout(scratch, T, F, H, Wpad, splits_w2, splits_w1);
@@ -1094,7 +1106,8 @@ extern "C" int cbt_tpconv_bwd_tc(const float* attr, const float* x, const float*
                     n_vtab, d_x, d_sh, sc.zbuf, sc.hbuf, sc.dwbuf};
   const int blocks = (T + CMT - 1) / CMT;
   const size_t smem = (size_t)bwd_layout_tc(F, H, Din, Dsh, Dout, S, n_cg, n_vtab).total * sizeof(float);
-  int code = cbt::launch(tpconv_bwd_edge_tc_kernel, dim3(blocks), smem, stream, a);
+  int code = cbt::launch(nc == 3 ? tpconv_bwd_edge_tc_kernel : tpconv_bwd_edge_tc5_kernel, dim3(blocks), smem, stream,
+                         a);
   if (code != 0) return code;
   // dh = d_w w2c^T over the compacted rows
   const Operand dw{sc.dwbuf, Wpad, 1, T, -1}, w2o{sc.w2c, Wpad, 1, H, -1};
@@ -1123,4 +1136,6 @@ extern "C" long long cbt_bwd_tc_smem_bytes(int F, int H, int Din, int Dsh, int D
   return (long long)bwd_layout_tc(F, H, Din, Dsh, Dout, S, n_cg, n_vtab).total * (long long)sizeof(float);
 }
 
-extern "C" long long cbt_bwd_tc_static_bytes() { return cbt::static_bytes(tpconv_bwd_edge_tc_kernel); }
+extern "C" long long cbt_bwd_tc_static_bytes() {
+  return cbt::static_bytes(tpconv_bwd_edge_tc_kernel, tpconv_bwd_edge_tc5_kernel);
+}

@@ -1,4 +1,4 @@
-// Hetero-receiver TP-conv with lmax=2 harmonics: message sums [B, L, Dout].
+// Hetero-receiver TP-conv on the general route: message sums [B, L, Dout].
 //
 // Replaces ops/pallas/tpconv_g.py:fused_tpconv_cross_g: the ligand <-
 // receptor and ligand <- receptor-atom groups of the all-atom confidence
@@ -15,11 +15,15 @@
 // streamed by bulk copies, the CG contributions unrolled to the l = 2
 // harmonic block, as rec_g's inference kernel); the float32 builds at TM and
 // TM_WIDE edges a chunk take the others. Bound: the H x W edge-MLP product,
-// on the tensor cores where the stage runs (see tpconv_engine.cuh).
+// on the tensor cores where the stage runs (see tpconv_engine.cuh). As in
+// tpconv_rec_g.cu, every kernel is built at SHD=9 and SHD=4 (the general
+// route at lmax=1) and the host functions take shd; the tensor-core kernel
+// also for input blocks of up to 3 and of up to 5 components (DI, as there).
 #include "tpconv_engine.cuh"
 
 using namespace cbt;
 
+template <int SHD>
 __global__ void __launch_bounds__(NT) tpconv_cross_g_kernel(
     const float* __restrict__ recv, const float* __restrict__ rpos, const float* __restrict__ src,
     const float* __restrict__ spos, const int64_t* __restrict__ idx, const float* __restrict__ emb,
@@ -27,9 +31,10 @@ __global__ void __launch_bounds__(NT) tpconv_cross_g_kernel(
     float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
   __shared__ EdgeSlots<> s;
-  cross_tile<9>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out, nullptr);
+  cross_tile<SHD>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out, nullptr);
 }
 
+template <int SHD>
 __global__ void __launch_bounds__(NT) tpconv_cross_g_wide_kernel(
     const float* __restrict__ recv, const float* __restrict__ rpos, const float* __restrict__ src,
     const float* __restrict__ spos, const int64_t* __restrict__ idx, const float* __restrict__ emb,
@@ -37,10 +42,11 @@ __global__ void __launch_bounds__(NT) tpconv_cross_g_wide_kernel(
     float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
   __shared__ EdgeSlots<TM_WIDE> s;
-  cross_tile<9, false, TM_WIDE>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out,
+  cross_tile<SHD, false, TM_WIDE>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out,
                                 nullptr);
 }
 
+template <int SHD, int DI = 3>
 __global__ void __launch_bounds__(NT) tpconv_cross_g_tc_kernel(
     const float* __restrict__ recv, const float* __restrict__ rpos, const float* __restrict__ src,
     const float* __restrict__ spos, const int64_t* __restrict__ idx, const float* __restrict__ emb,
@@ -49,7 +55,8 @@ __global__ void __launch_bounds__(NT) tpconv_cross_g_tc_kernel(
   extern __shared__ __align__(16) float sm[];
   __shared__ EdgeSlots<> s;
   __shared__ uint64_t bar[2];
-  cross_tile<9, true>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out, nullptr, bar);
+  cross_tile<SHD, true, TM, DI>(sm, s, recv, rpos, src, spos, idx, emb, mask, W, W, 0, T, d, L, N, K, RT, out, nullptr,
+                                bar);
 }
 
 // The tensor-core build: w1, b1, w2hi, w2lo, b2 (pack_weights' TNC-column
@@ -60,12 +67,21 @@ extern "C" int cbt_tpconv_cross_g_tc(const float* recv, const float* rpos, const
                                      const float* b1, const float* w2hi, const float* w2lo, const float* b2,
                                      const int* xtab, const float* cg, const int* epi, const int* epi_start, int S,
                                      int n_tiles, int Wpad, int n_epi, int n_cg, int B, int L, int N, int K, int Fe,
-                                     int ns, int H, int Din, int Dout, int RT, float* out, void* stream) {
+                                     int ns, int H, int Din, int Dout, int RT, int shd, int di, float* out,
+                                     void* stream) {
   const Dims d{Fe, ns, Fe + 2 * ns, H, Din, Dout};
   const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad, n_epi, n_cg};
   const TPWeightsTC W{w1, b1, w2hi, w2lo, b2};
-  return launch(tpconv_cross_g_tc_kernel, dim3((L + RT - 1) / RT, B), smem_bytes(make_layout_tc<9>(d, T, RT)),
-                stream, recv, rpos, src, spos, idx, emb, mask, W, T, d, L, N, K, RT, out);
+  const dim3 grid((L + RT - 1) / RT, B);
+  auto go = [&](auto kernel, size_t smem) {
+    return launch(kernel, grid, smem, stream, recv, rpos, src, spos, idx, emb, mask, W, T, d, L, N, K, RT, out);
+  };
+  if ((shd != 4 && shd != 9) || (di != 3 && di != 5)) return (int)cudaErrorInvalidValue;
+  if (shd == 4)
+    return di == 3 ? go(tpconv_cross_g_tc_kernel<4, 3>, smem_bytes(make_layout_tc<4>(d, T, RT)))
+                   : go(tpconv_cross_g_tc_kernel<4, 5>, smem_bytes(make_layout_tc<4>(d, T, RT)));
+  return di == 3 ? go(tpconv_cross_g_tc_kernel<9, 3>, smem_bytes(make_layout_tc<9>(d, T, RT)))
+                 : go(tpconv_cross_g_tc_kernel<9, 5>, smem_bytes(make_layout_tc<9>(d, T, RT)));
 }
 
 // The float32 builds; cm: edges a chunk, TM or TM_WIDE.
@@ -74,16 +90,22 @@ extern "C" int cbt_tpconv_cross_g(const float* recv, const float* rpos, const fl
                                   const float* b1, const float* w2, const float* b2, const int* xtab,
                                   const float* cg, const int* epi, const int* epi_start, int S, int n_tiles,
                                   int Wpad, int B, int L, int N, int K, int Fe, int ns, int H, int Din, int Dout,
-                                  int RT, int cm, float* out, void* stream) {
+                                  int RT, int cm, int shd, float* out, void* stream) {
   const Dims d{Fe, ns, Fe + 2 * ns, H, Din, Dout};
   const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad};
   const TPWeights W{w1, b1, w2, b2};
   const dim3 grid((L + RT - 1) / RT, B);
-  if (cm == TM_WIDE)
-    return launch(tpconv_cross_g_wide_kernel, grid, smem_bytes(make_layout<9, TM_WIDE>(d, S, RT)), stream, recv,
+  if ((shd != 4 && shd != 9) || (cm != TM && cm != TM_WIDE)) return (int)cudaErrorInvalidValue;
+  if (cm == TM_WIDE && shd == 4)
+    return launch(tpconv_cross_g_wide_kernel<4>, grid, smem_bytes(make_layout<4, TM_WIDE>(d, S, RT)), stream, recv,
                   rpos, src, spos, idx, emb, mask, W, T, d, L, N, K, RT, out);
-  if (cm != TM) return (int)cudaErrorInvalidValue;
-  return launch(tpconv_cross_g_kernel, grid, smem_bytes(make_layout<9>(d, S, RT)), stream, recv, rpos, src, spos,
+  if (cm == TM_WIDE)
+    return launch(tpconv_cross_g_wide_kernel<9>, grid, smem_bytes(make_layout<9, TM_WIDE>(d, S, RT)), stream, recv,
+                  rpos, src, spos, idx, emb, mask, W, T, d, L, N, K, RT, out);
+  if (shd == 4)
+    return launch(tpconv_cross_g_kernel<4>, grid, smem_bytes(make_layout<4>(d, S, RT)), stream, recv, rpos, src, spos,
+                  idx, emb, mask, W, T, d, L, N, K, RT, out);
+  return launch(tpconv_cross_g_kernel<9>, grid, smem_bytes(make_layout<9>(d, S, RT)), stream, recv, rpos, src, spos,
                 idx, emb, mask, W, T, d, L, N, K, RT, out);
 }
 
@@ -91,8 +113,11 @@ extern "C" int cbt_tpconv_cross_g(const float* recv, const float* rpos, const fl
 // tensor-core stage (tc) or the float32 stage at cm edges a chunk
 // (cbt::static_bytes).
 extern "C" long long cbt_static_smem_bytes(int tc, int cm) {
-  if (tc) return cm == TM ? static_bytes(tpconv_cross_g_tc_kernel) : -1;
-  if (cm == TM) return static_bytes(tpconv_cross_g_kernel);
-  if (cm == TM_WIDE) return static_bytes(tpconv_cross_g_wide_kernel);
+  if (tc)
+    return cm == TM ? static_bytes(tpconv_cross_g_tc_kernel<9, 3>, tpconv_cross_g_tc_kernel<4, 3>,
+                                   tpconv_cross_g_tc_kernel<9, 5>, tpconv_cross_g_tc_kernel<4, 5>)
+                    : -1;
+  if (cm == TM) return static_bytes(tpconv_cross_g_kernel<9>, tpconv_cross_g_kernel<4>);
+  if (cm == TM_WIDE) return static_bytes(tpconv_cross_g_wide_kernel<9>, tpconv_cross_g_wide_kernel<4>);
   return -1;
 }

@@ -57,40 +57,75 @@ __global__ void __launch_bounds__(NT) tpconv_edge_tc_kernel(
   edge_tile<SHD, DM, true>(sm, s, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, bar);
 }
 
+// The same for input blocks of up to 5 components (the second-order ladder's
+// l = 2 blocks): a kernel of its own, so that the one above keeps its code.
 template <int SHD, bool DM>
+__global__ void __launch_bounds__(NT) tpconv_edge_tc5_kernel(
+    const float* __restrict__ attr, const float* __restrict__ send, const float* __restrict__ sh,
+    const uint8_t* __restrict__ mask, const float* __restrict__ dm, int hd, TPWeightsTC W, TPTables T, Dims d, int M,
+    int K, int RT, int sum_k, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ EdgeSlots<> s;
+  __shared__ uint64_t bar[2];
+  edge_tile<SHD, DM, true, TM, 5>(sm, s, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, bar);
+}
+
+template <int SHD, bool DM, int DI>
 static int launch_edges_tc(const float* attr, const float* send, const float* sh, const uint8_t* mask,
                            const float* dm, int hd, const TPWeightsTC& W, const TPTables& T, const Dims& d, int M,
                            int K, int RT, int sum_k, float* out, void* stream) {
-  return launch(tpconv_edge_tc_kernel<SHD, DM>, dim3((M + RT - 1) / RT), smem_bytes(make_layout_tc<SHD>(d, T, RT)),
-                stream, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out);
+  const dim3 grid((M + RT - 1) / RT);
+  const size_t smem = smem_bytes(make_layout_tc<SHD>(d, T, RT));
+  if constexpr (DI == 3)
+    return launch(tpconv_edge_tc_kernel<SHD, DM>, grid, smem, stream, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT,
+                  sum_k, out);
+  else
+    return launch(tpconv_edge_tc5_kernel<SHD, DM>, grid, smem, stream, attr, send, sh, mask, dm, hd, W, T, d, M, K,
+                  RT, sum_k, out);
+}
+
+// The tensor-core instance of a harmonic width, with a dropout mask or none,
+// for input blocks of up to DI components.
+template <int DI>
+static int launch_edges_tc_di(int Dsh, const float* attr, const float* send, const float* sh, const uint8_t* mask,
+                              const float* dm, int hd, const TPWeightsTC& W, const TPTables& T, const Dims& d, int M,
+                              int K, int RT, int sum_k, float* out, void* stream) {
+  const bool has_dm = dm != nullptr;
+  switch (Dsh) {
+    case 4:
+      return has_dm ? launch_edges_tc<4, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
+                    : launch_edges_tc<4, false, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+    case 9:
+      return has_dm ? launch_edges_tc<9, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
+                    : launch_edges_tc<9, false, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+    case 20:
+      return has_dm
+                 ? launch_edges_tc<20, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
+                 : launch_edges_tc<20, false, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The tensor-core build: w1, b1, w2hi, w2lo, b2 (pack_weights' TNC-column
 // tiles); the tables, n_tiles, Wpad and n_epi are those of TNC-column tiles;
-// n_cg: floats in cg; dm == nullptr: no dropout.
+// n_cg: floats in cg; dm == nullptr: no dropout; di: the widest input block,
+// 3 or 5 (the second-order ladder's l = 2 blocks; the tensor-core stage's CG
+// loop is built for each, so that the l <= 1 layers keep their code).
 extern "C" int cbt_tpconv_edge_tc(const float* attr, const float* send, const float* sh, const uint8_t* mask,
                                   const float* dm, int hd, const float* w1, const float* b1, const float* w2hi,
                                   const float* w2lo, const float* b2, const int* xtab, const float* cg,
                                   const int* epi, const int* epi_start, int S, int n_tiles, int Wpad, int n_epi,
                                   int n_cg, int M, int K, int F, int H, int Din, int Dout, int Dsh, int RT, int sum_k,
-                                  float* out, void* stream) {
+                                  int di, float* out, void* stream) {
   const Dims d{F, 0, F, H, Din, Dout};
   const TPTables T{xtab, cg, epi, epi_start, S, n_tiles, Wpad, n_epi, n_cg};
   const TPWeightsTC W{w1, b1, w2hi, w2lo, b2};
-  const bool has_dm = dm != nullptr;
-  switch (Dsh) {
-    case 4:
-      return has_dm ? launch_edges_tc<4, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
-                    : launch_edges_tc<4, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
-    case 9:
-      return has_dm ? launch_edges_tc<9, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
-                    : launch_edges_tc<9, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
-    case 20:
-      return has_dm ? launch_edges_tc<20, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
-                    : launch_edges_tc<20, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (di == 3)
+    return launch_edges_tc_di<3>(Dsh, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+  if (di == 5)
+    return launch_edges_tc_di<5>(Dsh, attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int SHD, bool DM>
@@ -138,7 +173,10 @@ extern "C" long long cbt_static_smem_bytes(int tc, int cm) {
   if (tc)
     return cm == TM ? static_bytes(tpconv_edge_tc_kernel<4, false>, tpconv_edge_tc_kernel<4, true>,
                                    tpconv_edge_tc_kernel<9, false>, tpconv_edge_tc_kernel<9, true>,
-                                   tpconv_edge_tc_kernel<20, false>, tpconv_edge_tc_kernel<20, true>)
+                                   tpconv_edge_tc_kernel<20, false>, tpconv_edge_tc_kernel<20, true>,
+                                   tpconv_edge_tc5_kernel<4, false>, tpconv_edge_tc5_kernel<4, true>,
+                                   tpconv_edge_tc5_kernel<9, false>, tpconv_edge_tc5_kernel<9, true>,
+                                   tpconv_edge_tc5_kernel<20, false>, tpconv_edge_tc5_kernel<20, true>)
                     : -1;
   if (cm == TM)
     return static_bytes(tpconv_edge_kernel<4, false>, tpconv_edge_kernel<4, true>, tpconv_edge_kernel<9, false>,

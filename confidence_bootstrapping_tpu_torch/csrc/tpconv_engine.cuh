@@ -7,6 +7,8 @@
 // summed over the edges of each receiver, with harmonics of lmax=1 (SHD=4
 // components, the score model) or lmax=2 (SHD=9, the all-atom confidence
 // model); SHD is a template parameter, so each kernel is compiled for one.
+// Sender and output irreps hold blocks of l <= 2 (l = 2: the second-order
+// irreps ladder, 5 components a block).
 // The Pallas kernels (ops/pallas/tpconv_rec.py, tpconv_lig.py, tpconv_g.py)
 // build it from one-hot gather matmuls, a CG matrix G and expand/reduce
 // matrices E/R sized for a 128x128 MXU. Here a block gathers its own edges
@@ -638,10 +640,12 @@ __device__ void stage_tables(float* sm, const LayoutTC& L, const Dims& d, const 
 }
 
 // contributions() from stage_tables' copies, its loops unrolled to the
-// stage's irreps (l <= 1 inputs: di <= 3; harmonic blocks up to l = 1 at
-// SHD=4, l = 2 at SHD=9, l = 3 at SHD=20: ds <= 3, 5 or 7); the same terms
-// in the same order, so X is the same bit for bit.
-template <int SHD>
+// stage's irreps (input blocks of at most DI components: 3, l <= 1, or 5, the
+// second-order ladder's l = 2 blocks, a build of its own so that the l <= 1
+// layers keep their code; harmonic blocks up to l = 1 at SHD=4, l = 2 at
+// SHD=9, l = 3 at SHD=20: ds <= 3, 5 or 7); the same terms in the same order,
+// so X is the same bit for bit.
+template <int SHD, int DI = 3>
 __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T) {
   constexpr int DS = SHD == 4 ? 3 : SHD == 9 ? 5 : 7;
   const float* xs = sm + L.xs;
@@ -659,7 +663,7 @@ __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T
     const float* cg = cgs + r[6] + r[5];
     float acc = 0.f;
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
+    for (int a = 0; a < DI; ++a)
 #pragma unroll
       for (int b = 0; b < DS; ++b)
         if (a < di && b < ds) acc = fmaf(x[a] * s[b], cg[(a * ds + b) * dout], acc);
@@ -825,7 +829,7 @@ __device__ void weighted_tp_tc(float* sm, const LayoutTC& L, const TPWeightsTC& 
 // or fill_given) of the slots' z, sender features and harmonics; leaves msg
 // in shared memory. DM: the training variant of the hidden layer (dropout
 // mask dm, rows indexed by the slots' candidate numbers).
-template <int SHD, bool DM = false>
+template <int SHD, bool DM = false, int DI = 3>
 __device__ void engine_tc_stages(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W,
                                  const TPTables& T, const EdgeSlots<TM>& s, uint64_t* bar, uint32_t& tiles,
                                  const float* dm = nullptr, int hd = 0) {
@@ -836,19 +840,19 @@ __device__ void engine_tc_stages(float* sm, const LayoutTC& L, const Dims& d, co
   else
     hidden_layer_tc(sm, L, d, W);
   __syncthreads();  // contributions_tc() overwrites the staged w1
-  contributions_tc<SHD>(sm, L, T);
+  contributions_tc<SHD, DI>(sm, L, T);
   __syncthreads();
   weighted_tp_tc(sm, L, W, T, bar, tiles);
 }
 
 // Steps 2-4 of one chunk on the tensor-core stage; leaves msg in shared memory.
-template <int SHD, bool DM = false>
+template <int SHD, bool DM = false, int DI = 3>
 __device__ void run_engine_tc(float* sm, const LayoutTC& L, const Dims& d, const TPWeightsTC& W, const TPTables& T,
                               const EdgeSlots<TM>& s, const float* const* recv, const float* const* send,
                               const float* sig, float sign, uint64_t* bar, uint32_t& tiles,
                               const float* dm = nullptr, int hd = 0) {
   fill_edges<SHD>(sm, L, d, s.count, s.emb, recv, send, s.vec, sig, sign);
-  engine_tc_stages<SHD, DM>(sm, L, d, W, T, s, bar, tiles, dm, hd);
+  engine_tc_stages<SHD, DM, DI>(sm, L, d, W, T, s, bar, tiles, dm, hd);
 }
 
 // The layout and weights of the float32 (TC = false) or tensor-core stage.
@@ -886,7 +890,7 @@ __device__ void init_tc(float* sm, const LayoutTC& L, const TPTables& T, uint64_
 // [B, N, K, hd] is the hidden-layer dropout mask of every neighbour slot, on
 // either stage. CM: edges per chunk of the float32 stage (TM_WIDE for layers
 // too wide for TM).
-template <int SHD, bool DM = false, bool TC = false, int CM = TM>
+template <int SHD, bool DM = false, bool TC = false, int CM = TM, int DI = 3>
 __device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ node, const float* __restrict__ pos,
                          const int64_t* __restrict__ nbr, const float* __restrict__ emb,
                          const float* __restrict__ sig, const uint8_t* __restrict__ mask, const WeightsOf<TC>& W,
@@ -918,10 +922,10 @@ __device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ 
     }
     __syncthreads();
     if constexpr (TC && DM)
-      run_engine_tc<SHD, true>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles,
+      run_engine_tc<SHD, true, DI>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles,
                                dm + (row0 + i0) * K * hd, hd);
     else if constexpr (TC)
-      run_engine_tc<SHD>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles);
+      run_engine_tc<SHD, false, DI>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f, bar, tiles);
     else if constexpr (DM)
       run_engine<SHD, true, CM>(sm, L, d, W, T, s, s.recv, s.send, sig + (size_t)b * d.Fe, 1.f,
                                 dm + (row0 + i0) * K * hd, hd);
@@ -941,7 +945,7 @@ __device__ void rec_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ 
 // the harmonics negated, added into out_rec [B, N, Dout] with atomicAdd:
 // those sums' order varies from run to run (a few float32 ulps). CM as in
 // rec_tile.
-template <int SHD, bool TC = false, int CM = TM>
+template <int SHD, bool TC = false, int CM = TM, int DI = 3>
 __device__ void cross_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ lig, const float* __restrict__ lpos,
                            const float* __restrict__ rec, const float* __restrict__ rpos,
                            const int64_t* __restrict__ idx, const float* __restrict__ emb,
@@ -979,7 +983,7 @@ __device__ void cross_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict_
       // hold too many registers at once and spill.
       for (int rev = 0; rev <= (with_rev != 0); ++rev) {
         const TPWeightsTC W = rev ? Wr : Wf;
-        run_engine_tc<SHD>(sm, Ly, d, W, T, s, rev ? s.send : s.recv, rev ? s.recv : s.send, nullptr,
+        run_engine_tc<SHD, false, DI>(sm, Ly, d, W, T, s, rev ? s.send : s.recv, rev ? s.recv : s.send, nullptr,
                            rev ? -1.f : 1.f, bar, tiles);
         if (!rev) {
           reduce_to_tile(sm, Ly, d, s);
@@ -1041,7 +1045,7 @@ __device__ void fill_given(float* sm, const Layout& L, const Dims& d, const Edge
 // [M, Dout]; otherwise each kept edge's message at out [M, K, Dout] (the
 // caller zeroes out, so masked edges read zero). TC: the tensor-core stage
 // (one call site, as in rec_tile); CM as in rec_tile.
-template <int SHD, bool DM, bool TC = false, int CM = TM>
+template <int SHD, bool DM, bool TC = false, int CM = TM, int DI = 3>
 __device__ void edge_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__ attr, const float* __restrict__ send,
                           const float* __restrict__ shin, const uint8_t* __restrict__ mask,
                           const float* __restrict__ dm, int hd, const WeightsOf<TC>& W, const TPTables& T,
@@ -1065,9 +1069,9 @@ __device__ void edge_tile(float* sm, EdgeSlots<CM>& s, const float* __restrict__
     fill_given<SHD>(sm, L, d, s, attr + e0 * d.F, send + e0 * d.Din, shin + e0 * SHD);
     if constexpr (TC) {
       if constexpr (DM)
-        engine_tc_stages<SHD, true>(sm, L, d, W, T, s, bar, tiles, dm + e0 * hd, hd);
+        engine_tc_stages<SHD, true, DI>(sm, L, d, W, T, s, bar, tiles, dm + e0 * hd, hd);
       else
-        engine_tc_stages<SHD>(sm, L, d, W, T, s, bar, tiles);
+        engine_tc_stages<SHD, false, DI>(sm, L, d, W, T, s, bar, tiles);
     } else {
       __syncthreads();
       if constexpr (DM)

@@ -1,5 +1,5 @@
-"""All-atom SE(3)-equivariant model in confidence mode (the pretrained
-confidence architecture) and the per-pose receptor crop.
+"""All-atom SE(3)-equivariant model (the pretrained confidence architecture,
+and its score mode) and the per-pose receptor crop.
 
 Port of ``confidence_bootstrapping_tpu/models/all_atom_model.py``. The
 coarse-grained graph gains an ``atom`` node type, every receptor heavy atom:
@@ -10,25 +10,33 @@ coarse-grained graph gains an ``atom`` node type, every receptor heavy atom:
 * trunk: 9 edge groups [lig, lig <- rec, lig <- atom, rec, rec <- lig,
   rec <- atom, atom, atom <- lig, atom <- rec]; the last layer keeps the 3
   groups that update the ligand;
-* confidence head on the masked mean of the ligand's scalars.
+* in confidence mode the confidence head on the masked mean of the ligand's
+  scalars; in score mode the residue-level model's score heads
+  (``score_model.add_score_heads``: the center convolution, the tr/rot norm
+  MLPs and the torsion head), the sigmas taken from the times and the crop
+  cut at 3 sigma_tr + ``crop_beyond`` per pose.
 
-At inference with lmax=2 the kNN groups (rec, atom) go through
-``TPConv.conv_rec`` (the ``rec_g`` kernel) and the ligand's cross groups
-(lig <- rec, lig <- atom) through ``TPConv.conv_cross`` (``cross_g``); every
-other group is plain PyTorch (``TPConv.messages``), as the JAX package leaves
-it to XLA. In training (``deterministic=False``) the JAX package's training
+At inference the kNN groups (rec, atom) go through ``TPConv.conv_rec`` and
+the ligand's cross groups (lig <- rec, lig <- atom) through
+``TPConv.conv_cross``: at lmax=2, or on the second-order ladder, the
+``rec_g`` and ``cross_g`` kernels; at lmax=1 on the irreps ladder the rec and
+row 4 (cross) kernels; every other group is plain PyTorch
+(``TPConv.messages``), as the JAX package leaves it to XLA. In training (``deterministic=False``) the JAX package's training
 routing: the kNN groups through ``fused_tpconv_rec_train`` (rec_g with the
 hidden-layer dropout mask), every other group through ``fused_tpconv_train``
 (the edge-list kernel), with dropout (``dropout`` in the edge embeddings and
 the edge MLPs, ``confidence_dropout`` in the heads) drawn from the caller's
 generator; ``use_running_average=False`` normalizes with the batch's
 statistics (the atom head's over the real ligand atoms) and moves the running
-ones. Score mode of this model is not ported.
+ones. As in the JAX package, ``depthwise_convolution`` is not read by this
+model.
 
 ``compact_crop`` reproduces the reference's subgraph crop per pose with fixed
 shapes: residues farther than the crop distance from every ligand atom go
 with their atoms, the rest are packed to the front of (n_res, n_atoms)
-buckets, neighbour lists are remapped and edges to cropped senders masked.
+buckets, neighbour lists are remapped and edges to cropped senders masked;
+a receptor cache embedded on the full receptor is compacted with them (the
+``embed_full_receptor`` path of ``sampler.score_confidence``).
 """
 
 from __future__ import annotations
@@ -43,10 +51,11 @@ from ..data.complex_graph import ComplexBatch
 from ..data.vocab import LIG_FEATURE_DIMS, REC_ATOM_FEATURE_DIMS, REC_RESIDUE_FEATURE_DIMS
 from ..ops.graph_builders import gather_nodes, pairwise_dist, radius_mask, scatter_mean_to_nodes, topk_neighbors
 from ..ops.irreps import spherical_harmonics, spherical_harmonics_irreps
-from ..ops.schedules import get_timestep_embedding
+from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
 from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv
-from .score_model import ConfidenceOutput, add_confidence_heads, confidence_heads, get_irrep_seq, init_weights
+from .score_model import ConfidenceOutput, ScoreOutput, add_confidence_heads, add_score_heads, confidence_heads, \
+    get_irrep_seq, init_weights, score_heads
 
 
 class AtomRecCache(NamedTuple):
@@ -88,17 +97,17 @@ def _select_pack(keep, order_key, cap: int):
     return sel, valid, inv[:, :N], selected[:, :N]
 
 
-def compact_crop(batch: ComplexBatch, crop_dist: float, n_res: int, n_atoms: int):
+def compact_crop(batch: ComplexBatch, cache: Optional[AtomRecCache], crop_dist: float, n_res: int, n_atoms: int):
     """Crop and compact the receptor view of a batch for the trunk.
 
     Residues whose C-alpha is ``crop_dist`` or farther from every ligand atom
     are dropped with their atoms; the kept ones are packed into (n_res,
     n_atoms) buckets, the nearest first on overflow. Neighbour lists are not
     recomputed: indices are remapped and edges whose sender was cropped keep
-    index 0 and a false mask. Returns (batch, stats) with stats kept_res and
-    res_overflow (and kept_atoms, atom_overflow) per pose. The JAX package's
-    ``cache`` argument (its opt-in ``embed_full_receptor`` path) is not
-    ported."""
+    index 0 and a false mask. ``cache``, a receptor embedding of the full
+    batch (or None), is compacted with it. Returns (batch, cache, stats) with
+    stats kept_res and res_overflow (and kept_atoms, atom_overflow) per
+    pose."""
     B, N = batch.rec_mask.shape
     bi = torch.arange(B, device=batch.rec_mask.device)[:, None, None]
     inf = torch.tensor(float("inf"), device=batch.lig_pos.device)
@@ -112,6 +121,9 @@ def compact_crop(batch: ComplexBatch, crop_dist: float, n_res: int, n_atoms: int
     )
     kept = keep_res.sum(1)
     stats = dict(kept_res=kept, res_overflow=torch.clamp(kept - sel_r.shape[1], min=0))
+    cache_rep = {}
+    if cache is not None:
+        cache_rep.update(rec_attr=_take(cache.rec_attr, sel_r), rec_edge_emb=_take(cache.rec_edge_emb, sel_r))
     if batch.atom_f is not None and batch.atom_f.numel():
         b2 = bi[..., 0]
         keep_atom = batch.atom_mask & selected_r[b2, batch.atom_res]
@@ -124,30 +136,40 @@ def compact_crop(batch: ComplexBatch, crop_dist: float, n_res: int, n_atoms: int
         )
         kept = keep_atom.sum(1)
         stats.update(kept_atoms=kept, atom_overflow=torch.clamp(kept - sel_a.shape[1], min=0))
-    return batch.replace(**rep), stats
+        if cache is not None:
+            cache_rep.update(atom_attr=_take(cache.atom_attr, sel_a), atom_edge_emb=_take(cache.atom_edge_emb, sel_a),
+                             ar_edge_emb=_take(cache.ar_edge_emb, sel_a), ar_edge_sh=_take(cache.ar_edge_sh, sel_a))
+    return batch.replace(**rep), (cache._replace(**cache_rep) if cache is not None else None), stats
 
 
-def crop_to_caps(cfg: ScoreModelConfig, batch: ComplexBatch):
-    """(batch, cropped): with an all-atom config that crops, a batch whose
-    receptor bucket is larger than ``crop_res_cap`` cropped and compacted
-    into the config's (crop_res_cap, crop_atom_cap) buckets
-    (``compact_crop``), as the reference crops before every confidence
-    forward; otherwise the batch as it is."""
-    if (cfg.all_atoms and cfg.crop_beyond is not None and cfg.crop_res_cap > 0 and cfg.crop_atom_cap > 0
-            and batch.atom_f is not None and batch.rec_pos.shape[1] > cfg.crop_res_cap):
-        return compact_crop(batch, float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)[0], True
-    return batch, False
+def crops(cfg: ScoreModelConfig, batch: ComplexBatch) -> bool:
+    """Whether ``crop_to_caps`` crops this batch: an all-atom config that
+    crops, and a receptor bucket larger than ``crop_res_cap``."""
+    return (cfg.all_atoms and cfg.crop_beyond is not None and cfg.crop_res_cap > 0 and cfg.crop_atom_cap > 0
+            and batch.atom_f is not None and batch.rec_pos.shape[1] > cfg.crop_res_cap)
+
+
+def crop_to_caps(cfg: ScoreModelConfig, batch: ComplexBatch, cache: Optional[AtomRecCache] = None):
+    """(batch, cache, cropped): where ``crops``, the batch cropped and
+    compacted into the config's (crop_res_cap, crop_atom_cap) buckets
+    (``compact_crop``, with ``cache`` where given), as the reference crops
+    before every confidence forward; otherwise the batch and cache as they
+    are."""
+    if crops(cfg, batch):
+        b, c, _ = compact_crop(batch, cache, float(cfg.crop_beyond), cfg.crop_res_cap, cfg.crop_atom_cap)
+        return b, c, True
+    return batch, cache, False
 
 
 class AllAtomScoreModel(nn.Module):
-    """The all-atom model in confidence mode; built on ``device`` (default:
-    the GPU) with weights drawn from ``seed``. Load trained weights with
-    ``models.from_flax``."""
+    """The all-atom model in confidence or score mode; built on ``device``
+    (default: the GPU) with weights drawn from ``seed``. Load trained weights
+    with ``models.from_flax``."""
 
     def __init__(self, cfg: ScoreModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if not cfg.confidence_mode:
-            raise NotImplementedError("the port's all-atom model runs in confidence mode only")
+        if cfg.sh_lmax > 2:
+            raise NotImplementedError("the port's models take sh_lmax <= 2")
         self.cfg = c = cfg
         ns, nv = c.ns, c.nv
         sh = str(spherical_harmonics_irreps(c.sh_lmax))
@@ -169,21 +191,26 @@ class AllAtomScoreModel(nn.Module):
         self.rec_distance_expansion = GaussianSmearing(0.0, c.rec_max_radius, c.distance_embed_dim)
         self.cross_distance_expansion = GaussianSmearing(0.0, c.cross_max_distance, c.cross_distance_embed_dim)
 
-        seq = get_irrep_seq(ns, nv, c.reduce_pseudoscalars)
+        seq = get_irrep_seq(ns, nv, c.reduce_pseudoscalars, c.use_second_order_repr)
         P, C = c.num_prot_emb_layers, c.num_conv_layers
         if not c.embed_also_ligand and P > 0:
             raise NotImplementedError("embed_also_ligand=False requires num_prot_emb_layers=0")
 
         def conv(i, groups):
             return TPConv(seq[min(i, 3)], sh, seq[min(i + 1, 3)], 3 * ns, num_groups=groups,
-                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p)
+                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p,
+                          tp_weights_layers=c.tp_weights_layers)
 
         groups = (lambda g: g) if c.differentiate_convolutions else (lambda g: 1)
         self.rec_emb_layers = nn.ModuleList(conv(i, groups(4)) for i in range(P))
         self.lig_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P) if c.embed_also_ligand)
         self.conv_layers = nn.ModuleList(conv(i, groups(3 if i == P + C - 1 else 9)) for i in range(P, P + C))
 
-        add_confidence_heads(self, c)
+        self.final_irreps = seq[min(P + C, 3)]
+        if c.confidence_mode:
+            add_confidence_heads(self, c)
+        else:
+            add_score_heads(self, c, sh)
 
         init_weights(self, seed)
         self.requires_grad_(False)
@@ -271,13 +298,14 @@ class AllAtomScoreModel(nn.Module):
         return msg_pair.sum(dim=2) + sum_b, g["pair_mask"].sum(dim=2).to(sum_b.dtype) + cnt_b
 
     # ------------------------------------------------------------------ #
-    # forward (confidence mode)
+    # forward
     # ------------------------------------------------------------------ #
 
     def forward(self, batch: ComplexBatch, rec_cache: Optional[AtomRecCache] = None, deterministic: bool = True,
-                use_running_average: bool = True, generator: Optional[torch.Generator] = None) -> ConfidenceOutput:
-        """Confidences of the batch's poses. ``deterministic=False``: the
-        training routing with dropout drawn from ``generator``;
+                use_running_average: bool = True, generator: Optional[torch.Generator] = None):
+        """Confidences of the batch's poses (``ConfidenceOutput``), or in
+        score mode their scores (``ScoreOutput``). ``deterministic=False``:
+        the training routing with dropout drawn from ``generator``;
         ``use_running_average=False``: batch-norm statistics of the batch
         (the running ones move toward them)."""
         c = self.cfg
@@ -285,7 +313,10 @@ class AllAtomScoreModel(nn.Module):
         det, ura, gen = deterministic, use_running_average, generator
         B, L, _ = batch.lig_pos.shape
         N, A = batch.rec_pos.shape[1], batch.atom_pos.shape[1]
-        tr_sigma = batch.t_tr  # confidence mode takes the times as sigmas
+        if c.confidence_mode:  # the confidence model takes the times as the sigmas
+            tr_sigma, rot_sigma, tor_sigma = batch.t_tr, batch.t_rot, batch.t_tor
+        else:
+            tr_sigma, rot_sigma, tor_sigma = t_to_sigma(batch.t_tr, batch.t_rot, batch.t_tor, c.sigma)
         sigma_emb = self.timestep_emb(batch.t_tr)
 
         if rec_cache is None:
@@ -300,12 +331,13 @@ class AllAtomScoreModel(nn.Module):
         ar_edge_sh = rec_cache.ar_edge_sh
         ar_edge_sh_rev = spherical_harmonics(c.sh_lmax, batch.atom_pos - gather_nodes(batch.rec_pos, batch.atom_res))
 
-        # crop mask: a fixed cutoff in confidence mode
+        # crop mask: a fixed cutoff in confidence mode, 3 sigma_tr + crop_beyond a pose in score mode
         rec_mask_eff, atom_mask_eff = batch.rec_mask, batch.atom_mask
         if c.crop_beyond is not None:
             big = torch.tensor(1e9, device=batch.lig_pos.device)
             d_lr = torch.where(batch.lig_mask[:, :, None], pairwise_dist(batch.lig_pos, batch.rec_pos), big).amin(dim=1)
-            rec_mask_eff = batch.rec_mask & (d_lr < c.crop_beyond)
+            cut = c.crop_beyond if c.confidence_mode else (tr_sigma * 3 + c.crop_beyond)[:, None]
+            rec_mask_eff = batch.rec_mask & (d_lr < cut)
             atom_mask_eff = batch.atom_mask & torch.gather(rec_mask_eff, 1, batch.atom_res)
 
         lig_attr = self.lig_node_embedding(batch.lig_f, sigma_emb[:, None, :].expand(B, L, sigma_emb.shape[-1]))
@@ -367,7 +399,10 @@ class AllAtomScoreModel(nn.Module):
                                              layer.finalize(rec_attr, rec_sum, rec_cnt, batch.rec_mask, ura),
                                              layer.finalize(atom_attr, atom_sum, atom_cnt, batch.atom_mask, ura))
 
-        return confidence_heads(self, lig_attr, batch.lig_mask, det, ura, gen)
+        if c.confidence_mode:
+            return confidence_heads(self, lig_attr, batch.lig_mask, det, ura, gen)
+        return ScoreOutput(*score_heads(self, batch, lig_attr, sigma_emb, tr_sigma, rot_sigma, tor_sigma, det, ura,
+                                        gen))
 
     @staticmethod
     def _reverse_cross(layer: TPConv, group: int, lig_attr, node_attr, idx, emb, sh_rev, mask, n_nodes: int,

@@ -44,9 +44,7 @@ from .score_model import get_irrep_seq
 
 
 def _seq(cfg, reduce_pseudoscalars: bool) -> list:
-    if cfg.use_second_order_repr:
-        raise ValueError("the port converts the lmax=1 irreps ladder (use_second_order_repr=False)")
-    return get_irrep_seq(cfg.ns, cfg.nv, reduce_pseudoscalars)
+    return get_irrep_seq(cfg.ns, cfg.nv, reduce_pseudoscalars, cfg.use_second_order_repr)
 
 
 def torch_linear(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:

@@ -3,26 +3,26 @@ and the translation of a reference ``model_parameters.yml`` manifest.
 
 Port of ``confidence_bootstrapping_tpu/models/factory.py``: ``old_score_model``
 selects the legacy architectures (``models/legacy.py``; ``all_atoms`` the
-all-atom one). ``get_model`` refuses, with a ``ValueError`` naming every such
-field, a config whose non-default values ask for what the port's model of
-that architecture does not implement while the JAX package's reads them:
+all-atom one). ``get_model`` builds every model the JAX package's builds,
+and refuses, with a ``ValueError`` naming each such field, a config that asks
+for what neither the port nor (where noted) the JAX package implements:
 
-* every architecture: ``use_second_order_repr``;
-* the modern models (``score_model.py``, ``all_atom_model.py``):
-  ``tp_weights_layers != 2``, ``depthwise_convolution``, ``sidechain_pred``,
-  ``fixed_center_conv = false`` (the JAX package too runs only the fixed
-  center convolution), the residue-level model at ``sh_lmax != 1``, the
-  all-atom model's score mode, and an all-atom model with protein-embedding
-  layers but ``embed_also_ligand = false``.
+* ``sh_lmax >= 3``: harmonics of l = 3 and above in the trunk, which the
+  port's kernels do not take (a later slice of the port);
+* an all-atom model with protein-embedding layers but ``embed_also_ligand =
+  false``: the JAX package raises there too (the widths do not match).
 
 The legacy knobs (``separate_noise_schedule``, ``use_old_atom_encoder``,
 ``no_aminoacid_identities``, ``smooth_edges``, ``parallel``), which only the
 legacy models read, pass through the modern ones, as in the JAX package;
 ``affinity_prediction`` gives the residue-level model its affinity column
-and the all-atom model nothing. Fields only training or the host reads pass
-through whatever their value: ``dropout`` and ``confidence_dropout``
-(training), ``parallel_aggregators`` (read only with ``parallel > 1``) and
-``c_alpha_max_neighbors`` (featurization).
+and the all-atom model nothing. ``fixed_center_conv`` is read by the legacy
+models only, so the modern ones build whatever its value, as the JAX
+package's do; ``depthwise_convolution`` is read by the residue-level models
+only (the all-atom ones ignore it, as in the JAX package). Fields only
+training or the host reads pass through whatever their value: ``dropout``
+and ``confidence_dropout`` (training), ``parallel_aggregators`` (read only
+with ``parallel > 1``) and ``c_alpha_max_neighbors`` (featurization).
 """
 
 from __future__ import annotations
@@ -36,19 +36,12 @@ from .all_atom_model import AllAtomScoreModel
 from .legacy import OldAllAtomScoreModel, OldTensorProductScoreModel
 from .score_model import TensorProductScoreModel
 
-_modern = lambda c: not c.old_score_model  # noqa: E731
 # (field, true where the config asks for what the port does not implement, what that is)
 _UNSUPPORTED = (
-    ("use_second_order_repr", lambda c: c.use_second_order_repr, "the second-order irreps ladder"),
-    ("tp_weights_layers", lambda c: _modern(c) and c.tp_weights_layers != 2, "edge MLPs of other than 2 layers"),
-    ("depthwise_convolution", lambda c: _modern(c) and c.depthwise_convolution, "the depthwise tensor product"),
-    ("sidechain_pred", lambda c: _modern(c) and c.sidechain_pred, "the side-chain head"),
-    ("fixed_center_conv", lambda c: _modern(c) and not c.fixed_center_conv, "a center convolution that is not fixed"),
-    ("sh_lmax", lambda c: _modern(c) and c.sh_lmax != 1 and not c.all_atoms, "the residue-level model at lmax != 1"),
-    ("all_atoms", lambda c: _modern(c) and c.all_atoms and not c.confidence_mode, "the all-atom model's score mode"),
+    ("sh_lmax", lambda c: c.sh_lmax >= 3, "harmonics of l >= 3 in the trunk, a later slice of the port"),
     ("embed_also_ligand",
-     lambda c: _modern(c) and c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
-     "protein-embedding layers without the ligand's"),
+     lambda c: not c.old_score_model and c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
+     "protein-embedding layers without the ligand's, which the JAX package refuses too"),
 )
 
 

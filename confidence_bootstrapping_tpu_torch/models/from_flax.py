@@ -19,7 +19,10 @@ This covers the score model (in score mode, and in confidence mode with its
 ``TPConv``s and its ``ConfidenceHead``s) and the legacy models (their
 per-group conv lists, ``lig_conv_layers_0`` to ``ra_conv_layers_3``; the
 old atom encoder's ``Embed_*`` and ``Dense_0``/``Dense_1``; the
-``affinity_predictor``). Training adds no parameter
+``affinity_predictor``), and the equivariant linear maps
+(``LinearIrreps``: a depthwise ``TPConv``'s ``linear_2`` and the
+``sidechain_predictor``, whose parameters ``w_<i>_<o>``/``b_<o>`` keep their
+names). Training adds no parameter
 or buffer (dropout rates are plain attributes), so the same map carries a
 JAX training state's parameters and batch statistics into the trainable
 model, and its gradients into parameter names
@@ -41,14 +44,19 @@ _RENAME = {"Dense": "layers", "Embed": "embeddings", "MaskedBatchNorm1d": "norms
 _UNRENAME = {v: k for k, v in _RENAME.items()}
 
 
+_NAMED = {"linear_2"}  # Flax module names that end in a number but are no list entry (a depthwise TPConv's linear map)
+
+
 def _key(path) -> str:
     parts = []
-    for p in path:
+    for i, p in enumerate(path):
         m = re.fullmatch(r"(.*)_(\d+)", p)
-        if m:
+        if i == len(path) - 1:  # a leaf keeps its name (LinearIrreps' w_0_1, b_0), kernel and embedding aside
+            parts.append({"kernel": "weight", "embedding": "weight"}.get(p, p))
+        elif m and p not in _NAMED:
             parts += [_RENAME.get(m.group(1), m.group(1)), m.group(2)]
         else:
-            parts.append({"kernel": "weight", "embedding": "weight"}.get(p, p))
+            parts.append(p)
     return ".".join(parts)
 
 

@@ -1,15 +1,18 @@
 """Building blocks of the equivariant score model.
 
 Port of ``confidence_bootstrapping_tpu/models/layers.py``: ``FCBlock``,
-``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps`` and ``TPConv``.
-``TPConv``'s convolutions go through the CUDA kernels of ``ops/cuda`` for
-CUDA tensors and through their plain PyTorch versions for CPU tensors: the
-lmax=1 kernels for the score model's ``1x0e + 1x1o`` harmonics, the lmax=2
-ones (``rec_g``, ``cross_g``) for the confidence model's
-``1x0e + 1x1o + 1x2e``.
+``AtomEncoder``, ``GaussianSmearing``, ``BatchNormIrreps``, ``LinearIrreps``
+and ``TPConv``. ``TPConv``'s convolutions go through the CUDA kernels of
+``ops/cuda`` for CUDA tensors and through their plain PyTorch versions for
+CPU tensors, on the route the layer takes (``TPConv.route``, the JAX
+package's ``_fused_mode``): the ladder kernels (rec, pb, cross_rev, row 4
+and the edge-list kernel's rows 5-6) for lmax=1 harmonics on the irreps
+ladder; the general kernels (``rec_g``, ``cross_g``, the edge-list kernel)
+for every other layout they take, the confidence model's lmax=2 and the
+second-order ladder's l = 2 node blocks among them; none (plain PyTorch) for
+depthwise layers and edge MLPs of other than 2 layers.
 
-At inference with lmax=1 harmonics the JAX package's routing of its ladder
-path is kept: ``conv_pb`` (the ligand pairs and bonds in one kernel) applies
+On the ladder route the JAX package's gates are kept: ``conv_pb`` (the ligand pairs and bonds in one kernel) applies
 only when L % 8 == 0, ``conv_cross_rev`` (both cross directions) only when
 the cross list's K % 16 == 0, and ``conv_rec``'s kernel only when
 N % 32 == 0. ``conv_pb`` and ``conv_cross_rev`` return None otherwise and the
@@ -34,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda.tpconv_common import SH2_IRREPS, SH_IRREPS, PackedWeights, edge_messages, pack_weights, \
+from ..ops.cuda.tpconv_common import SH_IRREPS, PackedWeights, general_route, is_ladder, pack_weights, \
     takes_harmonics
 from ..ops.cuda.tpconv_edge import edge_build, fused_tpconv_edge
 from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
@@ -43,7 +46,8 @@ from ..ops.cuda.tpconv_rec import fused_tpconv_cross, fused_tpconv_rec
 from ..ops.cuda.tpconv_train import fused_tpconv_rec_train, fused_tpconv_train
 from ..ops.cuda.tpconv_v3 import fused_tpconv_msgs, fused_tpconv_nbr
 from ..ops.graph_builders import gather_nodes, scatter_count_to_nodes
-from ..ops.irreps import Irreps, WeightedTensorProduct, spherical_harmonics
+from ..ops.irreps import DepthwiseTensorProduct, Irreps, WeightedTensorProduct, linear_apply, linear_weight_shapes, \
+    spherical_harmonics
 
 
 def dropout_mask(shape, p: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -173,7 +177,31 @@ class BatchNormIrreps(nn.Module):
         return torch.cat(out, dim=-1)
 
 
-_SH1, _SH2 = str(Irreps(SH_IRREPS)), str(Irreps(SH2_IRREPS))
+class LinearIrreps(nn.Module):
+    """Equivariant linear map (``ops.irreps.linear_apply``): weights
+    ``w_{ii}_{oi}`` [mul_in, mul_out] per pair of blocks of one irrep type,
+    biases ``b_{oi}`` on the scalar outputs, parameters of those names (the
+    JAX package's)."""
+
+    def __init__(self, irreps_in: str, irreps_out: str):
+        super().__init__()
+        self.irreps_in, self.irreps_out = str(Irreps(irreps_in)), str(Irreps(irreps_out))
+        self.weight_names = []
+        for k, shape in linear_weight_shapes(irreps_in, irreps_out):
+            self.register_parameter(k, nn.Parameter(torch.zeros(shape)))
+            self.weight_names.append(k)
+        self.bias_names = []
+        for oi, (mo, ir) in enumerate(Irreps(irreps_out)):
+            if ir.l == 0:
+                self.register_parameter(f"b_{oi}", nn.Parameter(torch.zeros(mo)))
+                self.bias_names.append(f"b_{oi}")
+
+    def forward(self, x):
+        return linear_apply(self.irreps_in, self.irreps_out, x, {k: getattr(self, k) for k in self.weight_names},
+                            {k: getattr(self, k) for k in self.bias_names})
+
+
+_SH1 = str(Irreps(SH_IRREPS))
 
 
 def pad_residual(x, out_dim: int):
@@ -185,34 +213,54 @@ class TPConv(nn.Module):
     """Tensor-product convolution: edge MLP -> TP weights -> messages, then
     masked mean, batch norm and residual in ``finalize``.
 
-    ``num_groups`` edge groups share the TP but have their own edge MLP.
+    ``num_groups`` edge groups share the TP but have their own edge MLP
+    (``tp_weights_layers`` layers). ``route``, fixed when the layer is built
+    as the JAX package's ``TPConv._fused_mode`` chooses it: "ladder" (lmax=1
+    harmonics and the lmax=1 irreps ladder: the rec, pb, cross_rev, row 4 and
+    edge-list kernels), "general" (any other layout the kernels take,
+    ``tpconv_common.general_route``: rec_g, cross_g and the edge-list
+    kernel, at lmax 1 or 2), or None: plain PyTorch in every mode, for
+    ``depthwise`` layers (a per-channel TP whose messages a linear map mixes
+    after the mean, ``finalize``), edge MLPs of other than 2 layers and
+    layouts no kernel takes.
     ``edge_kernel``: ``messages`` at inference runs the edge-list kernel
     (the legacy models' layers). The modern models keep the JAX package's
     plain TP for their per-edge calls at inference (bonds, center and
     torsion convolutions), the routing that the launch counts of their
-    kernels follow. Fixed when the layer is built: a layer whose harmonics
-    no kernel takes (``kernel_harmonics`` false: the legacy torsion head's,
-    up to l=4) computes its messages in plain PyTorch in every mode."""
+    kernels follow. A layer whose harmonics no kernel takes
+    (``kernel_harmonics`` false: the torsion head's at lmax=2, up to l=4)
+    computes its messages in plain PyTorch in every mode."""
 
     def __init__(self, in_irreps: str, sh_irreps: str, out_irreps: str, n_edge_features: int, num_groups: int = 1,
                  hidden_features: Optional[int] = None, batch_norm: bool = True, residual: bool = True,
-                 dropout: float = 0.0, edge_kernel: bool = False):
+                 dropout: float = 0.0, edge_kernel: bool = False, tp_weights_layers: int = 2, depthwise: bool = False):
         super().__init__()
         self.n_edge_features = n_edge_features
         self.in_irreps, self.sh_irreps, self.out_irreps = str(Irreps(in_irreps)), str(Irreps(sh_irreps)), str(Irreps(out_irreps))
-        self.kernel_harmonics = takes_harmonics(self.sh_irreps)
+        self.depthwise = depthwise
+        if depthwise:
+            self.tp = DepthwiseTensorProduct(in_irreps, sh_irreps)
+            self.linear_2 = LinearIrreps(str(self.tp.irreps_out), out_irreps)
+        else:
+            self.tp = WeightedTensorProduct(in_irreps, sh_irreps, out_irreps)
+        if depthwise or tp_weights_layers != 2 or not general_route(self.in_irreps, self.sh_irreps, self.out_irreps):
+            self.route = None
+        elif self.sh_irreps == _SH1 and is_ladder(self.in_irreps, self.out_irreps):
+            self.route = "ladder"
+        else:
+            self.route = "general"
+        self.kernel_harmonics = takes_harmonics(self.sh_irreps) and self.route is not None
         self.edge_kernel = edge_kernel and self.kernel_harmonics
-        self.tp = WeightedTensorProduct(in_irreps, sh_irreps, out_irreps)
         hidden = hidden_features or n_edge_features
         self.hidden = hidden
-        self.dropout = dropout  # the edge MLPs' hidden layer, in training
-        self.edge_mlps = nn.ModuleList(FCBlock(n_edge_features, hidden, self.tp.weight_numel) for _ in range(num_groups))
+        self.dropout = dropout  # the edge MLPs' hidden layers, in training
+        self.edge_mlps = nn.ModuleList(FCBlock(n_edge_features, hidden, self.tp.weight_numel, tp_weights_layers, dropout)
+                                       for _ in range(num_groups))
         self.bn = BatchNormIrreps(out_irreps) if batch_norm else None
         self.residual = residual
         self.out_dim = Irreps(out_irreps).dim
         self._packed = {}  # (group, harmonics) -> (key of its parameters, PackedWeights, the parameters)
-        self.lmax1 = self.sh_irreps == _SH1  # the score model's ladder path: rows 1-6 of the kernel table
-        self.lmax2 = self.sh_irreps == _SH2  # conv_rec and conv_cross take the lmax=2 kernels
+        self.ladder = self.route == "ladder"
 
     def mlp_weights(self, group: int):
         """(w1 [in, H], b1, w2 [H, W], b2) of an edge group, in the [in, out]
@@ -246,7 +294,7 @@ class TPConv(nn.Module):
         """An edge-list op over [..., K, *] edge tensors, broadcast to one
         shape and flattened to contiguous [M, K, *]: in training the
         differentiable op (dropout drawn from ``generator``), at inference
-        the edge-list kernel (with lmax=1 harmonics ``fused_tpconv_nbr`` for
+        the edge-list kernel (on the ladder route ``fused_tpconv_nbr`` for
         sums, ``fused_tpconv_msgs`` per edge; otherwise
         ``fused_tpconv_edge``). -> [..., out_dim] (sum_k) or
         [..., K, out_dim]."""
@@ -259,7 +307,7 @@ class TPConv(nn.Module):
         if train:
             out = fused_tpconv_train(*args, self.in_irreps, self.sh_irreps, self.out_irreps,
                                      dmask=self._dmask(mask.shape, generator, mask.device), sum_k=sum_k, packed=packed)
-        elif self.lmax1:
+        elif self.ladder:
             out = (fused_tpconv_nbr if sum_k else fused_tpconv_msgs)(*args, self.in_irreps, self.out_irreps,
                                                                       packed=packed)
         else:
@@ -276,96 +324,93 @@ class TPConv(nn.Module):
                  generator: Optional[torch.Generator] = None, edge_weight=None):
         """Per-edge messages [..., out_dim]; masked edges are zero. In
         training the differentiable edge-list op; at inference the plain TP,
-        or with ``edge_kernel`` the edge-list kernel; without
-        ``kernel_harmonics`` the plain composition in both. ``edge_weight``
-        [...] (the legacy models' smooth edges) scales each edge's TP
-        weights, so it multiplies the message (the TP is linear in its
-        weights)."""
-        if not self.kernel_harmonics:
-            lead = torch.broadcast_shapes(sender_attr.shape[:-1], edge_sh.shape[:-1], edge_attr.shape[:-1],
-                                          edge_mask.shape)
-            dmask = None if deterministic else self._dmask(lead, generator, edge_attr.device)
-            msg = edge_messages(edge_attr, sender_attr, edge_sh, edge_mask, *self.mlp_weights(group), self.in_irreps,
-                                self.out_irreps, self.sh_irreps, dmask)
-        elif not deterministic or self.edge_kernel:
+        or with ``edge_kernel`` the edge-list kernel; on no kernel route
+        (``kernel_harmonics`` false) the plain composition in both, the edge
+        MLP's dropout drawn per hidden layer (``FCBlock``). ``edge_weight`` [...] (the
+        legacy models' smooth edges) scales each edge's TP weights, so it
+        multiplies the message (the TP is linear in its weights)."""
+        if self.kernel_harmonics and (not deterministic or self.edge_kernel):
             msg = self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False, not deterministic,
                                   generator)
         else:
-            msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr))
+            msg = self.tp(sender_attr, edge_sh, self.edge_mlps[group](edge_attr, deterministic, generator))
             msg = torch.where(edge_mask[..., None], msg, torch.zeros_like(msg))
         return msg if edge_weight is None else msg * edge_weight[..., None]
 
     def conv_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):
         """Messages summed over the trailing neighbour axis: [..., K, *] ->
-        (sums [..., out_dim], counts [...]). At inference with lmax=1
-        harmonics the edge-list kernel ``fused_tpconv_nbr``; in training the
-        differentiable edge-list op."""
+        (sums [..., out_dim], counts [...]). On a kernel route the edge-list
+        kernel at inference (``fused_tpconv_nbr`` on the ladder route) and
+        the differentiable edge-list op in training; otherwise ``messages``."""
         counts = edge_mask.sum(-1).to(torch.float32)
-        if not deterministic:
-            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, True, True, generator), counts
-        if self.lmax1:
-            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, True), counts
-        return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask).sum(dim=-2), counts
+        if self.route is not None:
+            return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, True, not deterministic,
+                                   generator), counts
+        return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask, deterministic, generator).sum(-2), counts
 
     def msgs_nbr(self, group: int, sender_attr, edge_sh, edge_attr, edge_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):
         """Per-edge messages over a neighbour list [..., K, *] -> [..., K,
         out_dim], masked edges exactly zero, for groups that scatter to other
         nodes afterwards (the receptor <- ligand cross lists). At inference
-        with lmax=1 harmonics the edge-list kernel ``fused_tpconv_msgs``;
-        otherwise ``messages``."""
-        if deterministic and self.lmax1:
+        on a kernel route the edge-list kernel (``fused_tpconv_msgs`` on the
+        ladder route); otherwise ``messages``."""
+        if deterministic and self.route is not None:
             return self._edge_list(group, sender_attr, edge_sh, edge_attr, edge_mask, False)
         return self.messages(group, sender_attr, edge_sh, edge_attr, edge_mask, deterministic, generator)
+
+    def _gathered(self, node_attr, node_pos, recv_attr, recv_pos, idx, edge_emb, ns: int):
+        """Senders, harmonics and MLP inputs [emb | recv scalars | send
+        scalars] of a neighbour list gathered from a node table."""
+        sender = gather_nodes(node_attr, idx)
+        sh = spherical_harmonics(Irreps(self.sh_irreps)[-1].ir.l, gather_nodes(node_pos, idx) - recv_pos[:, :, None, :])
+        eattr = torch.cat([edge_emb, recv_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,)), sender[..., :ns]],
+                          dim=-1)
+        return sender, sh, eattr
 
     def conv_rec(self, group: int, node_attr, pos, nbr, edge_emb, sig, nbr_mask, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None):
         """kNN messages of one node set (receptor <- receptor, atom <- atom):
-        (sums [B, N, out], counts [B, N]); the rec kernel at lmax=1 when
-        N % 32 == 0 (otherwise the senders gathered, then ``conv_nbr``, as
-        the JAX package routes it), rec_g at lmax=2; in training the
-        differentiable ``fused_tpconv_rec_train`` with the hidden-layer
-        dropout mask."""
+        (sums [B, N, out], counts [B, N]). On the ladder route the rec kernel
+        when N % 32 == 0 (otherwise the senders gathered, then ``conv_nbr``,
+        as the JAX package routes it), on the general route rec_g; in
+        training, on either route, the differentiable
+        ``fused_tpconv_rec_train`` with the hidden-layer dropout mask; on no
+        kernel route the gathered senders through ``conv_nbr``."""
         counts = nbr_mask.sum(-1).to(torch.float32)
-        if deterministic and self.lmax1 and node_attr.shape[1] % 32:
-            ns = edge_emb.shape[-1]
-            sender = gather_nodes(node_attr, nbr)
-            sh = spherical_harmonics(1, gather_nodes(pos, nbr) - pos[:, :, None, :])
-            recv_scal = node_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,))
-            eattr = torch.cat([edge_emb + sig[:, None, None, :], recv_scal, sender[..., :ns]], dim=-1)
-            return self.conv_nbr(group, sender, sh, eattr, nbr_mask)[0], counts
+        if self.route is None or (deterministic and self.ladder and node_attr.shape[1] % 32):
+            sender, sh, eattr = self._gathered(node_attr, pos, node_attr, pos, nbr, edge_emb + sig[:, None, None, :],
+                                               edge_emb.shape[-1])
+            return self.conv_nbr(group, sender, sh, eattr, nbr_mask, deterministic, generator)[0], counts
         args = (node_attr.contiguous(), pos.contiguous(), nbr.contiguous(), edge_emb.contiguous(), sig.contiguous(),
                 nbr_mask.contiguous(), *self.mlp_weights(group))
         packed = self.packed_weights(group, node_attr)
         if not deterministic:
             out = fused_tpconv_rec_train(*args, self.in_irreps, self.sh_irreps, self.out_irreps, edge_emb.shape[-1],
                                          dmask=self._dmask(nbr.shape, generator, nbr.device), packed=packed)
-        elif self.lmax2:
+        elif self.ladder:
+            out = fused_tpconv_rec(*args, self.in_irreps, self.out_irreps, edge_emb.shape[-1], packed=packed)
+        else:
             out = fused_tpconv_rec_g(*args, self.in_irreps, self.sh_irreps, self.out_irreps, edge_emb.shape[-1],
                                      packed=packed)
-        else:
-            out = fused_tpconv_rec(*args, self.in_irreps, self.out_irreps, edge_emb.shape[-1], packed=packed)
         return out, counts
 
     def conv_cross(self, group: int, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, idx_mask, ns: int,
                    deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """Messages of receivers over a capped list of senders from another
         node set (ligand <- receptor, ligand <- atom): (sums [B, L, out],
-        counts [B, L]). At inference the cross kernel of the harmonics
-        (``fused_tpconv_cross`` at lmax=1, ``fused_tpconv_cross_g`` at
-        lmax=2); in training the JAX package's fallback: the senders
-        gathered, then ``conv_nbr``."""
-        if not deterministic:
-            sender = gather_nodes(src_attr, idx)
-            sh = spherical_harmonics(2 if self.lmax2 else 1, gather_nodes(src_pos, idx) - recv_pos[:, :, None, :])
-            eattr = torch.cat([edge_emb, recv_attr[:, :, None, :ns].expand(sender.shape[:-1] + (ns,)),
-                               sender[..., :ns]], dim=-1)
+        counts [B, L]). At inference the cross kernel of the route
+        (``fused_tpconv_cross`` on the ladder route, ``fused_tpconv_cross_g``
+        on the general one); in training, and on no kernel route, the JAX
+        package's fallback: the senders gathered, then ``conv_nbr``."""
+        if not deterministic or self.route is None:
+            sender, sh, eattr = self._gathered(src_attr, src_pos, recv_attr, recv_pos, idx, edge_emb, ns)
             return self.conv_nbr(group, sender, sh, eattr, idx_mask, deterministic, generator)
         args = (recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(), src_pos.contiguous(),
                 idx.contiguous(), edge_emb.contiguous(), idx_mask.contiguous(), *self.mlp_weights(group))
         packed = self.packed_weights(group, recv_attr)
-        if self.lmax1:
+        if self.ladder:
             out = fused_tpconv_cross(*args, self.in_irreps, self.out_irreps, ns, packed=packed)
         else:
             out = fused_tpconv_cross_g(*args, self.in_irreps, self.sh_irreps, self.out_irreps, ns, packed=packed)
@@ -373,9 +418,9 @@ class TPConv(nn.Module):
 
     def conv_pb(self, group: int, lig_attr, lig_pos, pair_emb, pair_mask, bond_src, bond_dst, bond_emb, bond_mask, ns: int):
         """Ligand <- ligand messages over dense pairs + bonds: (sums, counts),
-        or None when L % 8 != 0 (the caller composes the pairs through
-        ``conv_nbr`` and the bonds through ``messages``)."""
-        if lig_attr.shape[1] % 8:
+        or None off the ladder route or when L % 8 != 0 (the caller composes
+        the pairs through ``conv_nbr`` and the bonds through ``messages``)."""
+        if not self.ladder or lig_attr.shape[1] % 8:
             return None
         out = fused_tpconv_pb(lig_attr.contiguous(), lig_pos.contiguous(), pair_emb.contiguous(), pair_mask.contiguous(),
                               bond_src.contiguous(), bond_dst.contiguous(), bond_emb.contiguous(), bond_mask.contiguous(),
@@ -388,9 +433,9 @@ class TPConv(nn.Module):
                        idx, edge_emb, idx_mask, ns: int):
         """Both directions of the cross edge list: (lig_sum, lig_counts,
         rec_sum, rec_counts); the receptor pair is None when group_rev is.
-        None when the list's K % 16 != 0 (the caller composes ``conv_cross``,
-        ``msgs_nbr`` and a scatter)."""
-        if idx.shape[-1] % 16:
+        None off the ladder route or when the list's K % 16 != 0 (the caller
+        composes ``conv_cross``, ``msgs_nbr`` and a scatter)."""
+        if not self.ladder or idx.shape[-1] % 16:
             return None
         rw = self.mlp_weights(group_rev) if group_rev is not None else (None,) * 4
         lig_sum, rec_sum = fused_tpconv_cross_rev(
@@ -407,9 +452,12 @@ class TPConv(nn.Module):
         return lig_sum, lig_counts, rec_sum, rec_counts
 
     def finalize(self, x_in, msg_sum, msg_count, node_mask, use_running_average: bool = True):
-        """Mean-aggregate, batch norm (padded nodes zeroed; batch statistics
-        over the valid nodes unless ``use_running_average``), residual."""
+        """Mean-aggregate, (depthwise: the linear map), batch norm (padded
+        nodes zeroed; batch statistics over the valid nodes unless
+        ``use_running_average``), residual."""
         out = msg_sum / torch.clamp(msg_count, min=1.0)[..., None]
+        if self.depthwise:
+            out = self.linear_2(out)
         if self.bn is not None:
             out = self.bn(out, node_mask, use_running_average)
             out = torch.where(node_mask[..., None], out, torch.zeros_like(out))

@@ -11,8 +11,8 @@ apart from the modern models (``score_model.py``, ``all_atom_model.py``):
 * one ``TPConv`` per edge group and depth (lig, rec <- lig ... in their own
   lists), each with its own batch norm and ``residual=False``; the residual
   is ``pad(node) + sum(updates)``;
-* the trunk keeps its pseudoscalars (``get_irrep_seq(...,
-  reduce_pseudoscalars=False)``) and sh_lmax is 2 in the published models;
+* the trunk keeps its pseudoscalars (``get_irrep_seq(ns, nv, False,
+  use_second_order_repr)``) and sh_lmax is 2 in the published models;
 * optional smooth edge weights 0.5 (cos(pi d / cutoff) + 1), a per-noise
   sigma embedding (``separate_noise_schedule``), the old atom encoder
   (``use_old_atom_encoder``), zeroed residue identities
@@ -27,8 +27,10 @@ take the unreversed harmonics of their edges, as the reference does:
 converted weights depend on it.
 
 At inference every group's per-edge messages go through the edge-list kernel
-(``TPConv(edge_kernel=True)``: row 6's ``fused_tpconv_msgs`` at lmax=1,
-``fused_tpconv_edge`` per edge at lmax=2; a launch no build fits raises), in
+(``TPConv(edge_kernel=True)``: row 6's ``fused_tpconv_msgs`` at lmax=1 on
+the irreps ladder, ``fused_tpconv_edge`` per edge at lmax=2 or on the
+second-order ladder, ``use_second_order_repr``; a launch no build fits
+raises), in
 training through the differentiable edge-list op, and the smooth weight
 multiplies the result (the TP is linear in its weights). Only the torsion
 head at lmax=2, whose harmonics reach l=4 and no kernel takes, computes its
@@ -150,8 +152,6 @@ class _LegacyBase(nn.Module):
     layer factory, the heads and their forward."""
 
     def _common(self, c: ScoreModelConfig):
-        if c.use_second_order_repr:
-            raise ValueError("the port's legacy models take the lmax=1 irreps ladder (use_second_order_repr=False)")
         self.cfg = c
         ns = c.ns
         self.sigma_dim = sig = c.sigma_embed_dim * (3 if c.separate_noise_schedule else 1)
@@ -166,7 +166,7 @@ class _LegacyBase(nn.Module):
         self.lig_distance_expansion = GaussianSmearing(0.0, c.lig_max_radius, c.distance_embed_dim)
         self.rec_distance_expansion = GaussianSmearing(0.0, c.rec_max_radius, c.distance_embed_dim)
         self.cross_distance_expansion = GaussianSmearing(0.0, c.cross_max_distance, c.cross_distance_embed_dim)
-        self.irrep_seq = get_irrep_seq(ns, c.nv, reduce_pseudoscalars=False)
+        self.irrep_seq = get_irrep_seq(ns, c.nv, False, c.use_second_order_repr)
         self.final_irreps = self.irrep_seq[min(c.num_conv_layers, 3)]
 
     def _conv(self, i: int) -> TPConv:

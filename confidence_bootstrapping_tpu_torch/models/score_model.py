@@ -1,6 +1,12 @@
 """SE(3)-equivariant tensor-product score model on padded complex batches.
 
-Port of ``confidence_bootstrapping_tpu/models/score_model.py`` in score mode:
+Port of ``confidence_bootstrapping_tpu/models/score_model.py``, every
+configuration the JAX package builds but ``sh_lmax >= 3``: lmax 1 or 2, the
+lmax=1 or the second-order irreps ladder (``get_irrep_seq``), depthwise
+layers, edge MLPs of any depth (``tp_weights_layers``) and the side-chain
+head (``sidechain_pred``: an equivariant linear map of the receptor's final
+features, its even and odd parts summed, ``ScoreOutput.sidechain_pred``). In
+score mode:
 atom encoders, receptor and ligand embedding convolutions, the 4-edge-group
 trunk whose last layer updates the ligand only, the center convolution with
 the translation and rotation heads, and the torsion head. Ligand radius
@@ -9,10 +15,12 @@ pairs are a dense masked [L, L] adjacency, cross edges are the nearest
 receptor kNN lists come with the batch. The t-independent receptor embedding
 is separate (``embed_receptor``) so the sampler computes it once.
 
-At inference the ligand pairs and bonds take the pb kernel (``conv_pb``) and
-both cross directions the cross_rev kernel (``conv_cross_rev``) when their
-gates hold (L % 8 == 0, the cross list's K % 16 == 0, as in the JAX
-package). Otherwise, and in training (``deterministic=False``,
+At inference on the ladder route the ligand pairs and bonds take the pb
+kernel (``conv_pb``) and both cross directions the cross_rev kernel
+(``conv_cross_rev``) when their gates hold (L % 8 == 0, the cross list's
+K % 16 == 0, as in the JAX package). Otherwise, on the general route (the
+pairs on the edge-list kernel, ligand <- receptor on cross_g, the receptor
+on rec_g), and in training (``deterministic=False``,
 ``use_running_average=False``), the JAX package's composition
 (``score_model.py:326-350``, ``:447-477``) runs: the ligand pairs through
 ``conv_nbr`` and the bonds through ``messages``, the ligand <- receptor lists
@@ -29,7 +37,8 @@ the ``crop_beyond`` mask (a fixed cutoff; in score mode 3 sigma_tr +
 ``crop_beyond``), and in place of the score heads the confidence heads
 (``ConfidenceHead``, ``MaskedBatchNorm1d``) read the pooled ligand scalars,
 as in the all-atom confidence model (``models/all_atom_model.py``), which
-shares them (``add_confidence_heads``, ``confidence_heads``).
+shares them (``add_confidence_heads``, ``confidence_heads``), and its score
+heads (``add_score_heads``, ``score_heads``, ``torsion_head``).
 
 ``torsional_forward`` (``train --dataset torsional``): the ligand embedding
 layers and the torsion head alone, on ligand-only batches.
@@ -50,13 +59,20 @@ from ..ops.graph_builders import gather_nodes, pairwise_dist, radius_mask, scatt
 from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
-from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv, dropout, pad_residual
+from .layers import AtomEncoder, FCBlock, GaussianSmearing, LinearIrreps, TPConv, dropout, pad_residual
 
 
-def get_irrep_seq(ns: int, nv: int, reduce_pseudoscalars: bool):
-    """The lmax=1 irreps ladder."""
+def get_irrep_seq(ns: int, nv: int, reduce_pseudoscalars: bool, use_second_order_repr: bool = False):
+    """The irreps ladder: lmax=1 blocks, or with ``use_second_order_repr``
+    the second-order ladder, which adds l = 2 blocks."""
     last = nv if reduce_pseudoscalars else ns
+    if use_second_order_repr:
+        return [f"{ns}x0e", f"{ns}x0e + {nv}x1o + {nv}x2e", f"{ns}x0e + {nv}x1o + {nv}x2e + {nv}x1e + {nv}x2o",
+                f"{ns}x0e + {nv}x1o + {nv}x2e + {nv}x1e + {nv}x2o + {last}x0o"]
     return [f"{ns}x0e", f"{ns}x0e + {nv}x1o", f"{ns}x0e + {nv}x1o + {nv}x1e", f"{ns}x0e + {nv}x1o + {nv}x1e + {last}x0o"]
+
+
+SIDECHAIN_IRREPS = "4x0e + 2x1e + 4x0o + 2x1o"  # the side-chain head's even and odd parts, summed
 
 
 class RecCache(NamedTuple):
@@ -71,6 +87,7 @@ class ScoreOutput(NamedTuple):
     tr_pred: torch.Tensor  # [B, 3]
     rot_pred: torch.Tensor  # [B, 3]
     tor_pred: torch.Tensor  # [B, R], zero on padded torsion slots
+    sidechain_pred: Optional[torch.Tensor] = None  # [B, N, 10] with sidechain_pred: chi and backbone-vector predictions
 
 
 class ConfidenceOutput(NamedTuple):
@@ -110,8 +127,8 @@ class TensorProductScoreModel(nn.Module):
 
     def __init__(self, cfg: ScoreModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.sh_lmax != 1:
-            raise NotImplementedError("the port's TP-conv kernels take lmax=1 harmonics")
+        if cfg.sh_lmax > 2:
+            raise NotImplementedError("the port's models take sh_lmax <= 2")
         self.cfg = c = cfg
         ns, nv = c.ns, c.nv
         sh = str(spherical_harmonics_irreps(c.sh_lmax))
@@ -129,12 +146,13 @@ class TensorProductScoreModel(nn.Module):
         self.rec_distance_expansion = GaussianSmearing(0.0, c.rec_max_radius, c.distance_embed_dim)
         self.cross_distance_expansion = GaussianSmearing(0.0, c.cross_max_distance, c.cross_distance_embed_dim)
 
-        seq = get_irrep_seq(ns, nv, c.reduce_pseudoscalars)
+        seq = get_irrep_seq(ns, nv, c.reduce_pseudoscalars, c.use_second_order_repr)
         P, C = c.num_prot_emb_layers, c.num_conv_layers
 
         def conv(i, groups):
             return TPConv(seq[min(i, 3)], sh, seq[min(i + 1, 3)], 3 * ns, num_groups=groups,
-                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p)
+                          hidden_features=3 * ns, batch_norm=c.batch_norm, residual=True, dropout=p,
+                          tp_weights_layers=c.tp_weights_layers, depthwise=c.depthwise_convolution)
 
         self.rec_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P))
         self.lig_emb_layers = nn.ModuleList(conv(i, 1) for i in range(P))
@@ -142,30 +160,16 @@ class TensorProductScoreModel(nn.Module):
             conv(i, ((2 if i == P + C - 1 else 4) if c.differentiate_convolutions else 1)) for i in range(P, P + C)
         )
         self.final_irreps = seq[min(P + C, 3)]
+        if c.sidechain_pred:
+            self.sidechain_predictor = LinearIrreps(self.final_irreps, SIDECHAIN_IRREPS)
 
         if c.confidence_mode:
             add_confidence_heads(self, c)
         else:
-            self._add_score_heads(c, sh, sig, p)
+            add_score_heads(self, c, sh)
         init_weights(self, seed)
         self.requires_grad_(False)
         self.to(resolve_device(device))
-
-    def _add_score_heads(self, c: ScoreModelConfig, sh: str, sig: int, p: float):
-        ns = c.ns
-        self.center_distance_expansion = GaussianSmearing(0.0, c.center_max_distance, c.distance_embed_dim)
-        self.center_edge_embedding = FCBlock(c.distance_embed_dim + sig, ns, ns, dropout=p)
-        self.final_conv = TPConv(self.final_irreps, sh, "2x1o + 2x1e" if not c.odd_parity else "1x1o + 1x1e",
-                                 2 * ns, batch_norm=c.batch_norm, residual=False, dropout=p)
-        self.tr_final_layer = FinalNormMLP(1 + sig, ns, p)
-        self.rot_final_layer = FinalNormMLP(1 + sig, ns, p)
-        if not c.no_torsion:
-            self.final_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
-            self.final_tp_tor = FullTensorProduct(sh, "1x2e")
-            tor_out = f"{ns}x0o + {ns}x0e" if not c.odd_parity else f"{ns}x0o"
-            self.tor_bond_conv = TPConv(self.final_irreps, str(self.final_tp_tor.irreps_out), tor_out, 3 * ns,
-                                        batch_norm=c.batch_norm, residual=False, dropout=p)
-            self.tor_final_layer = TorFinalMLP(Irreps(tor_out).dim, ns, p)
 
     # ------------------------------------------------------------------ #
     # receptor embedding (t-independent)
@@ -327,71 +331,12 @@ class TensorProductScoreModel(nn.Module):
         if c.confidence_mode:
             return confidence_heads(self, lig_attr, batch.lig_mask, det, ura, gen)
 
-        # center convolution: translational / rotational pseudo-vectors
-        m = batch.lig_mask.to(lig_attr.dtype)[..., None]
-        center = torch.sum(batch.lig_pos * m, dim=1, keepdim=True) / torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
-        cvec = batch.lig_pos - center
-        cd = torch.linalg.norm(cvec, dim=-1)
-        csh = spherical_harmonics(c.sh_lmax, cvec)
-        se_l = sigma_emb[:, None, :].expand(cd.shape + (sigma_emb.shape[-1],))
-        cattr = self.center_edge_embedding(torch.cat([self.center_distance_expansion(cd), se_l], dim=-1), det, gen)
-        cattr = torch.cat([cattr, lig_attr[..., :ns]], dim=-1)
-        msg_c = self.final_conv.messages(0, lig_attr, csh, cattr, batch.lig_mask, det, gen)
-        cnt_c = torch.sum(batch.lig_mask, dim=1).to(msg_c.dtype)
-        global_pred = self.final_conv.finalize(None, msg_c.sum(dim=1), cnt_c,
-                                               torch.ones(B, dtype=torch.bool, device=msg_c.device), ura)
-        if c.odd_parity:
-            tr_pred, rot_pred = global_pred[:, :3], global_pred[:, 3:6]
-        else:
-            tr_pred = global_pred[:, :3] + global_pred[:, 6:9]
-            rot_pred = global_pred[:, 3:6] + global_pred[:, 9:12]
-        tr_norm = torch.linalg.norm(tr_pred, dim=1, keepdim=True)
-        tr_pred = tr_pred / (tr_norm + 1e-12) * self.tr_final_layer(tr_norm, sigma_emb, det, gen)
-        rot_norm = torch.linalg.norm(rot_pred, dim=1, keepdim=True)
-        rot_pred = rot_pred / (rot_norm + 1e-12) * self.rot_final_layer(rot_norm, sigma_emb, det, gen)
-        if c.scale_by_sigma:
-            tr_pred = tr_pred / tr_sigma[:, None]
-            rot_pred = rot_pred * so3.score_norm(rot_sigma)[:, None]
-
-        if c.no_torsion:
-            return ScoreOutput(tr_pred, rot_pred, tr_pred.new_zeros(B, batch.tor_src.shape[1]))
-        return ScoreOutput(tr_pred, rot_pred, self._torsion_head(batch, lig_attr, tor_sigma, det, ura, gen))
-
-    def _torsion_head(self, batch: ComplexBatch, lig_attr, tor_sigma, deterministic: bool = True,
-                      use_running_average: bool = True, generator: Optional[torch.Generator] = None):
-        """The bond-centred torsion head: each rotatable bond's centre
-        convolves the ligand atoms within ``lig_max_radius`` (harmonics of
-        the atom offset times the bond's l=2 harmonics), then the bias-free
-        MLP -> [B, R] scores, zero on padded torsion slots."""
-        c = self.cfg
-        ns = c.ns
-        det, ura, gen = deterministic, use_running_average, generator
-        pu = gather_nodes(batch.lig_pos, batch.tor_src)
-        pv = gather_nodes(batch.lig_pos, batch.tor_dst)
-        bond_pos, bond_vec = (pu + pv) / 2, pv - pu
-        tb_mask, tb_d = radius_mask(bond_pos, batch.lig_pos, c.lig_max_radius, batch.tor_mask, batch.lig_mask)
-        tb_vec = batch.lig_pos[:, None, :, :] - bond_pos[:, :, None, :]
-        tb_sh0 = spherical_harmonics(c.sh_lmax, tb_vec)
-        bond_sh2 = spherical_harmonics(2, bond_vec)[..., 4:]  # the l=2 block
-        tb_sh = self.final_tp_tor(tb_sh0, bond_sh2[:, :, None, :].expand(tb_sh0.shape[:-1] + (5,)))
-        tb_emb = self.final_edge_embedding(self.lig_distance_expansion(tb_d), det, gen)
-        tor_bond_attr = gather_nodes(lig_attr, batch.tor_src) + gather_nodes(lig_attr, batch.tor_dst)
-        eattr_t = torch.cat(
-            [
-                tb_emb,
-                lig_attr[:, None, :, :ns].expand(tb_emb.shape[:-1] + (ns,)),
-                tor_bond_attr[:, :, None, :ns].expand(tb_emb.shape[:-1] + (ns,)),
-            ],
-            dim=-1,
-        )
-        sender_t = lig_attr[:, None, :, :].expand(tb_emb.shape[:-1] + (lig_attr.shape[-1],))
-        msg_t = self.tor_bond_conv.messages(0, sender_t, tb_sh, eattr_t, tb_mask, det, gen)
-        tor_feat = self.tor_bond_conv.finalize(None, msg_t.sum(dim=2), tb_mask.sum(dim=2).to(msg_t.dtype),
-                                               batch.tor_mask, ura)
-        tor_pred = self.tor_final_layer(tor_feat, det, gen)[..., 0]
-        if c.scale_by_sigma:
-            tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
-        return torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred))
+        sidechain = None
+        if c.sidechain_pred:  # on the receptor's final features, widened to the trunk's last irreps
+            sp = self.sidechain_predictor(pad_residual(rec_attr, Irreps(self.final_irreps).dim))
+            sidechain = sp[..., :10] + sp[..., 10:]
+        return ScoreOutput(*score_heads(self, batch, lig_attr, sigma_emb, tr_sigma, rot_sigma, tor_sigma, det, ura, gen),
+                           sidechain_pred=sidechain)
 
     def torsional_forward(self, batch: ComplexBatch, deterministic: bool = True, use_running_average: bool = True,
                           generator: Optional[torch.Generator] = None):
@@ -412,7 +357,105 @@ class TensorProductScoreModel(nn.Module):
             s, n = self._lig_conv(layer, 0, lig_attr, graph, batch, det, gen)
             lig_attr = layer.finalize(lig_attr, s, n, batch.lig_mask, ura)
         lig_attr = pad_residual(lig_attr, Irreps(self.final_irreps).dim)  # the ladder only appends blocks
-        return self._torsion_head(batch, lig_attr, tor_sigma, det, ura, gen)
+        return torsion_head(self, batch, lig_attr, tor_sigma, det, ura, gen)
+
+
+def add_score_heads(model: nn.Module, c: ScoreModelConfig, sh: str) -> None:
+    """The score heads on ``model`` (whose ``final_irreps`` are the trunk's
+    last): the center convolution, the translation and rotation norm MLPs
+    and, unless ``no_torsion``, the torsion head. Shared by the residue-level
+    and the all-atom models."""
+    ns, sig, p = c.ns, c.sigma_embed_dim, c.dropout
+    model.center_distance_expansion = GaussianSmearing(0.0, c.center_max_distance, c.distance_embed_dim)
+    model.center_edge_embedding = FCBlock(c.distance_embed_dim + sig, ns, ns, dropout=p)
+    model.final_conv = TPConv(model.final_irreps, sh, "2x1o + 2x1e" if not c.odd_parity else "1x1o + 1x1e",
+                              2 * ns, batch_norm=c.batch_norm, residual=False, dropout=p)
+    model.tr_final_layer = FinalNormMLP(1 + sig, ns, p)
+    model.rot_final_layer = FinalNormMLP(1 + sig, ns, p)
+    if not c.no_torsion:
+        model.final_edge_embedding = FCBlock(c.distance_embed_dim, ns, ns, dropout=p)
+        model.final_tp_tor = FullTensorProduct(sh, "1x2e")
+        tor_out = f"{ns}x0o + {ns}x0e" if not c.odd_parity else f"{ns}x0o"
+        model.tor_bond_conv = TPConv(model.final_irreps, str(model.final_tp_tor.irreps_out), tor_out, 3 * ns,
+                                     batch_norm=c.batch_norm, residual=False, dropout=p)
+        model.tor_final_layer = TorFinalMLP(Irreps(tor_out).dim, ns, p)
+
+
+def score_heads(model: nn.Module, batch: ComplexBatch, lig_attr, sigma_emb, tr_sigma, rot_sigma, tor_sigma,
+                deterministic: bool = True, use_running_average: bool = True,
+                generator: Optional[torch.Generator] = None):
+    """(tr [B, 3], rot [B, 3], tor [B, R]) from the ligand's final features:
+    the center convolution's translational and rotational pseudo-vectors,
+    their norms rescaled by the norm MLPs (and by sigma with
+    ``scale_by_sigma``), then the torsion head (zeros with ``no_torsion``)."""
+    c = model.cfg
+    ns = c.ns
+    det, ura, gen = deterministic, use_running_average, generator
+    B = lig_attr.shape[0]
+    m = batch.lig_mask.to(lig_attr.dtype)[..., None]
+    center = torch.sum(batch.lig_pos * m, dim=1, keepdim=True) / torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
+    cvec = batch.lig_pos - center
+    cd = torch.linalg.norm(cvec, dim=-1)
+    csh = spherical_harmonics(c.sh_lmax, cvec)
+    se_l = sigma_emb[:, None, :].expand(cd.shape + (sigma_emb.shape[-1],))
+    cattr = model.center_edge_embedding(torch.cat([model.center_distance_expansion(cd), se_l], dim=-1), det, gen)
+    cattr = torch.cat([cattr, lig_attr[..., :ns]], dim=-1)
+    msg_c = model.final_conv.messages(0, lig_attr, csh, cattr, batch.lig_mask, det, gen)
+    cnt_c = torch.sum(batch.lig_mask, dim=1).to(msg_c.dtype)
+    global_pred = model.final_conv.finalize(None, msg_c.sum(dim=1), cnt_c,
+                                            torch.ones(B, dtype=torch.bool, device=msg_c.device), ura)
+    if c.odd_parity:
+        tr_pred, rot_pred = global_pred[:, :3], global_pred[:, 3:6]
+    else:
+        tr_pred = global_pred[:, :3] + global_pred[:, 6:9]
+        rot_pred = global_pred[:, 3:6] + global_pred[:, 9:12]
+    tr_norm = torch.linalg.norm(tr_pred, dim=1, keepdim=True)
+    tr_pred = tr_pred / (tr_norm + 1e-12) * model.tr_final_layer(tr_norm, sigma_emb, det, gen)
+    rot_norm = torch.linalg.norm(rot_pred, dim=1, keepdim=True)
+    rot_pred = rot_pred / (rot_norm + 1e-12) * model.rot_final_layer(rot_norm, sigma_emb, det, gen)
+    if c.scale_by_sigma:
+        tr_pred = tr_pred / tr_sigma[:, None]
+        rot_pred = rot_pred * so3.score_norm(rot_sigma)[:, None]
+    if c.no_torsion:
+        return tr_pred, rot_pred, tr_pred.new_zeros(B, batch.tor_src.shape[1])
+    return tr_pred, rot_pred, torsion_head(model, batch, lig_attr, tor_sigma, det, ura, gen)
+
+
+def torsion_head(model: nn.Module, batch: ComplexBatch, lig_attr, tor_sigma, deterministic: bool = True,
+                 use_running_average: bool = True, generator: Optional[torch.Generator] = None):
+    """The bond-centred torsion head: each rotatable bond's centre convolves
+    the ligand atoms within ``lig_max_radius`` (harmonics of the atom offset
+    times the bond's l=2 harmonics), then the bias-free MLP -> [B, R]
+    scores, zero on padded torsion slots."""
+    c = model.cfg
+    ns = c.ns
+    det, ura, gen = deterministic, use_running_average, generator
+    pu = gather_nodes(batch.lig_pos, batch.tor_src)
+    pv = gather_nodes(batch.lig_pos, batch.tor_dst)
+    bond_pos, bond_vec = (pu + pv) / 2, pv - pu
+    tb_mask, tb_d = radius_mask(bond_pos, batch.lig_pos, c.lig_max_radius, batch.tor_mask, batch.lig_mask)
+    tb_vec = batch.lig_pos[:, None, :, :] - bond_pos[:, :, None, :]
+    tb_sh0 = spherical_harmonics(c.sh_lmax, tb_vec)
+    bond_sh2 = spherical_harmonics(2, bond_vec)[..., 4:]  # the l=2 block
+    tb_sh = model.final_tp_tor(tb_sh0, bond_sh2[:, :, None, :].expand(tb_sh0.shape[:-1] + (5,)))
+    tb_emb = model.final_edge_embedding(model.lig_distance_expansion(tb_d), det, gen)
+    tor_bond_attr = gather_nodes(lig_attr, batch.tor_src) + gather_nodes(lig_attr, batch.tor_dst)
+    eattr_t = torch.cat(
+        [
+            tb_emb,
+            lig_attr[:, None, :, :ns].expand(tb_emb.shape[:-1] + (ns,)),
+            tor_bond_attr[:, :, None, :ns].expand(tb_emb.shape[:-1] + (ns,)),
+        ],
+        dim=-1,
+    )
+    sender_t = lig_attr[:, None, :, :].expand(tb_emb.shape[:-1] + (lig_attr.shape[-1],))
+    msg_t = model.tor_bond_conv.messages(0, sender_t, tb_sh, eattr_t, tb_mask, det, gen)
+    tor_feat = model.tor_bond_conv.finalize(None, msg_t.sum(dim=2), tb_mask.sum(dim=2).to(msg_t.dtype),
+                                            batch.tor_mask, ura)
+    tor_pred = model.tor_final_layer(tor_feat, det, gen)[..., 0]
+    if c.scale_by_sigma:
+        tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
+    return torch.where(batch.tor_mask, tor_pred, torch.zeros_like(tor_pred))
 
 
 class MaskedBatchNorm1d(nn.Module):
@@ -520,9 +563,14 @@ def confidence_heads(model: nn.Module, lig_attr, lig_mask, deterministic: bool =
 def init_weights(model: nn.Module, seed: int) -> None:
     """Random weights from ``seed`` (torch.Generator on the CPU, so the same
     seed gives the same model on every device): linear layers uniform in
-    +-1/sqrt(fan_in), embeddings Xavier-uniform, batch norm at identity."""
+    +-1/sqrt(fan_in), embeddings Xavier-uniform, the equivariant linear
+    maps' weights standard normal (their biases zero), batch norm at
+    identity."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
+        if isinstance(mod, LinearIrreps):
+            for k in mod.weight_names:
+                getattr(mod, k).data = torch.randn(getattr(mod, k).shape, generator=gen)
         if isinstance(mod, nn.Linear):
             bound = mod.in_features ** -0.5
             mod.weight.data = (torch.rand(mod.weight.shape, generator=gen) * 2 - 1) * bound

@@ -35,7 +35,8 @@ import torch
 
 from ..irreps import Irreps, WeightedTensorProduct
 from . import build
-from .tpconv_common import KMAX, SMEM_LIMIT, TM, TN, TNC, check_inputs, device_tables, ptr, sh_dim, tp_layout
+from .tpconv_common import KMAX, SMEM_LIMIT, TM, TN, TNC, block_width, check_inputs, device_tables, ptr, sh_dim, \
+    tp_layout
 from .tpconv_edge import tpconv_edge_plain
 
 BUILDS = ((32, 128), (16, 192))  # csrc/tpconv_bwd.cu: (edges a block, the largest H) of each per-edge build
@@ -44,7 +45,7 @@ MIN_ROWS_PER_SPLIT = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] + [_P] * 11 + [_I] * 9 + [_P] * 6 + [_I] * 2 + [_P] * 3 + [_I, _P]
-_TC_ARGTYPES = [_P] * 5 + [_I] + [_P] * 14 + [_I] * 12 + [_P] * 4 + [_I] * 2 + [_P] * 3
+_TC_ARGTYPES = [_P] * 5 + [_I] + [_P] * 14 + [_I] * 12 + [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I, _P]
 GEMM_TILE = (128, 96)  # csrc/tpconv_bwd.cu: (GM, GN), the output tile of the products
 BWD_TC_STATIC = 2768  # static shared memory of the tensor-core per-edge kernel: its rows, barriers and tile tables
 
@@ -267,7 +268,8 @@ def _launch_tc(attr, sender, sh, g, dmask, w1, b1, w2, b2, irreps_in, irreps_sh,
         ptr(attr), ptr(sender), ptr(sh), ptr(g), ptr(dmask), hd, ptr(valid), ptr(csum), ptr(w1c), ptr(b1c), ptr(w2c),
         ptr(b2c), ptr(cscale), ptr(xtab), ptr(cg), ptr(bcol), ptr(bepi), ptr(bepi_start), ptr(vtab), ptr(vtab_start),
         T, F, H, W, lay.din, dsh, lay.dout, lay.n_x, tcl.n_tiles, wpad, len(lay.cg), len(vtab), ptr(d_attr),
-        ptr(d_x), ptr(d_sh), ptr(scratch), s2, s1, ptr(dw2), ptr(dw1), torch.cuda.current_stream(dev).cuda_stream,
+        ptr(d_x), ptr(d_sh), ptr(scratch), s2, s1, ptr(dw2), ptr(dw1), block_width(irreps_out),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, "tpconv_bwd")
     return d_attr, d_x, d_sh, dw1[:F], dw1[F], dw2[:H, :W] * cscale, dw2[H, :W] * cscale

@@ -34,7 +34,9 @@ The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model),
 edge-list kernel that takes them as input, the score model's torsion-head
 harmonics ``1x2e + 1x1o + 1x2o + 1x3o``; the harmonic width (4, 9 or 20) is a
 compile-time parameter of the kernels. Input and output irreps may hold any
-l <= 1 blocks.
+l <= 2 blocks (l = 2: the second-order irreps ladder). ``general_route``
+says whether a layer takes the general kernels (rec_g, cross_g and the
+edge-list kernel) as the JAX package's ``tpconv_g.general_layout`` does.
 
 The training backward (``csrc/tpconv_bwd.cu``) reads w2 in its canonical
 column order and three more tables (``bwd_layout``); its tensor-core build
@@ -96,6 +98,48 @@ def sh_dim(irreps_sh: str) -> int:
     return _sh_dims()[str(Irreps(irreps_sh))]
 
 
+_LADDER_ORDER = ("0e", "1o", "1e", "0o")
+
+
+def is_ladder(irreps_in: str, irreps_out: str) -> bool:
+    """Whether both irreps are shaped as the lmax=1 ladder (blocks of 0e, 1o,
+    1e and 0o, each at most once, in that order), as the JAX package's
+    ``tpconv.ladder_spec`` tests it: with lmax=1 harmonics such a layer takes
+    the ladder kernels (rows 1-6)."""
+    for irreps in (irreps_in, irreps_out):
+        seen = [str(ir) for mul, ir in Irreps(irreps) if mul > 0]
+        if any(k not in _LADDER_ORDER for k in seen) or seen != [k for k in _LADDER_ORDER if k in seen]:
+            return False
+    return True
+
+
+def block_width(irreps: str) -> int:
+    """The tensor-core stage's build for these irreps' widest block: 3 (l <= 1)
+    or 5 (l = 2, the second-order ladder). The input irreps select the CG
+    loop of the forward stage (``contributions_tc``'s DI), the output irreps
+    the backward's d_w loop (its NC): builds of their own, so that l <= 1
+    layers keep their code."""
+    return 5 if max(ir.dim for _, ir in Irreps(irreps)) > 3 else 3
+
+
+FAN_MAX = 128  # the largest fan-in of an output group the JAX package's general kernels take (one lane group)
+
+
+@functools.lru_cache(maxsize=None)
+def general_route(irreps_in: str, irreps_sh: str, irreps_out: str) -> bool:
+    """Whether a layer takes the general kernels: harmonics the kernels take
+    (``takes_harmonics``), blocks of l <= 2 and every output group's fan-in
+    at most FAN_MAX, where ``tpconv_g.general_layout`` of the JAX package
+    raises and its layer runs plain XLA."""
+    if not takes_harmonics(irreps_sh):
+        return False
+    try:
+        tp_layout(irreps_in, irreps_out, irreps_sh)
+    except ValueError:
+        return False
+    return all(g.fan_in <= FAN_MAX for g in WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).groups)
+
+
 @functools.lru_cache(maxsize=None)
 def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS, tn: int = TN) -> TPLayout:
     """The kernels' tables for ``tn``-column tiles of w2 (TN: the float32
@@ -103,8 +147,8 @@ def tp_layout(irreps_in: str, irreps_out: str, irreps_sh: str = SH_IRREPS, tn: i
     sh_dim(irreps_sh)
     tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
     for _, ir in tuple(tp.irreps_in) + tuple(tp.irreps_out):
-        if ir.l > 1:
-            raise ValueError(f"TP-conv kernels take l <= 1 irreps, got {irreps_in} -> {irreps_out}")
+        if ir.l > 2:
+            raise ValueError(f"TP-conv kernels take l <= 2 irreps, got {irreps_in} -> {irreps_out}")
     in_sl, out_sl, sh_sl = tp.irreps_in.slices(), tp.irreps_out.slices(), tp.irreps_sh.slices()
     xrows, cg, perm, scale, segs = [], [], [], [], []
     x_off = w_off = 0

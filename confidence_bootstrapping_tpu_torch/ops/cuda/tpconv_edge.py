@@ -6,8 +6,11 @@ training variant's hidden-layer dropout mask): the edge MLP, the weighted TP
 and the mask over pre-gathered edge lists [M, K, *], then the sum over K
 (``sum_k``, [M, Dout], ``nbr_g``) or each edge's message ([M, K, Dout],
 ``msgs_g``), in the canonical irreps layout. It is the forward of every
-training TP-conv but the receptor kNN groups (``ops/cuda/tpconv_train.py``).
-The harmonics come in as input: widths 4, 9 or 20 (``tpconv_common.sh_dim``).
+training TP-conv but the receptor kNN groups (``ops/cuda/tpconv_train.py``),
+and at inference the general route's edge lists (the ligand pairs and the
+receptor <- ligand lists of the residue-level model at lmax=2 and of the
+second-order ladder). The harmonics come in as input: widths 4, 9 or 20
+(``tpconv_common.sh_dim``); sender and output blocks of l <= 2.
 A layer with H <= KMAX = 96 whose layout fits (the score model's ns=32
 ladder, its center and torsion convolutions) runs the kernel's tensor-core
 build (3xTF32 ``wgmma``, from the split, tiled w2 fields of
@@ -27,13 +30,13 @@ import ctypes
 import torch
 
 from . import build
-from .tpconv_common import (TNC, Dims, check_inputs, device_tables, edge_messages, launch_weights, pick_build, ptr,
-                            sh_dim, tp_layout)
+from .tpconv_common import (TNC, Dims, block_width, check_inputs, device_tables, edge_messages, launch_weights,
+                            pick_build, ptr, sh_dim, tp_layout)
 from .tpconv_g import cross_rows_per_block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] + [_P] * 8 + [_I] * 13 + [_P, _P]
-_TC_ARGTYPES = [_P] * 5 + [_I] + [_P] * 9 + [_I] * 14 + [_P, _P]
+_TC_ARGTYPES = [_P] * 5 + [_I] + [_P] * 9 + [_I] * 15 + [_P, _P]
 
 
 def edge_build(irreps_in: str, irreps_sh: str, irreps_out: str, F: int, H: int, K: int) -> tuple:
@@ -95,7 +98,8 @@ def launch_edges(edge_attr, sender, sh, mask, w1, b1, w2, b2, irreps_in, irreps_
         fn.argtypes, fn.restype = _TC_ARGTYPES, ctypes.c_int
         code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
                   ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), M, K, F, H,
-                  lay.din, lay.dout, dsh, cross_rows_per_block(K), int(sum_k), ptr(out), stream)
+                  lay.din, lay.dout, dsh, cross_rows_per_block(K), int(sum_k), block_width(irreps_in), ptr(out),
+                  stream)
     else:
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
         fn = lib.cbt_tpconv_edge

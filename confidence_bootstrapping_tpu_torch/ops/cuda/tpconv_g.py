@@ -1,8 +1,10 @@
-"""TP-conv kernels with lmax=2 harmonics (``csrc/tpconv_rec_g.cu``,
+"""TP-conv kernels of the general route (``csrc/tpconv_rec_g.cu``,
 ``csrc/tpconv_cross_g.cu``).
 
-Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py`` at inference,
-the all-atom confidence model's path:
+Replace ``confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py`` at inference:
+the all-atom models' path at lmax=2, and every layer that is not the lmax=1
+irreps ladder (the residue-level model at lmax=2, the second-order ladder at
+lmax=1; ``tpconv_common.general_route``):
 
 * ``fused_tpconv_rec_g``: message sums [B, N, Dout] of a kNN group whose
   senders and receivers are one node table (receptor <- receptor, atom <-
@@ -14,8 +16,9 @@ the all-atom confidence model's path:
   ligand <- atom); the edge embedding already holds the sigma embedding.
 
 The Pallas kernels take any mul-1 harmonics up to l=2; these take
-``1x0e + 1x1o + 1x2e`` or ``1x0e + 1x1o`` (``tpconv_common.sh_dim``), and
-input and output irreps of l <= 1. Positions stay float32 (the Pallas
+``1x0e + 1x1o + 1x2e`` or ``1x0e + 1x1o`` (``tpconv_common.sh_dim``: each
+kernel is built at 9 and at 4 harmonic components), and input and output
+irreps of l <= 2. Positions stay float32 (the Pallas
 kernels split them into bf16 halves, about 1e-4 from a float32 composition).
 What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
 Both inference kernels run the H -> W product on the tensor cores (3xTF32
@@ -28,7 +31,8 @@ build fits a layer the wrapper raises). Each wrapper launches its kernel
 for CUDA tensors, calls its ``*_plain`` version for CPU tensors, and counts launches in ``<wrapper>.launches``. In
 training, ``fused_tpconv_rec_g``'s ``dmask`` (the hidden-layer dropout mask)
 selects the kernel's training variant (``tpconv_rec_g_dm_tc_kernel``, or
-``tpconv_rec_g_dm_kernel`` on the float32 stage), counted apart in
+``tpconv_rec_g_dm_kernel`` on the float32 stage at TM or TM_WIDE edges a
+chunk), counted apart in
 ``fused_tpconv_rec_g.dm_launches``.
 """
 
@@ -40,18 +44,19 @@ import torch
 
 from ..graph_builders import gather_nodes
 from . import build
-from .tpconv_common import (TM, TM_WIDE, TNC, Dims, check_dmask, check_inputs, device_tables, edge_messages,
-                            launch_weights, pick_build, ptr, sh_dim, sh_kernel, tp_layout)
+from .tpconv_common import (TM, TM_WIDE, TNC, Dims, block_width, check_dmask, check_inputs, device_tables,
+                            edge_messages, launch_weights, pick_build, ptr, sh_dim, sh_kernel, tp_layout)
 
 RT_REC = 8  # receivers per rec_g block: 8 * K=24 receptor or K=8 atom neighbours
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_REC_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
-_REC_WIDE_ARGTYPES = [_P] * 14 + [_I] * 12 + [_P, _P]
-_REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 12 + [_P, _P]
-_REC_DM_TC_ARGTYPES = [_P] * 7 + [_I] + [_P] * 9 + [_I] * 14 + [_P, _P]
-_CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]
+_REC_ARGTYPES = [_P] * 15 + [_I] * 16 + [_P, _P]
+_REC_WIDE_ARGTYPES = [_P] * 14 + [_I] * 13 + [_P, _P]
+_REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 14 + [_P, _P]
+_REC_DM_TC_ARGTYPES = [_P] * 7 + [_I] + [_P] * 9 + [_I] * 16 + [_P, _P]
+_CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]  # row 4's; cross_g's take one more int, the harmonic width
 _CROSS_TC_ARGTYPES = [_P] * 16 + [_I] * 15 + [_P, _P]
+_GENERAL_SHD = (4, 9)  # the harmonic widths rec_g and cross_g are built at
 
 
 def cross_rows_per_block(K: int, chunk: int = TM) -> int:
@@ -65,11 +70,11 @@ def rec_g_build(irreps_in: str, irreps_sh: str, irreps_out: str, Fe: int, ns: in
     at this layer, with (``dropout``) or without the dropout mask
     (``tpconv_common.pick_build``: the tensor-core stage where the layer
     fits it, else the inference kernel's float32 build at TM_WIDE edges a
-    chunk, the training variant's at TM)."""
+    chunk, the training variant's at TM, then TM_WIDE)."""
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     d = Dims(Fe, ns, Fe + 2 * ns, H, lay.din, lay.dout)
     return pick_build("fused_tpconv_rec_g", irreps_in, irreps_out, irreps_sh, d, RT_REC, True,
-                      (TM,) if dropout else (TM_WIDE,))
+                      (TM, TM_WIDE) if dropout else (TM_WIDE,))
 
 
 def tpconv_rec_g_plain(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out,
@@ -122,8 +127,9 @@ def fused_tpconv_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2,
 def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh, irreps_out, ns,
                   packed, dmask=None):
     dev = node_attr.device
-    if sh_dim(irreps_sh) != 9:
-        raise ValueError(f"fused_tpconv_rec_g runs lmax=2 harmonics; use fused_tpconv_rec for {irreps_sh}")
+    shd = sh_dim(irreps_sh)
+    if shd not in _GENERAL_SHD:
+        raise ValueError(f"fused_tpconv_rec_g runs lmax=1 or lmax=2 harmonics, got {irreps_sh}")
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     B, N, Din = node_attr.shape
     K, Fe, H = nbr.shape[2], edge_emb.shape[-1], w2.shape[0]
@@ -133,17 +139,19 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
             or tuple(w2.shape) != (H, lay.weight_numel)):
         raise ValueError("fused_tpconv_rec_g: inconsistent shapes")
     dm = check_dmask(dmask, (B, N, K), H, dev)
-    tc, _ = rec_g_build(irreps_in, irreps_sh, irreps_out, Fe, ns, H, dm is not None)
+    tc, cm = rec_g_build(irreps_in, irreps_sh, irreps_out, Fe, ns, H, dm is not None)
     pw = launch_weights(w1, b1, w2, b2, irreps_in, irreps_out, packed, dev, irreps_sh)
     out = torch.empty(B, N, lay.dout, dtype=torch.float32, device=dev)
     lib = build.load("tpconv_rec_g")
-    dims = (B, N, K, Fe, ns, H, Din, lay.dout, RT_REC, ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dims = (B, N, K, Fe, ns, H, Din, lay.dout, RT_REC, shd, ptr(out), stream)
     inputs = (ptr(node_attr), ptr(pos), ptr(nbr), ptr(edge_emb), ptr(sig), ptr(mask))
     if tc:
         tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
         tables = (ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg), ptr(epi),
-                  ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims)
+                  ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims[:-2],
+                  block_width(irreps_in), *dims[-2:])
         if dm is None:
             fn = lib.cbt_tpconv_rec_g
             fn.argtypes, fn.restype = _REC_ARGTYPES, ctypes.c_int
@@ -164,7 +172,7 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
     else:
         fn = lib.cbt_tpconv_rec_g_dm
         fn.argtypes, fn.restype = _REC_DM_ARGTYPES, ctypes.c_int
-        code = fn(*inputs, ptr(dm), dm.shape[-1], *tables)
+        code = fn(*inputs, ptr(dm), dm.shape[-1], *tables[:-3], cm, *tables[-3:])
     build.check(lib, code, "tpconv_rec_g")
     return out
 
@@ -192,8 +200,8 @@ def fused_tpconv_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, 
 
 def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                     irreps_in, irreps_sh, irreps_out, ns, packed):
-    if sh_dim(irreps_sh) != 9:
-        raise ValueError(f"fused_tpconv_cross_g runs lmax=2 harmonics; tpconv_rec.fused_tpconv_cross runs {irreps_sh}")
+    if sh_dim(irreps_sh) not in _GENERAL_SHD:
+        raise ValueError(f"fused_tpconv_cross_g runs lmax=1 or lmax=2 harmonics, got {irreps_sh}")
     return launch_cross("tpconv_cross_g", recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                         irreps_in, irreps_sh, irreps_out, ns, packed)
 
@@ -211,8 +219,9 @@ def cross_build(kernel: str, irreps_in: str, irreps_out: str, irreps_sh: str, Fe
 def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                  irreps_in, irreps_sh, irreps_out, ns, packed):
     """Launch ``csrc/<kernel>.cu``, a one-direction cross kernel of the
-    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2; ``tpconv_cross``:
-    lmax=1; both ``cross_tile`` of the engine), after checking its inputs, on
+    ``irreps_sh`` harmonics (``tpconv_cross_g``: lmax=2 or 1, its host
+    functions take the harmonic width; ``tpconv_cross``: lmax=1; both
+    ``cross_tile`` of the engine), after checking its inputs, on
     the build ``cross_build`` picks: the tensor-core stage where the layer
     fits it, else the float32 build at TM, then TM_WIDE edges a chunk.
     Receivers a block: ``cross_rows_per_block`` (by scripts/engine_ablation.py
@@ -236,21 +245,24 @@ def launch_cross(kernel: str, recv_attr, recv_pos, src_attr, src_pos, idx, edge_
     lib = build.load(kernel)
     inputs = (ptr(recv_attr), ptr(recv_pos), ptr(src_attr), ptr(src_pos), ptr(idx), ptr(edge_emb), ptr(mask))
     dims = (B, L, N, K, Fe, ns, H, D, lay.dout, rt)
+    shd = (sh_dim(irreps_sh),) if kernel == "tpconv_cross_g" else ()  # row 4's host functions take neither
+    di = (block_width(irreps_in),) if kernel == "tpconv_cross_g" else ()
+    extra = [_I] * len(shd)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if tc:
         tcl = tp_layout(irreps_in, irreps_out, irreps_sh, TNC)
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh, TNC)[:4]
         fn = getattr(lib, "cbt_" + kernel + "_tc")
-        fn.argtypes, fn.restype = _CROSS_TC_ARGTYPES, ctypes.c_int
+        fn.argtypes, fn.restype = _CROSS_TC_ARGTYPES[:-2] + 2 * extra + _CROSS_TC_ARGTYPES[-2:], ctypes.c_int
         code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2_hi), ptr(pw.w2_lo), ptr(pw.b2_tc), ptr(xtab), ptr(cg),
-                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims,
-                  ptr(out), stream)
+                  ptr(epi), ptr(epi_start), tcl.n_x, tcl.n_tiles, tcl.wpad, len(tcl.epi), len(tcl.cg), *dims, *shd,
+                  *di, ptr(out), stream)
     else:
         xtab, cg, epi, epi_start = device_tables(irreps_in, irreps_out, dev, irreps_sh)[:4]
         fn = getattr(lib, "cbt_" + kernel)
-        fn.argtypes, fn.restype = _CROSS_ARGTYPES, ctypes.c_int
+        fn.argtypes, fn.restype = _CROSS_ARGTYPES[:-2] + extra + _CROSS_ARGTYPES[-2:], ctypes.c_int
         code = fn(*inputs, ptr(pw.w1), ptr(pw.b1), ptr(pw.w2), ptr(pw.b2), ptr(xtab), ptr(cg), ptr(epi),
-                  ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, *dims, cm, ptr(out), stream)
+                  ptr(epi_start), lay.n_x, lay.n_tiles, lay.wpad, *dims, cm, *shd, ptr(out), stream)
     build.check(lib, code, kernel)
     return out
 

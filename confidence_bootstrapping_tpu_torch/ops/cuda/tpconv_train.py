@@ -10,7 +10,8 @@ Replaces ``confidence_bootstrapping_tpu/ops/pallas/tpconv_train.py``'s two
   masked, given the mask, so that its tensor-core build skips masked edges.
 * ``fused_tpconv_rec_train``: the receptor kNN groups (senders and receivers
   one node table). Forward: the in-kernel-gather kernel with the dropout mask
-  (``tpconv_rec`` at lmax=1, ``tpconv_rec_g`` at lmax=2). Backward: the
+  (``tpconv_rec`` on the lmax=1 irreps ladder, ``tpconv_rec_g`` on the
+  general route: lmax=2, or the second-order ladder at lmax=1). Backward: the
   per-edge sender, harmonics and MLP input rebuilt in plain PyTorch, the edge
   backward kernel, ``d_sender`` scattered to the node table with
   ``index_add_``, and ``d_pos`` through the harmonics' autograd.
@@ -26,7 +27,7 @@ import torch
 
 from ..irreps import Irreps
 from .tpconv_bwd import edge_bwd
-from .tpconv_common import SH2_IRREPS, sh_kernel
+from .tpconv_common import SH_IRREPS, is_ladder, sh_kernel
 from .tpconv_edge import fused_tpconv_edge
 from .tpconv_g import fused_tpconv_rec_g
 from .tpconv_rec import fused_tpconv_rec
@@ -73,7 +74,7 @@ class _RecTrain(torch.autograd.Function):
         ctx.irreps, ctx.ns = irreps, ns
         ctx.save_for_backward(node_attr, pos, nbr, edge_emb, sig, mask, dmask, w1, b1, w2, b2)
         irreps_in, irreps_sh, irreps_out = irreps
-        if irreps_sh == str(Irreps(SH2_IRREPS)):
+        if irreps_sh != str(Irreps(SH_IRREPS)) or not is_ladder(irreps_in, irreps_out):
             return fused_tpconv_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_sh,
                                       irreps_out, ns, packed=packed, dmask=dmask)
         return fused_tpconv_rec(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irreps_in, irreps_out, ns,

@@ -347,3 +347,75 @@ class FullTensorProduct:
             o = torch.einsum("...ua,...vb,abc->...uvc", b1, b2, _path_cg(ir1.l, ir2.l, l3, x1))
             outs.append(o.reshape(o.shape[:-3] + (m1 * m2 * (2 * l3 + 1),)))
         return torch.cat(outs, dim=-1)
+
+
+class DepthwiseTensorProduct:
+    """'uvu' tensor product: one weight per (path, input channel), no mixing
+    across channels (the ``depthwise_convolution`` option; the caller applies
+    an equivariant linear map after aggregation).
+
+    Output irreps: one block of mul_in channels per admissible (input, sh,
+    l_out) path, sorted by (l, -p) as the JAX package sorts them."""
+
+    def __init__(self, irreps_in, irreps_sh):
+        self.irreps_in = Irreps(irreps_in)
+        self.irreps_sh = Irreps(irreps_sh)
+        paths = []
+        for ii, (mul, ir_in) in enumerate(self.irreps_in):
+            for si, (_, ir_sh) in enumerate(self.irreps_sh):
+                for l3 in range(abs(ir_in.l - ir_sh.l), ir_in.l + ir_sh.l + 1):
+                    paths.append((ii, si, Irrep(l3, ir_in.p * ir_sh.p), mul))
+        paths.sort(key=lambda t: (t[2].l, -t[2].p))  # stable: input-major within one (l, p)
+        self.paths = paths
+        self.irreps_out = Irreps([(mul, (ir.l, ir.p)) for _, _, ir, mul in paths])
+        self.weight_numel = sum(mul for _, _, _, mul in paths)
+
+    def __call__(self, x: torch.Tensor, sh: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """x [..., dim_in], sh [..., dim_sh], weight [..., weight_numel];
+        leading axes broadcast."""
+        lead = torch.broadcast_shapes(x.shape[:-1], sh.shape[:-1], weight.shape[:-1])
+        in_slices, sh_slices = self.irreps_in.slices(), self.irreps_sh.slices()
+        outs = []
+        w_ofs = 0
+        for ii, si, ir_out, mul in self.paths:
+            ir_in, ir_sh = self.irreps_in[ii].ir, self.irreps_sh[si].ir
+            blk = x[..., in_slices[ii]].reshape(x.shape[:-1] + (mul, ir_in.dim))
+            T = torch.einsum("...b,abc->...ac", sh[..., sh_slices[si]], _path_cg(ir_in.l, ir_sh.l, ir_out.l, x))
+            out = torch.matmul(blk, T) * weight[..., w_ofs : w_ofs + mul, None]  # [..., mul, d3]
+            w_ofs += mul
+            outs.append(out.reshape(out.shape[:-2] + (mul * ir_out.dim,)).expand(lead + (mul * ir_out.dim,)))
+        return torch.cat(outs, dim=-1)
+
+
+def linear_weight_shapes(irreps_in, irreps_out) -> List[Tuple[str, Tuple[int, int]]]:
+    """(name, [mul_in, mul_out]) of an equivariant linear map's weight blocks:
+    ``w_{ii}_{oi}`` for every input and output block of one irrep type."""
+    irreps_in, irreps_out = Irreps(irreps_in), Irreps(irreps_out)
+    return [(f"w_{ii}_{oi}", (mi, mo)) for oi, (mo, iro) in enumerate(irreps_out)
+            for ii, (mi, iri) in enumerate(irreps_in) if iri == iro]
+
+
+def linear_apply(irreps_in, irreps_out, x: torch.Tensor, weights: dict, biases: dict | None = None) -> torch.Tensor:
+    """Equivariant linear map: multiplicities mixed within each irrep type,
+    each output block scaled by 1/sqrt(fan_in); scalar (l=0) outputs take
+    the biases ``b_{oi}`` where given. ``weights`` keyed as
+    ``linear_weight_shapes`` names them."""
+    irreps_in, irreps_out = Irreps(irreps_in), Irreps(irreps_out)
+    in_slices = irreps_in.slices()
+    outs = []
+    for oi, (mo, iro) in enumerate(irreps_out):
+        acc, fan = None, 0
+        for ii, (mi, iri) in enumerate(irreps_in):
+            if iri == iro:
+                blk = x[..., in_slices[ii]].reshape(x.shape[:-1] + (mi, iri.dim))
+                term = torch.einsum("...ud,uv->...vd", blk, weights[f"w_{ii}_{oi}"])
+                acc = term if acc is None else acc + term
+                fan += mi
+        if acc is None:
+            acc = x.new_zeros(x.shape[:-1] + (mo, iro.dim))
+        else:
+            acc = acc / np.sqrt(fan)
+        if biases is not None and iro.l == 0 and f"b_{oi}" in biases:
+            acc = acc + biases[f"b_{oi}"][..., None]
+        outs.append(acc.reshape(acc.shape[:-2] + (mo * iro.dim,)))
+    return torch.cat(outs, dim=-1)

@@ -13,8 +13,9 @@ confidence model (crop and compaction per pose, or a shared receptor
 embedding). The evaluator's per-complex host steps are here too:
 ``derive_phase_plan`` (host numpy, the same tuples as the JAX package's),
 ``with_derived_plan`` (the CLIs' ``rec_phase_auto`` default) and the cross
-cap telemetry ``cross_overflow_stats``. ``score_confidence``'s
-``embed_full_receptor`` option is not ported.
+cap telemetry ``cross_overflow_stats``. ``sample`` takes the residue-level
+and the all-atom score models (the all-atom one runs no phase plan: its
+trunk reads the receptor atoms, which the plan does not compact).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from ..config import SamplerConfig, ScoreModelConfig
 from ..data.complex_graph import ComplexBatch
-from ..models.all_atom_model import crop_to_caps
+from ..models.all_atom_model import crop_to_caps, crops
 from ..ops.geometry import matrix_to_axis_angle, quaternion_to_matrix, rigid_transform_kabsch
 from ..ops.graph_builders import pairwise_dist, radius_mask
 from ..ops.poses import modify_conformer
@@ -453,7 +454,7 @@ def sample(model, batch: ComplexBatch, model_cfg: ScoreModelConfig, cfg: Sampler
                 traj.append(pos)
         return pos
 
-    plan = _phase_plan(cfg, n)
+    plan = _phase_plan(cfg, n) if not model_cfg.all_atoms else ()
     seg_batch, seg_cache = batch, rec_cache
     bounds = [s for s, _ in plan] + [n]
     pos = run(seg_batch, seg_cache, pos, 0, bounds[0])
@@ -469,7 +470,7 @@ def sample(model, batch: ComplexBatch, model_cfg: ScoreModelConfig, cfg: Sampler
 
 @torch.no_grad()
 def score_confidence(conf_model, batch: ComplexBatch, lig_pos=None, shared_receptor: bool = True,
-                     compact: bool = True) -> torch.Tensor:
+                     compact: bool = True, embed_full_receptor: bool = False) -> torch.Tensor:
     """Confidence of each pose at t=0: [B]; NaN scores come back as -1000.
 
     ``batch`` is the confidence model's view of the complexes (with receptor
@@ -479,10 +480,19 @@ def score_confidence(conf_model, batch: ComplexBatch, lig_pos=None, shared_recep
     (crop_res_cap, crop_atom_cap) buckets before the forward, so the
     receptor embedding too runs on the cropped subgraph (as in training and
     the reference). Otherwise, with ``shared_receptor``, the receptor is
-    embedded once and shared when every pose carries the same receptor."""
+    embedded once and shared when every pose carries the same receptor.
+    ``embed_full_receptor`` (with ``compact`` and ``shared_receptor``): the
+    JAX package's opt-in path, which embeds the full receptor once and
+    compacts the batch and that embedding for the trunk (the embeddings then
+    see the uncropped graph, unlike training)."""
     if lig_pos is not None:
         batch = batch.replace(lig_pos=lig_pos)
     b = batch.set_time(0.0, 0.0, 0.0)
-    b, cropped = crop_to_caps(conf_model.cfg, b) if compact else (b, False)
-    rec_cache = receptor_cache(conf_model, b, shared=True) if shared_receptor and not cropped else None
+    rec_cache = None
+    if compact and crops(conf_model.cfg, b):
+        if embed_full_receptor and shared_receptor:
+            rec_cache = receptor_cache(conf_model, b, shared=True)
+        b, rec_cache, _ = crop_to_caps(conf_model.cfg, b, rec_cache)
+    elif shared_receptor:
+        rec_cache = receptor_cache(conf_model, b, shared=True)
     return torch.nan_to_num(conf_model(b, rec_cache=rec_cache).confidence, nan=-1000.0)

@@ -67,6 +67,29 @@ def score_matching_loss(tr_pred, rot_pred, tor_pred, targets: ScoreTargets, batc
     return LossBreakdown(loss, tr_loss, rot_loss, tor_loss, tr_base, rot_base, tor_base)
 
 
+def sidechain_losses(sidechain_pred, rec_sidechain, rec_mask):
+    """Side-chain chi (circular) and backbone-vector regression losses of the
+    side-chain head, as masked means: (sidechain_loss, backbone_loss,
+    sidechain_base, backbone_base). ``rec_sidechain`` [B, N, 10]: chi1-4 in
+    turns ([0, 1), NaN where undefined), then the CA->N and CA->C unit
+    vectors."""
+    m = rec_mask.to(sidechain_pred.dtype)
+    chi, chi_pred = rec_sidechain[..., :4], sidechain_pred[..., :4]
+    defined = torch.isfinite(chi) & rec_mask[..., None]
+    zero = torch.zeros((), dtype=chi.dtype, device=chi.device)
+    chi_s, chi_p = torch.where(defined, chi, zero), torch.where(defined, chi_pred, zero)
+    diff = torch.abs(chi_p - chi_s)
+    diff = torch.minimum(diff, 1.0 - diff)  # angles are circular: a full turn is 1
+    n_def = torch.clamp(defined.sum().to(chi.dtype), min=1.0)
+    chi_base = torch.sum(chi_s**2 * defined) / n_def + 1e-4
+    sidechain_loss = torch.sum(diff**2 * defined) / n_def / chi_base
+    bb, bb_pred = rec_sidechain[..., 4:], sidechain_pred[..., 4:]
+    n_bb = torch.clamp(m.sum() * 6, min=1.0)
+    bb_base = torch.sum(bb**2 * m[..., None]) / n_bb + 1e-4
+    backbone_loss = torch.sum((bb_pred - bb) ** 2 * m[..., None]) / n_bb / bb_base
+    return sidechain_loss, backbone_loss, chi_base, bb_base
+
+
 def _bce_with_logits(logits, labels):
     """Binary cross-entropy on logits, elementwise: labels * -log sigmoid(x)
     + (1 - labels) * -log(1 - sigmoid(x)), each term as log(1 + exp(.))."""

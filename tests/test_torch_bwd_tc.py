@@ -252,14 +252,16 @@ def _ptxas(names_spills):
 
 
 def test_spill_gate_names_every_tensor_core_kernel():
-    """chip_smoke's spill gate finds the edge backward's per-edge kernel,
-    whose name holds TPWeightsTC only inside BwdArgsTC, and both products;
+    """chip_smoke's spill gate finds the edge backward's per-edge kernels (the
+    builds for output blocks of up to 3 and of up to 5 components), whose
+    names hold TPWeightsTC only inside BwdArgsTC, and both products;
     it fails where one of them is missing from the log or spills, and takes
     no note of a float32 kernel's spill."""
     import chip_smoke
 
     tpw = "PKfN3cbt11TPWeightsTCENS5_8TPTablesE"
     bwd = ["_ZN46_GLOBAL__N__a_13_tpconv_bwd_cu_b25tpconv_bwd_edge_tc_kernelENS_9BwdArgsTCE",
+           "_ZN46_GLOBAL__N__a_13_tpconv_bwd_cu_b26tpconv_bwd_edge_tc5_kernelENS_9BwdArgsTCE",
            "_ZN46_GLOBAL__N__a_13_tpconv_bwd_cu_b17tn_gemm_tc_kernelILi96ELb0EEEvNS_7OperandES1_iiPKiS3_Pfii",
            "_ZN46_GLOBAL__N__a_13_tpconv_bwd_cu_b17tn_gemm_tc_kernelILi96ELb1EEEvNS_7OperandES1_iiPKiS3_Pfii"]
     f32 = ("_ZN46_GLOBAL__N__a_13_tpconv_bwd_cu_b22tpconv_bwd_edge_kernelENS_7BwdArgsE", 40)

@@ -17,8 +17,10 @@
 * The config yaml (``yaml_io``) against PyYAML: the defaults' text equal to
   ``yaml.safe_dump``'s; each side reads the other's text to the same data,
   for drawn field values too; the refused constructs name their line.
-* The factory: every field the port does not implement is refused by name,
-  and ``config_from_reference_manifest`` equals the JAX one.
+* The factory: every field the port does not implement is refused by name
+  (``sh_lmax >= 3``), the fields refused before the port had them build a
+  model whose forward is finite, and ``config_from_reference_manifest``
+  equals the JAX one.
 * No module of the port imports jax, flax, msgpack, yaml or the JAX package.
 """
 
@@ -39,6 +41,7 @@ import yaml
 from hypothesis import HealthCheck, given, settings, strategies as st
 
 from confidence_bootstrapping_tpu import config as jconfig
+from confidence_bootstrapping_tpu.data import complex_graph as jcg
 from confidence_bootstrapping_tpu.models import all_atom_model as jaam
 from confidence_bootstrapping_tpu.models import factory as jfactory
 from confidence_bootstrapping_tpu.models.score_model import TensorProductScoreModel as JaxScoreModel
@@ -355,29 +358,40 @@ _REFUSED = [("old_score_model", True), ("separate_noise_schedule", True), ("use_
             ("no_aminoacid_identities", True), ("smooth_edges", True), ("parallel", 4),
             ("use_second_order_repr", True), ("tp_weights_layers", 3), ("depthwise_convolution", True),
             ("sidechain_pred", True), ("affinity_prediction", True), ("fixed_center_conv", False),
-            ("sh_lmax", 2), ("all_atoms", True)]
+            ("sh_lmax", 2), ("all_atoms", True), ("sh_lmax", 3)]
 
 
-# refused until the legacy models and the affinity heads were ported: now built (the legacy knobs pass
-# through the modern models, which do not read them, as in the JAX package)
-_LIFTED = {"old_score_model", "separate_noise_schedule", "use_old_atom_encoder", "no_aminoacid_identities",
-           "smooth_edges", "parallel", "affinity_prediction"}
+# what the port still refuses: harmonics of l >= 3 in the trunk (a later slice)
+_STILL_REFUSED = {("sh_lmax", 3)}
+# refused until the score-model remainder was ported
+_REMAINDER = {"use_second_order_repr", "tp_weights_layers", "depthwise_convolution", "sidechain_pred",
+              "fixed_center_conv", "sh_lmax", "all_atoms"}
 
 
 @pytest.mark.parametrize("field,value", _REFUSED)
 def test_get_model_refuses_fields_the_port_does_not_implement(field, value, monkeypatch):
+    """A field the port does not implement is refused by name; the others,
+    refused until the legacy models, the affinity heads and the score-model
+    remainder were ported, build (the all-atom one in score mode) and run a
+    finite forward on the CPU (the legacy knobs pass through the modern
+    models, which do not read them, as in the JAX package)."""
     cfg = config.ScoreModelConfig(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0,
                                   **{field: value})
-    if field not in _LIFTED:
+    if (field, value) in _STILL_REFUSED:
         with pytest.raises(ValueError, match=rf"{field}={value!r}"):
             factory.get_model(cfg, device="cpu")
         return
     install_jax_score_norms(monkeypatch)
     model = factory.get_model(cfg, device="cpu")
     assert not factory.unsupported_fields(cfg)
-    assert isinstance(model, legacy.OldTensorProductScoreModel if field == "old_score_model"
-                      else TensorProductScoreModel)
-    _, tb = both_batches(padded_1a0q(0), 2, t=0.3)
+    assert isinstance(model, {"old_score_model": legacy.OldTensorProductScoreModel,
+                              "all_atoms": AllAtomScoreModel}.get(field, TensorProductScoreModel))
+    if field in _REMAINDER:  # the small all-atom 1a0q complex (64 residues, 512 atoms)
+        from test_torch_confidence import small_complex
+
+        tb = port_batch(jcg.replicate_complex(small_complex()[0], 2).set_time(0.3, 0.3, 0.3))
+    else:
+        _, tb = both_batches(padded_1a0q(0), 2, t=0.3)
     assert all(torch.isfinite(t).all() for t in model(tb) if t is not None)
 
 
@@ -398,18 +412,18 @@ def test_get_model_builds_the_residue_level_confidence_mode_and_crop(field, valu
 
 
 def test_get_model_names_every_refused_field_and_builds_the_rest(tmp_path):
-    cfg = config.ScoreModelConfig(ns=8, nv=2, tp_weights_layers=1, parallel=2, dropout=0.3,
+    cfg = config.ScoreModelConfig(ns=8, nv=2, sh_lmax=3, parallel=2, dropout=0.3,
                                   confidence_dropout=0.2, c_alpha_max_neighbors=10, parallel_aggregators="mean")
     with pytest.raises(ValueError) as err:
         factory.get_model(cfg, device="cpu")
-    assert "tp_weights_layers=1" in str(err.value) and "parallel" not in str(err.value)  # parallel: ported
-    ok = dataclasses.replace(cfg, tp_weights_layers=2, parallel=1, num_conv_layers=2, num_prot_emb_layers=1)
+    assert "sh_lmax=3" in str(err.value) and "parallel" not in str(err.value)  # parallel: ported
+    ok = dataclasses.replace(cfg, sh_lmax=1, parallel=1, num_conv_layers=2, num_prot_emb_layers=1)
     assert isinstance(factory.get_model(ok, device="cpu"), TensorProductScoreModel)
     conf = config.confidence_model_config(ns=8, nv=2, num_conv_layers=2, lm_embedding_dim=0)
     assert isinstance(factory.get_model(conf, device="cpu"), AllAtomScoreModel)
     # a model_config.yml with a refused value fails loudly when loaded
-    config.save_yaml(dataclasses.replace(ok, tp_weights_layers=3), str(tmp_path / checkpoints.CONFIG_NAME))
-    with pytest.raises(ValueError, match="tp_weights_layers=3"):
+    config.save_yaml(dataclasses.replace(ok, sh_lmax=3), str(tmp_path / checkpoints.CONFIG_NAME))
+    with pytest.raises(ValueError, match="sh_lmax=3"):
         load_or_init_model(str(tmp_path), "last_model", device="cpu")
 
 

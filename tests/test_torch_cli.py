@@ -228,3 +228,22 @@ def test_unported_flags_and_devices_raise(files, tmp_path):
             dock.main(dock_argv(files, tmp_path)[:-2])
     with pytest.raises(RuntimeError, match="esm"):
         dock.main(["--protein_sequence", "MKT", "--ligand", "CCO", "--out_dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_dock_and_infer_with_an_all_atom_score_model(files, tmp_path, monkeypatch):
+    """A model directory of the all-atom model in score mode (lmax=2, the
+    ns=8 tiny widths) beside the all-atom confidence model: the CLIs
+    featurize receptor atoms because the confidence model is all-atom (as
+    the JAX CLIs decide it), sample with no phase plan and rerank."""
+    install_jax_tables(monkeypatch)
+    cfg = ScoreModelConfig(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0, all_atoms=True,
+                           sh_lmax=2)
+    save_model_dir(str(tmp_path / "aa_score"), cfg, get_model(cfg, device="cpu", seed=4))
+    argv = dock_argv(files, tmp_path / "dock", "--samples", "2", "--inference_steps", "2")
+    argv[argv.index("--model_dir") + 1] = str(tmp_path / "aa_score")
+    pos, conf = dock.main(argv)
+    assert pos.shape[0] == 2 and np.isfinite(pos).all() and np.isfinite(conf).all()
+    m = infer.main(["--data_dir", files["eval_data"], "--samples_per_complex", "2", "--inference_steps", "2",
+                    "--model_dir", str(tmp_path / "aa_score"), "--confidence_model_dir", files["conf"],
+                    "--limit_complexes", "1", "--out_dir", str(tmp_path / "run"), "--device", "cpu"])
+    assert m["failures"] == 0 and np.isfinite(m["rmsds_below_2"])

@@ -104,7 +104,7 @@ def test_compact_crop_matches_jax(crop, n_res, n_atoms):
     share its distance: tied keys) the same nearest ones survive."""
     jb, tb = _batches()
     jout, _, jstats = jaam.compact_crop(jb, None, crop, n_res, n_atoms)
-    tout, tstats = taam.compact_crop(tb, crop, n_res, n_atoms)
+    tout, _, tstats = taam.compact_crop(tb, None, crop, n_res, n_atoms)
     _compare_batches(tout, jout)
     for k, v in jstats.items():
         np.testing.assert_array_equal(tstats[k].numpy(), np.asarray(v), err_msg=k)
@@ -130,7 +130,7 @@ def test_confidence_forward_matches_jax(name):
     jb, tb = _batches()
     c = model.cfg
     jc, _, _ = jaam.compact_crop(jb, None, c.crop_beyond, c.crop_res_cap, c.crop_atom_cap)
-    tc, _ = taam.compact_crop(tb, c.crop_beyond, c.crop_res_cap, c.crop_atom_cap)
+    tc, _, _ = taam.compact_crop(tb, None, c.crop_beyond, c.crop_res_cap, c.crop_atom_cap)
     apply = jax.jit(jmodel.apply)
     for jbatch, tbatch in ((jc, tc), (jb, tb)):
         want, got = apply(variables, jbatch), model(tbatch)

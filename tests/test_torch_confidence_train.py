@@ -251,7 +251,7 @@ def test_all_atom_model_training_matches_jax(all_atom_case):
     against the JAX package's: tests/test_torch_confidence.py.)"""
     c = all_atom_case
     cfg = c["model"].cfg
-    batch, _ = taam.compact_crop(c["batch"], cfg.crop_beyond, cfg.crop_res_cap, cfg.crop_atom_cap)
+    batch = taam.compact_crop(c["batch"], None, cfg.crop_beyond, cfg.crop_res_cap, cfg.crop_atom_cap)[0]
     _check_training(c, batch, ATOM_W)
 
 

@@ -41,6 +41,9 @@ import test_torch_legacy as tl
 REL = 2e-4
 ARCHS = {
     "score": dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0, dropout=0.0),
+    # the trunk on e3nn's generic TP (no FasterTensorProduct): the second-order ladder
+    "score_second_order": dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0, dropout=0.0,
+                               use_second_order_repr=True),
     "all_atom": None,  # the confidence architecture at test_torch_confidence's "default" widths
     "legacy_score": tl.CASES["score"],
     "legacy_all_atom": tl.CASES["affinity"],
@@ -122,7 +125,7 @@ def _batch(arch: str):
     if arch.startswith("legacy"):
         key = "score" if arch == "legacy_score" else "affinity"
         return tl._batches(tl.CASES[key], tl.batch_size(key))
-    padded = small_complex()[0] if arch == "all_atom" else padded_1a0q(0)
+    padded = small_complex()[0] if arch in ("all_atom", "score_second_order") else padded_1a0q(0)
     return both_batches(padded, 2, lig_pos=perturbed_pose(padded, 2, seed=3, scale=1.0),
                         t=0.0 if arch == "all_atom" else 0.4)
 

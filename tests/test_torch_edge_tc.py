@@ -181,15 +181,18 @@ def test_wrappers_keep_the_float32_builds_at_ns48():
 def test_the_library_has_every_build_the_host_picks():
     """``edge_build`` may pick the tensor-core stage at each harmonic width
     ``sh_dim`` takes (4, 9, 20): the edge library instantiates its
-    tensor-core kernel at each, with and without the mask, and rec's has
-    its training variant's tensor-core kernel."""
+    tensor-core kernel at each, with and without the mask, for input blocks
+    of up to 3 and of up to 5 components (``tpconv_edge_tc5_kernel``), and
+    rec's has its training variant's tensor-core kernel."""
     csrc = os.path.join(os.path.dirname(tc.__file__), "..", "..", "csrc")
     with open(os.path.join(csrc, "tpconv_edge.cu")) as f:
         edge = f.read()
     for shd in (4, 9, 20):
         for dm in ("true", "false"):
-            assert f"launch_edges_tc<{shd}, {dm}>" in edge
+            assert f"launch_edges_tc<{shd}, {dm}, DI>" in edge  # for DI 3 and 5: launch_edges_tc_di<3>, <5>
             assert f"tpconv_edge_tc_kernel<{shd}, {dm}>" in edge  # counted in cbt_static_smem_bytes
+            assert f"tpconv_edge_tc5_kernel<{shd}, {dm}>" in edge
+    assert "launch_edges_tc_di<3>" in edge and "launch_edges_tc_di<5>" in edge
     with open(os.path.join(csrc, "tpconv_rec.cu")) as f:
         assert re.search(r"rec_tile<4, true, true>", f.read())
     with open(os.path.join(csrc, "tpconv_engine.cuh")) as f:

@@ -25,8 +25,12 @@ ns=48/nv=10 ladder) run the float32 builds at 32 edges a chunk, rec_g's
 too, and so do the training kernels' layers whose 64-edge layout
 does not fit; the edge backward runs at H up to 192, and on its
 tensor-core build (H <= 96) skips the masked edges it is told of, giving
-them exact zeros, bit for bit across launches, as row 4 is. Every library's
-shared-memory bytes equal the host mirror's. Tolerance:
+them exact zeros, bit for bit across launches, as row 4 is. The
+second-order irreps ladder's l = 2 node blocks (5-component input and output
+blocks in the CG stage, the X table and the backward's d_w) run on the
+edge-list kernel, rec_g with and without the mask, cross_g and the edge
+backward, and rec_g and cross_g at lmax=1 (their SHD=4 builds, the general
+route). Every library's shared-memory bytes equal the host mirror's. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
 than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
@@ -973,3 +977,165 @@ def test_dock_cli_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
     (pos, conf), (pos_cpu, conf_cpu) = out["cuda"], out["cpu"]
     assert np.isfinite(pos).all() and np.abs(pos - pos_cpu).max() <= 1e-2
     assert np.abs(conf - conf_cpu).max() <= 1e-3 * max(1.0, np.abs(conf_cpu).max())
+
+
+# ----------------------------------------------------------------------------- l = 2 node blocks (the second-order
+# irreps ladder) and the general route's lmax=1 (SHD=4) builds of rec_g and cross_g
+
+SECOND = ("32x0e", "32x0e + 6x1o + 6x2e", "32x0e + 6x1o + 6x2e + 6x1e + 6x2o",
+          "32x0e + 6x1o + 6x2e + 6x1e + 6x2o + 6x0o")  # ns=32, nv=6: 32 -> 80 -> 128 -> 134 -> 134
+SECOND_LAYERS = [(SECOND[0], SECOND[1]), (SECOND[1], SECOND[2]), (SECOND[2], SECOND[3]), (SECOND[3], SECOND[3])]
+
+
+@pytest.mark.parametrize("sum_k", [True, False])
+@pytest.mark.parametrize("layer,irreps_sh,dropout", [(1, SH1, False), (3, SH1, True), (1, SH2, True), (3, SH2, False),
+                                                      (3, tpconv_common.TOR_SH_IRREPS, True)])
+def test_edge_kernel_at_l2_node_blocks_matches_plain(dev, layer, irreps_sh, dropout, sum_k):
+    """Row 7 at the second-order ladder's layers (input blocks of 5
+    components in the CG stage; the torsion head's 20-wide harmonics too): on
+    whichever build the layer fits, the same bits on a second launch, masked
+    edges exactly zero."""
+    irreps_in, irreps_out = SECOND_LAYERS[layer]
+    if irreps_sh == tpconv_common.TOR_SH_IRREPS:
+        irreps_out = TOR_OUT
+    inputs, weights, dmask = _edge_inputs(_gen(31), irreps_in, irreps_sh, irreps_out, 11, 24, 96, dev, dropout)
+    tc, cm = tpconv_edge.edge_build(irreps_in, irreps_sh, irreps_out, 96, 96, 24)
+    before = tpconv_edge.fused_tpconv_edge.launches
+    got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, irreps_in, irreps_sh, irreps_out, dmask=dmask, sum_k=sum_k)
+    again = tpconv_edge.fused_tpconv_edge(*inputs, *weights, irreps_in, irreps_sh, irreps_out, dmask=dmask, sum_k=sum_k)
+    torch.cuda.synchronize()
+    assert tpconv_edge.fused_tpconv_edge.launches == before + 2
+    _close(got, tpconv_edge.tpconv_edge_plain(*inputs, *weights, irreps_in, irreps_sh, irreps_out, dmask, sum_k))
+    assert torch.equal(got, again), (tc, cm)
+    assert float(got[:3].abs().max()) == 0.0
+    if not sum_k:
+        assert float(got[~inputs[3]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layer,irreps_sh,hd", [(0, SH1, None), (1, SH1, "H"), (3, SH1, None), (3, SH1, "H"),
+                                                (3, SH1, 1), (1, SH2, None), (3, SH2, "H")])
+def test_rec_g_at_l2_node_blocks_and_lmax1_matches_plain(dev, layer, irreps_sh, hd):
+    """Row 8 with and without the dropout mask at the second-order ladder's
+    layers: lmax=1 runs the SHD=4 builds (the general route at lmax=1),
+    lmax=2 the SHD=9 ones; the widest layers take the float32 builds at
+    TM_WIDE edges a chunk. Bit for bit across launches, exact zeros for
+    receivers with no valid edge, counted apart with and without the mask."""
+    irreps_in, irreps_out = SECOND_LAYERS[layer]
+    g = _gen(33)
+    ns, B, N, K = 32, 2, 45, 24
+    D = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_in.dim
+    args = [t.to(dev) for t in (torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+                                torch.randint(0, N, (B, N, K), generator=g), torch.randn(B, N, K, ns, generator=g),
+                                torch.randn(B, ns, generator=g), torch.rand(B, N, K, generator=g) > 0.3)]
+    args[5][1, 8:16] = False
+    args += _weights(g, irreps_in, irreps_out, ns, dev, irreps_sh)
+    dmask = None if hd is None else ((torch.rand(B, N, K, 96 if hd == "H" else 1, generator=g) > 0.1).float()
+                                     / 0.9).to(dev)
+    before = (tpconv_g.fused_tpconv_rec_g.launches, tpconv_g.fused_tpconv_rec_g.dm_launches)
+    got = tpconv_g.fused_tpconv_rec_g(*args, irreps_in, irreps_sh, irreps_out, ns, dmask=dmask)
+    again = tpconv_g.fused_tpconv_rec_g(*args, irreps_in, irreps_sh, irreps_out, ns, dmask=dmask)
+    torch.cuda.synchronize()
+    n = (2, 0) if dmask is None else (0, 2)
+    assert (tpconv_g.fused_tpconv_rec_g.launches, tpconv_g.fused_tpconv_rec_g.dm_launches) == (before[0] + n[0],
+                                                                                               before[1] + n[1])
+    _close(got, tpconv_g.tpconv_rec_g_plain(*args, irreps_in, irreps_sh, irreps_out, ns, dmask))
+    assert torch.equal(got, again)
+    assert float(got[1, 8:16].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layer,irreps_sh,B,L,N,K", [(0, SH1, 2, 24, 512, 128), (1, SH1, 2, 24, 300, 32),
+                                                     (3, SH1, 32, 24, 512, 128), (3, SH1, 3, 7, 50, 1),
+                                                     (1, SH2, 2, 24, 256, 64), (3, SH2, 2, 13, 19, 5)])
+def test_cross_g_at_l2_node_blocks_and_lmax1_matches_plain(dev, layer, irreps_sh, B, L, N, K):
+    """Row 9 at the second-order ladder's layers, lmax=1 (SHD=4: the ligand
+    <- receptor lists of the residue-level model's general route, K up to
+    the 1a0q bucket's cap 128) and lmax=2; bit for bit across launches."""
+    irreps_in, irreps_out = SECOND_LAYERS[layer]
+    g = _gen(35)
+    ns = 32
+    D = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out).irreps_in.dim
+    args = [t.to(dev) for t in (torch.randn(B, L, D, generator=g), torch.randn(B, L, 3, generator=g) * 2,
+                                torch.randn(B, N, D, generator=g), torch.randn(B, N, 3, generator=g) * 4,
+                                torch.randint(0, N, (B, L, K), generator=g), torch.randn(B, L, K, ns, generator=g),
+                                torch.rand(B, L, K, generator=g) > 0.3)]
+    args[6][-1] = False
+    args += _weights(g, irreps_in, irreps_out, ns, dev, irreps_sh)
+    before = tpconv_g.fused_tpconv_cross_g.launches
+    got = tpconv_g.fused_tpconv_cross_g(*args, irreps_in, irreps_sh, irreps_out, ns)
+    again = tpconv_g.fused_tpconv_cross_g(*args, irreps_in, irreps_sh, irreps_out, ns)
+    torch.cuda.synchronize()
+    assert tpconv_g.fused_tpconv_cross_g.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, tpconv_g.tpconv_cross_g_plain(*args, irreps_in, irreps_sh, irreps_out, ns))
+    assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layer,irreps_sh,T,hd", [(1, SH1, 3000, "H"), (3, SH1, 5000, 1), (3, SH1, 333, None),
+                                                  (1, SH2, 2000, "H"), (3, SH2, 700, None),
+                                                  (3, tpconv_common.TOR_SH_IRREPS, 500, "H")])
+def test_edge_bwd_at_l2_node_blocks_matches_plain(dev, layer, irreps_sh, T, hd):
+    """Row 10 at the second-order ladder's layers (d_w over output blocks of
+    5 components, d_sender over input blocks of 5): against the plain
+    version's autograd, bit for bit across launches, masked edges zero."""
+    irreps_in, irreps_out = SECOND_LAYERS[layer]
+    if irreps_sh == tpconv_common.TOR_SH_IRREPS:
+        irreps_out = TOR_OUT
+    g = _gen(37)
+    F, H = 96, 96
+    tp = WeightedTensorProduct(irreps_in, irreps_sh, irreps_out)
+    attr, send = torch.randn(T, F, generator=g), torch.randn(T, tp.irreps_in.dim, generator=g)
+    sh = torch.randn(T, tpconv_common.sh_dim(irreps_sh), generator=g)
+    mask = torch.rand(T, generator=g) >= 0.3
+    cot = torch.randn(T, tp.irreps_out.dim, generator=g) * mask[:, None]
+    dmask = None if hd is None else (torch.rand(T, H if hd == "H" else 1, generator=g) > 0.1).float() / 0.9
+    W = tp.weight_numel
+    weights = [(torch.randn(s, generator=g) * 0.2).to(dev) for s in ((F, H), (H,), (H, W), (W,))]
+    to = lambda t: None if t is None else t.to(dev).contiguous()
+    ins = (to(attr), to(send), to(sh), to(cot), to(dmask), *weights, irreps_in, irreps_sh, irreps_out)
+    mask = mask.to(dev)
+    got = tpconv_bwd.edge_bwd(*ins, valid=mask)
+    again = tpconv_bwd.edge_bwd(*ins, valid=mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, (a, b) in enumerate(zip(got, tpconv_bwd.edge_bwd_plain(*ins))):
+        _close(a, b, REL if i < 3 else SUM_REL)
+    for a in got[:3]:
+        assert float(a[~mask].abs().max()) == 0.0
+
+
+def test_second_order_layers_take_the_general_kernels(dev):
+    """A TPConv of the second-order ladder at lmax=1 runs the general route on
+    the card: rec_g and cross_g at SHD=4, the edge-list kernel for sums and
+    per-edge messages (no ladder kernel), pb and cross_rev declining; each
+    within the tolerance of the same layer's CPU plain version."""
+    from confidence_bootstrapping_tpu_torch.models.layers import TPConv
+
+    layer = TPConv(SECOND[3], SH1, SECOND[3], 96, hidden_features=96, residual=True)
+    assert layer.route == "general"
+    g = _gen(39)
+    B, N, K, L, ns = 2, 40, 24, 13, 32
+    node = torch.randn(B, N, 134, generator=g)
+    pos = torch.randn(B, N, 3, generator=g) * 4
+    nbr = torch.randint(0, N, (B, N, K), generator=g)
+    emb = torch.randn(B, N, K, ns, generator=g)
+    sig = torch.randn(B, ns, generator=g)
+    mask = torch.rand(B, N, K, generator=g) > 0.3
+    lig, lpos = torch.randn(B, L, 134, generator=g), torch.randn(B, L, 3, generator=g)
+    idx, cmask = torch.randint(0, N, (B, L, 16), generator=g), torch.rand(B, L, 16, generator=g) > 0.2
+    cemb = torch.randn(B, L, 16, ns, generator=g)
+    cpu = [layer.conv_rec(0, node, pos, nbr, emb, sig, mask)[0],
+           layer.conv_cross(0, lig, lpos, node, pos, idx, cemb, cmask, ns)[0]]
+    assert layer.conv_cross_rev(0, 0, lig, lpos, node, pos, idx, cemb, cmask, ns) is None
+    layer.to(dev)
+    to = lambda *ts: [t.to(dev) for t in ts]
+    counters = (tpconv_g.fused_tpconv_rec_g, tpconv_g.fused_tpconv_cross_g, tpconv_edge.fused_tpconv_edge,
+                tpconv_rec.fused_tpconv_rec, tpconv_v3.fused_tpconv_nbr)
+    before = [c.launches for c in counters]
+    got = [layer.conv_rec(0, *to(node, pos, nbr, emb, sig, mask))[0],
+           layer.conv_cross(0, *to(lig, lpos, node, pos, idx, cemb, cmask), ns)[0]]
+    s_, _ = layer.conv_nbr(0, *to(lig[:, None].expand(B, L, L, 134), torch.randn(B, L, L, 4, generator=g),
+                                  torch.randn(B, L, L, 96, generator=g), torch.rand(B, L, L, generator=g) > 0.5))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+    for a, b in zip(got, cpu):
+        _close(a, b)

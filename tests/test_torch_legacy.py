@@ -195,8 +195,9 @@ def test_legacy_sample_and_score_confidence_match_jax(monkeypatch):
 def test_factory_dispatches_the_legacy_models():
     for key, cls in (("score", legacy.OldTensorProductScoreModel), ("aa_confidence", legacy.OldAllAtomScoreModel)):
         assert type(factory.get_model(ScoreModelConfig(**CASES[key]), device="cpu")) is cls
-    with pytest.raises(ValueError, match="use_second_order_repr"):
-        factory.get_model(ScoreModelConfig(**dict(RES, use_second_order_repr=True)), device="cpu")
+    # the second-order irreps ladder, refused before the port took l = 2 node blocks: built
+    second = factory.get_model(ScoreModelConfig(**dict(RES, use_second_order_repr=True)), device="cpu")
+    assert type(second) is legacy.OldTensorProductScoreModel and "2e" in second.irrep_seq[1]
 
 
 def test_legacy_edge_routes():

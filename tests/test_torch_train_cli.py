@@ -334,3 +334,25 @@ def test_unported_flags_and_devices_raise(files, tmp_path, monkeypatch):
                  lambda: confidence_train.main(conf_base[:-2])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("overlay", [dict(all_atoms=True), dict(sh_lmax=2), dict(use_second_order_repr=True),
+                                     dict(depthwise_convolution=True), dict(tp_weights_layers=1),
+                                     dict(tp_weights_layers=3), dict(sidechain_pred=True),
+                                     dict(fixed_center_conv=False)], ids=lambda o: "-".join(map(str, o.items())))
+def test_train_cli_takes_the_score_model_remainder(overlay, files, tmp_path, monkeypatch):
+    """``cli.train --config`` with each configuration the port refused before
+    the score-model remainder (the all-atom model in score mode on all-atom
+    complexes, as the JAX train CLI builds its datasets for it): one epoch,
+    a finite loss, a model directory of that configuration that loads back."""
+    install_jax_tables(monkeypatch)
+    cfg = dict(TINY, **overlay)
+    (tmp_path / "cfg.yml").write_text(yaml.dump(cfg))
+    argv = _train_argv(files, tmp_path / "wd", "--n_epochs", "1")
+    argv[argv.index("--config") + 1] = str(tmp_path / "cfg.yml")
+    state, history = train.main(argv)
+    assert len(history) == 1 and np.isfinite(history[0]["train"]["loss"])
+    model, got = load_or_init_model(str(tmp_path / "wd"), "last_model", device="cpu")
+    assert got == ScoreModelConfig(**{**TINY, **overlay}) == state.model.cfg
+    for n, p in model.named_parameters():
+        assert torch.equal(p, dict(state.model.named_parameters())[n]), n
