@@ -205,11 +205,12 @@ Phases (each one fails the script when it fails):
      the card's name and power limit.
  16. the score-model remainder: phase 5's score model with one field changed
      each, seeded, full width on 1a0q: (A) the all-atom model in score mode
-     at lmax=2 with the 3183 seeded atoms, (B) the residue-level model at
-     lmax=2, (C) the second-order irreps ladder at lmax=1 (l = 2 node
-     blocks). Per path: each layer's route, builds and shared-memory bytes; a
-     B=1 forward card against CPU; a warm and a timed B=32 20-step sample
-     (poses/s; the launches of rec_g, cross_g and the edge-list kernel
+     at lmax=2 with the 3183 seeded atoms and 3 trunk layers (every layout
+     of the 5-layer trunk), (B) the residue-level model at lmax=2, (C) the
+     second-order irreps ladder at lmax=1 (l = 2 node blocks). Per path: each
+     layer's route, builds and shared-memory bytes; a B=1 forward card
+     against CPU; a B=32 20-step sample, timed after a warm-up at C, its
+     first run at A and B (poses/s; the launches of rec_g, cross_g and the edge-list kernel
      against the config; no plain version called on the card), its poses
      reranked by phase 6's model (ms; A also with ``embed_full_receptor``);
      every kernel call of one sample replayed through kernel and plain
@@ -220,11 +221,29 @@ Phases (each one fails the script when it fails):
      3-layer edge MLPs, the side-chain head): a B=1 forward card against CPU,
      a B=16 forward's launches and one training step. Every line carries the
      card's name and power limit.
+ 17. sh_lmax = 3 (16-wide harmonics; the JAX package's route: every kNN and
+     cross group gathers its senders and runs the edge-list kernel, row 7, or
+     in training the differentiable edge op, row 11 over row 10; no rec_g,
+     cross_g or rec training op): the torsion head's refusal (the JAX
+     package's KeyError: 5); (D) phase 5's score model with ``sh_lmax: 3,
+     no_torsion: true`` on phase 16's flow (builds, a B=1 forward card
+     against CPU, the timed B=32 20-step sample and its launches, the rerank
+     by phase 6's model, every call of a sample replayed and timed, 3 B=16
+     training steps and one step's calls replayed and timed; every
+     edge-list call on a tensor-core build, masked per-edge messages exactly
+     zero), a B=2 training step card against CPU (phase 7's check); (E)
+     phase 6's confidence architecture at ``sh_lmax: 3`` reranking (D)'s
+     poses (phase 6's check: ms, launches, card against CPU on 2, its calls
+     replayed); (F) the second-order ladder with ``sh_lmax: 3, no_torsion:
+     true`` on phase 16's flow as (D), its replays untimed (the float32 and
+     5-wide SHD=16 builds, which only (F) reaches), and a B=2 training step
+     card against CPU. Every line carries the card's name and power limit.
 Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
 phase 12's rec_g with the mask, per sample and per training step of phase
-16's path C for the rows named ", path C"; ``bound_ms`` the tensor-core bound,
+16's path C for the rows named ", path C" and of phase 17's (D) for those
+named ", sh_lmax=3 (D)"; ``bound_ms`` the tensor-core bound,
 ``bound_fp32_ms`` the float32 one), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -255,7 +274,7 @@ TC_KERNELS = {"tpconv_rec": ("17tpconv_rec_kernel", "23tpconv_rec_dm_tc_kernel")
               "tpconv_cross": ("22tpconv_cross_tc_kernel",),
               "tpconv_cross_g": tuple(f"24tpconv_cross_g_tc_kernelILi{shd}ELi{di}E" for shd in (4, 9) for di in (3, 5)),
               "tpconv_edge": tuple(f"{k}ILi{shd}ELb{dm}E" for k in ("21tpconv_edge_tc_kernel", "22tpconv_edge_tc5_kernel")
-                                   for shd in (4, 9, 20) for dm in (0, 1)),
+                                   for shd in (4, 9, 16, 20) for dm in (0, 1)),
               "tpconv_bwd": ("25tpconv_bwd_edge_tc_kernel", "26tpconv_bwd_edge_tc5_kernel", "17tn_gemm_tc_kernelILi96ELb0E",
                              "17tn_gemm_tc_kernelILi96ELb1E")}
 KERNEL_RTOL = 2e-4  # max |kernel - plain| <= KERNEL_RTOL * max(1, max |plain|)
@@ -760,9 +779,12 @@ def expected_conf_launches(model) -> dict:
     """Kernel launches of one confidence forward: per embedding layer and
     per trunk layer but the last, the receptor and atom kNN groups on rec_g;
     per trunk layer, the ligand <- receptor and ligand <- atom groups on
-    cross_g."""
-    return {"tpconv_rec_g": 2 * (len(model.rec_emb_layers) + len(model.conv_layers) - 1),
-            "tpconv_cross_g": 2 * len(model.conv_layers)}
+    cross_g. On the "edge" route (sh_lmax=3) each of these groups gathers
+    its senders and runs the edge-list kernel instead."""
+    rec, cross = 2 * (len(model.rec_emb_layers) + len(model.conv_layers) - 1), 2 * len(model.conv_layers)
+    if model.conv_layers[0].route == "edge":
+        return {"tpconv_edge": rec + cross}
+    return {"tpconv_rec_g": rec, "tpconv_cross_g": cross}
 
 
 def near_crystal_poses(padded: dict, n: int, seed: int = 2):
@@ -784,17 +806,70 @@ def near_crystal_poses(padded: dict, n: int, seed: int = 2):
     return pos.float()
 
 
+def rerank_check(model, padded: dict, poses, what: str, timed: bool = True) -> tuple:
+    """A confidence model's rerank of ``poses`` [B, L, 3] on the card
+    (``score_confidence`` on ``padded`` replicated B times): a warm-up, the
+    timed rerank (launches against ``expected_conf_launches``, no plain
+    version called), the card against the CPU on 2 of the poses within
+    MODEL_RTOL, then every kernel call of the rerank recorded and replayed
+    through kernel and plain version (bit for bit, masked per-edge messages
+    exactly zero; timed with ``timed``). Every layer of the ns=24 model takes
+    the tensor cores for its cross lists, and on the "edge" route for every
+    list. -> (the rerank as a function, its confidences, its seconds, the
+    launches of its kernels, the replay's JSON rows)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
+
+    batch = replicate_complex(padded, len(poses), device=poses.device)
+    run = lambda: score_confidence(model, batch, lig_pos=poses)  # noqa: E731
+    t0 = time.perf_counter()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conf, launches, plain = counted_all(run)
+    secs = time.perf_counter() - t0
+    names = tuple(expected_conf_launches(model))
+    want = {name: 0 for name in all_counters()}
+    want.update(expected_conf_launches(model))
+    print(f"{what}: rerank of {len(poses)} poses: warm-up {warm:.3f} s, timed {secs:.4f} s ({secs * 1e3:.1f} ms, "
+          f"{len(poses) / secs:.3f} poses/s); confidences {conf.min().item():.4f} to {conf.max().item():.4f}; "
+          f"launches {nonzero(launches)}, expected from the config {nonzero(want)}; plain versions called {plain}",
+          flush=True)
+    if launches != want or any(plain.values()):
+        fail(f"{what}: the rerank did not run every TP-conv through its kernel")
+    if conf.shape != (len(poses),) or not torch.isfinite(conf).all():
+        fail(f"{what}: confidences are not finite")
+    ref = score_confidence(get_model(model.cfg, device="cpu", seed=0), replicate_complex(padded, 2, device="cpu"),
+                           lig_pos=poses[:2].cpu())
+    err, peak = (conf[:2].cpu() - ref).abs().max().item(), ref.abs().max().item()
+    print(f"{what}: card vs CPU on 2 poses: max_abs_err {err:.3g} (max |cpu| {peak:.3g}, tolerance {MODEL_RTOL} x "
+          f"max(1, max |cpu|))", flush=True)
+    if not err <= MODEL_RTOL * max(1.0, peak):
+        fail(f"{what}: the card disagrees with the CPU")
+
+    raw = record_calls(run, names)
+    torch.cuda.synchronize()
+    calls = edge_calls(raw) if "tpconv_edge" in raw else raw
+    tc = "tpconv_edge" if "tpconv_edge" in raw else "tpconv_cross_g"
+    check_tc_builds({tc: calls[tc]}, what)
+    check_masked_messages([c for c in raw.get("tpconv_edge", ()) if not c[1].get("sum_k", True)])
+    with torch.no_grad():
+        rows = replay(calls, {k: v for k, v in remainder_kernels().items() if k in names}, bitwise=names, timed=timed)
+    return run, conf, secs, {k: launches[k] for k in names}, rows
+
+
 def confidence_phase(dev, final_pos) -> tuple:
     """Phase 6: the confidence rerank (see the module docstring). Returns
     (the replay's JSON rows, the launches of the timed forward, (the
     confidence model, its B_POSES batch of 1a0q, the confidences of phase
     5's poses) for phases 8 and 10)."""
-    import torch
-
     from confidence_bootstrapping_tpu_torch.config import confidence_model_config
     from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
     from confidence_bootstrapping_tpu_torch.models.all_atom_model import AllAtomScoreModel, compact_crop
-    from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_g
     from confidence_bootstrapping_tpu_torch.sampler.sampling import score_confidence
 
     cfg = confidence_model_config(lm_embedding_dim=LM_DIM)
@@ -823,47 +898,7 @@ def confidence_phase(dev, final_pos) -> tuple:
     print(f"crop per pose: kept residues {st['kept_res'].min()}-{st['kept_res'].max()} (overflow "
           f"{st['res_overflow'].max()}), kept atoms {st['kept_atoms'].min()}-{st['kept_atoms'].max()} (overflow "
           f"{st['atom_overflow'].max()})", flush=True)
-    run = lambda: score_confidence(model, batch, lig_pos=poses)
-    t0 = time.perf_counter()
-    run()  # warm-up
-    torch.cuda.synchronize()
-    print(f"confidence warm-up: {time.perf_counter() - t0:.3f} s", flush=True)
-    counters = {"tpconv_rec_g": tpconv_g.fused_tpconv_rec_g, "tpconv_cross_g": tpconv_g.fused_tpconv_cross_g}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    conf = run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"confidence forward: {secs:.4f} s, {B_POSES / secs:.3f} poses/s; confidences "
-          f"{conf.min().item():.4f} to {conf.max().item():.4f}", flush=True)
-    if conf.shape != (B_POSES,) or not torch.isfinite(conf).all():
-        fail("confidences are not finite")
-    want = expected_conf_launches(model)
-    print(f"launches in the timed forward: {launches}; expected from the config: {want}", flush=True)
-    if launches != want:
-        fail("the confidence forward did not run every lmax=2 TP-conv through its kernel")
-
-    # the card against the port's CPU path on 2 poses
-    cpu_model = AllAtomScoreModel(cfg, device="cpu", seed=0)
-    ref = score_confidence(cpu_model, replicate_complex(padded, 2, device="cpu"), lig_pos=poses[:2].cpu())
-    err, peak = (conf[:2].cpu() - ref).abs().max().item(), ref.abs().max().item()
-    print(f"confidence card vs CPU on 2 poses: max_abs_err {err:.3g} (max |cpu| {peak:.3g}, tolerance {MODEL_RTOL} x "
-          f"max(1, max |cpu|))", flush=True)
-    if not err <= MODEL_RTOL * max(1.0, peak):
-        fail("confidence: the card disagrees with the CPU")
-
-    calls = record_calls(run, CONF_KERNELS)
-    torch.cuda.synchronize()
-    check_tc_builds({"tpconv_cross_g": calls["tpconv_cross_g"]}, "confidence forward")
-    kernels = {
-        "tpconv_rec_g": (tpconv_g.fused_tpconv_rec_g, tpconv_g.tpconv_rec_g_plain, rec_work,
-                         "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:457"),
-        "tpconv_cross_g": (tpconv_g.fused_tpconv_cross_g, tpconv_g.tpconv_cross_g_plain, cross_g_work,
-                           "confidence_bootstrapping_tpu/ops/pallas/tpconv_g.py:547"),
-    }
-    rows = replay(calls, kernels, bitwise=("tpconv_rec_g", "tpconv_cross_g"))
+    run, _, secs, launches, rows = rerank_check(model, padded, poses, "confidence forward")
     profile_run(run, secs * 1e3)
     return rows, launches, (model, batch, conf_sampled)
 
@@ -1273,27 +1308,23 @@ def bwd_stages(bwd_calls: list) -> dict:
             "reduction_bound_ms": bound_tc, "reduction_bound_fp32_ms": bound_fp32}
 
 
-def train_phase(dev) -> tuple:
-    """Phase 7: training steps of the full-width score model (see the module
-    docstring). Returns (JSON rows, launches per step by kernel)."""
-    import dataclasses
-
+def step_card_vs_cpu(dev, cfg0, padded, what: str) -> None:
+    """One training step of the score model of ``cfg0`` (seed 0, dropout 0)
+    at B=2 on ``padded``, the noise drawn once on the card: its loss, every
+    gradient and the batch statistics it leaves, card against CPU, each
+    within MODEL_RTOL x max(1, max |cpu|)."""
     import torch
 
-    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.config import TrainConfig
     from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
-    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
-    from confidence_bootstrapping_tpu_torch.train import diffusion, losses, train_loop
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+    from confidence_bootstrapping_tpu_torch.train import diffusion, losses
 
-    padded = host_complex(LM_DIM)[0]
     tcfg = TrainConfig()
-
-    # the card against the CPU: one step's loss, gradients and batch statistics at dropout 0
-    cfg0 = ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=0.0)
     draws = None
     res = []
     for device in (dev, torch.device("cpu")):  # the card first: it builds the so3/torus tables
-        model = TensorProductScoreModel(cfg0, device=device, seed=0)
+        model = get_model(cfg0, device=device, seed=0)
         model.requires_grad_(True)
         batch = replicate_complex(padded, 2, device=device)
         if draws is None:
@@ -1311,11 +1342,28 @@ def train_phase(dev) -> tuple:
     checks = [("loss", lg, lc)] + [(f"grad {n}", gg[n], gc[n]) for n in gc] + [(f"stat {n}", bg[n], bc[n]) for n in bc]
     checks = [c for c in checks if c[2].numel()]  # batch norms of outputs with no scalars have empty statistics
     worst = max(((g - w).abs().max().item() / (MODEL_RTOL * max(1.0, w.abs().max().item())), n) for n, g, w in checks)
-    print(f"training step card vs CPU (B=2, dropout 0): loss {lg.item():.6f} vs {lc.item():.6f}; "
+    print(f"{what} card vs CPU (B=2, dropout 0): loss {lg.item():.6f} vs {lc.item():.6f}; "
           f"{len(gc)} gradients and {len(bc)} batch statistics; worst error {worst[0]:.3g} of its tolerance "
           f"({MODEL_RTOL} x max(1, max |cpu|)) at {worst[1]}", flush=True)
     if not (worst[0] <= 1.0 and torch.isfinite(lg)):
-        fail("training step: the card disagrees with the CPU")
+        fail(f"{what}: the card disagrees with the CPU")
+
+
+def train_phase(dev) -> tuple:
+    """Phase 7: training steps of the full-width score model (see the module
+    docstring). Returns (JSON rows, launches per step by kernel)."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    padded = host_complex(LM_DIM)[0]
+    tcfg = TrainConfig()
+
+    # the card against the CPU: one step's loss, gradients and batch statistics at dropout 0
+    step_card_vs_cpu(dev, ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=0.0), padded, "training step")
 
     # timed steps at TrainConfig().batch_size (16) with dropout
     cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM)
@@ -3655,6 +3703,7 @@ LEGACY_DIR = os.path.join(ROOT, "build", "legacy")  # reference files, converted
 LEGACY_SCORE = dict(ns=48, nv=10, num_conv_layers=6, sh_lmax=2)  # DiffDock's published score model
 LEGACY_B, LEGACY_CPU_STEPS = 8, 2  # infer's batch of poses; the card-vs-CPU sample's steps
 AFF_SAMPLES, AFF_BATCH, AFF_BATCHES, AFF_CPU_B = 4, 16, 2, 8  # the affinity runs' cache, batch, steps; CPU check batch
+AFF_CPU_LAYERS = 4  # the card-vs-CPU step's trunk depth: 24 -> 42 -> 60 -> 84 -> 84, every layout of the 5-layer model
 
 
 def reference_manifest(cfg) -> dict:
@@ -4089,7 +4138,7 @@ def legacy_run(dev, score_model, conf_model, b0, final_pos, rerank) -> None:
 
     # one step of the affinity model at dropout 0, card against CPU, and its training-kernel calls replayed
     aff_cfg = confidence_model_config(lm_embedding_dim=0, old_score_model=True, affinity_prediction=True, parallel=2,
-                                      dropout=0.0, confidence_dropout=0.0)
+                                      dropout=0.0, confidence_dropout=0.0, num_conv_layers=AFF_CPU_LAYERS)
     batch = replicate_complex(padded_aa, AFF_CPU_B, device=dev).replace(
         lig_pos=near_crystal_poses(padded_aa, AFF_CPU_B, seed=6).to(dev)).set_time(0.0, 0.0, 0.0)
     labels = dict(y=(np.arange(AFF_CPU_B) % 3 == 0).astype(np.float32),
@@ -4223,12 +4272,16 @@ def check_tc_spills(spills: dict) -> None:
 
 
 REM_PATHS = {  # the slice's kernel paths: phase 5's score model (seeded, full width) with these fields
-    "A": dict(all_atoms=True, sh_lmax=2),  # the all-atom model in score mode, on 1a0q with its seeded atoms
+    # the all-atom model in score mode, on 1a0q with its seeded atoms; 3 trunk layers hold every layout of the 5-layer
+    # trunk (its 74 -> 74 layers with 9 groups and the last layer's 3), which keeps phase 17 within the script's time
+    "A": dict(all_atoms=True, sh_lmax=2, num_conv_layers=3),
     "B": dict(sh_lmax=2),  # the residue-level model at lmax=2
     "C": dict(use_second_order_repr=True),  # the second-order irreps ladder at lmax=1: l = 2 node blocks
 }
-REM_PLAIN = {  # the plain configurations: layers no kernel takes, or a head of their own
-    "depthwise": dict(depthwise_convolution=True), "tp_weights_layers 3": dict(tp_weights_layers=3),
+REM_PLAIN = {  # the plain configurations: layers no kernel takes, or a head of their own; the two plain trunks at 3
+    # layers (74 -> 74 among them: every layout of phase 5's 5-layer trunk), which keeps phase 17 within the script's time
+    "depthwise": dict(depthwise_convolution=True, num_conv_layers=3),
+    "tp_weights_layers 3": dict(tp_weights_layers=3, num_conv_layers=3),
     "sidechain": dict(sidechain_pred=True),
 }
 REM_TIMED = "C"  # the path whose replays are timed: rows 7-12 at l = 2 node blocks
@@ -4247,7 +4300,9 @@ def expected_remainder_launches(model, steps: int) -> dict:
     cross_g and, but for the last, the receptor kNN group on rec_g and the
     receptor <- ligand lists on the edge-list kernel (per edge); the all-atom
     model's residue and atom kNN groups on rec_g and its two ligand cross
-    groups on cross_g (every other group takes the plain TP). No ladder kernel."""
+    groups on cross_g (every other group takes the plain TP). No ladder
+    kernel. On the "edge" route (sh_lmax=3) the rec_g and cross_g groups
+    gather their senders and run the edge-list kernel instead."""
     want = {name: 0 for name in all_counters()}
     P, C = len(model.rec_emb_layers), len(model.conv_layers)
     if model.cfg.all_atoms:
@@ -4255,6 +4310,9 @@ def expected_remainder_launches(model, steps: int) -> dict:
     else:
         want.update(tpconv_rec_g=P + (C - 1) * steps, tpconv_cross_g=C * steps,
                     tpconv_edge=(len(model.lig_emb_layers) + 2 * C - 1) * steps)
+    if model.conv_layers[0].route == "edge":
+        want["tpconv_edge"] += want["tpconv_rec_g"] + want["tpconv_cross_g"]
+        want.update(tpconv_rec_g=0, tpconv_cross_g=0)
     return want
 
 
@@ -4264,7 +4322,9 @@ def expected_remainder_train_launches(model) -> dict:
     (``expected_conf_train_launches``) groups with rec_g's masked variant for
     the kNN groups, plus the center convolution and, where its harmonics
     take a kernel, the torsion convolution on the edge-list kernel; layers on
-    no kernel route (``TPConv.route`` None) launch nothing."""
+    no kernel route (``TPConv.route`` None) launch nothing. On the "edge"
+    route (sh_lmax=3) the kNN groups gather their senders and run the
+    differentiable edge-list op."""
     want = {name: 0 for name in all_counters()}
     routed = lambda mod: mod is not None and mod.route is not None  # noqa: E731
     heads = int(routed(getattr(model, "final_conv", None))) + int(routed(getattr(model, "tor_bond_conv", None)))
@@ -4278,6 +4338,8 @@ def expected_remainder_train_launches(model) -> dict:
         edge = 2 * (len(model.lig_emb_layers) + C) + C + (C - 1)
         rec = P + C - 1
     kind = "tpconv_rec_dm" if model.conv_layers[0].ladder else "tpconv_rec_g_dm"
+    if model.conv_layers[0].route == "edge":
+        edge, rec = edge + rec, 0
     want.update(tpconv_edge=edge + heads, tpconv_bwd=edge + heads + rec, **{kind: rec})
     return want
 
@@ -4301,9 +4363,9 @@ def layout_bytes(what: str, mod, d, rt: int, tc_cm: tuple) -> str:
 def layer_builds(model, K_cross: int, K_edge: int) -> list:
     """One line per TP-conv layer of ``model``: its route and, on a kernel
     route, the build and shared-memory bytes of rec_g (with and without the
-    dropout mask), cross_g at K_cross senders a receiver and the edge-list
-    kernel at K_edge edges a row (``pick_build`` raises where none fits, as
-    the launch would)."""
+    dropout mask) and cross_g at K_cross senders a receiver where the layer
+    takes them (the general route), and the edge-list kernel at K_edge edges
+    a row (``pick_build`` raises where none fits, as the launch would)."""
     from confidence_bootstrapping_tpu_torch.models.layers import TPConv
     from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_common as tc, tpconv_edge, tpconv_g
     from confidence_bootstrapping_tpu_torch.ops.irreps import Irreps
@@ -4419,11 +4481,12 @@ def card_vs_cpu_forward(dev, cfg, padded, what: str) -> None:
             fail(f"{what}: the card disagrees with the CPU ({name})")
 
 
-def remainder_train(model, batch, what: str, timed: bool) -> tuple:
+def remainder_train(model, batch, what: str, timed: bool, require_tc: bool = False) -> tuple:
     """One path's training: a warm-up and REM_TRAIN_STEPS timed
     ``TrainConfig()`` steps (median ms, launches per step against the
     config), then one step's kernel calls recorded and replayed through
-    kernel and plain version (timed with ``timed``). -> (median ms, the JSON
+    kernel and plain version (timed with ``timed``; with ``require_tc``
+    every edge-list call on a tensor-core build). -> (median ms, the JSON
     rows, the launches of a step)."""
     import torch
 
@@ -4457,21 +4520,26 @@ def remainder_train(model, batch, what: str, timed: bool) -> tuple:
     calls = record_train_calls(lambda: step(state, batch, gen))
     torch.cuda.synchronize()
     print(f"{what}: training builds {edge_builds(calls)}; backward builds {bwd_builds(calls)}", flush=True)
+    if require_tc:
+        check_tc_builds({"tpconv_edge": calls["tpconv_edge"]}, f"{what}: training step")
     rows = replay_train_kernels(calls, timed=timed)
     rows += replay_train_ops(calls, timed=timed)
     return med, rows, launches[-1]
 
 
-def remainder_path(dev, path: str, conf, card: str) -> tuple:
-    """One of the slice's kernel paths (``REM_PATHS``): the layers' builds
-    and bytes, a B=1 forward card against CPU, the B=32 20-step sample
-    (warm, then timed: poses/s; launches against the config; no plain
-    version called), its poses reranked by phase 6's confidence model
-    (timed; path A also with ``embed_full_receptor``), every kernel call of
-    one sample replayed through kernel and plain version (bit for bit across
-    two launches; timed for REM_TIMED), then the B=16 training step
-    (``remainder_train``). -> the JSON rows of REM_TIMED's kernels, with
-    their launches per sample (inference) or per step (training)."""
+def remainder_path(dev, path: str, fields: dict, conf, timed: bool, require_tc: bool = False) -> tuple:
+    """One kernel path: phase 5's score model with ``fields`` (``REM_PATHS``,
+    ``SH3_PATHS``): the layers' builds and bytes, a B=1 forward card against
+    CPU, the B=32 20-step sample (timed, after a warm-up with ``timed``:
+    poses/s; launches against the config; no plain version called), its poses reranked by
+    phase 6's confidence model (timed; the all-atom model also with
+    ``embed_full_receptor``), every kernel call of one sample replayed
+    through kernel and plain version (bit for bit across two launches,
+    masked per-edge messages exactly zero; timed with ``timed``; with
+    ``require_tc`` every edge-list call on a tensor-core build), then the
+    B=16 training step (``remainder_train``). -> (the JSON rows of the
+    kernels with their launches per sample (inference) or per step
+    (training) when ``timed``, else [], and the sample's final poses)."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
@@ -4480,8 +4548,8 @@ def remainder_path(dev, path: str, conf, card: str) -> tuple:
     from confidence_bootstrapping_tpu_torch.sampler.sampling import randomize_position, score_confidence
 
     conf_model, conf_batch = conf[0], conf[1]
-    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM, **REM_PATHS[path])
-    what = f"path {path} ({', '.join(f'{k}={v}' for k, v in REM_PATHS[path].items())})"
+    cfg = ScoreModelConfig(lm_embedding_dim=LM_DIM, **fields)
+    what = f"path {path} ({', '.join(f'{k}={v}' for k, v in fields.items())})"
     padded = host_complex(LM_DIM, all_atoms=cfg.all_atoms)[0]
     model = get_model(cfg, device=dev, seed=0)
     K = cfg.effective_cross_cap(padded["rec_pos"].shape[0])
@@ -4496,17 +4564,19 @@ def remainder_path(dev, path: str, conf, card: str) -> tuple:
     batch = replicate_complex(padded, B_POSES, device=dev)
     b0 = randomize_position(batch, torch.Generator(device=dev).manual_seed(0), cfg.sigma.tr_sigma_max)
     run, plan = sample_run(model, b0)
-    t0 = time.perf_counter()
-    run()  # warm-up
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    warm = "no warm-up (untimed path: the first run)"
+    if timed:
+        t0 = time.perf_counter()
+        run()  # warm-up
+        torch.cuda.synchronize()
+        warm = f"warm-up {time.perf_counter() - t0:.3f} s"
     t0 = time.perf_counter()
     (final, _), launches, plain = counted_all(run)
     secs = time.perf_counter() - t0
     moved = (final.lig_pos - b0.lig_pos)[b0.lig_mask].norm(dim=-1).mean().item()
     want = expected_remainder_launches(model, STEPS)
-    print(f"{what}: sample B={B_POSES}, {STEPS} steps, plan {plan if not cfg.all_atoms else 'none (all-atom)'}: warm-up "
-          f"{warm:.3f} s, timed {secs:.4f} s, {B_POSES / secs:.3f} poses/s; mean atom displacement {moved:.3g} A; "
+    print(f"{what}: sample B={B_POSES}, {STEPS} steps, plan {plan if not cfg.all_atoms else 'none (all-atom)'}: {warm}, "
+          f"timed {secs:.4f} s, {B_POSES / secs:.3f} poses/s; mean atom displacement {moved:.3g} A; "
           f"launches {nonzero(launches)}, expected from the config {nonzero(want)}; plain versions called {plain}",
           flush=True)
     if launches != want or any(plain.values()):
@@ -4528,21 +4598,25 @@ def remainder_path(dev, path: str, conf, card: str) -> tuple:
         if not torch.isfinite(c).all():
             fail(f"{what}: the rerank's confidences are not finite")
 
-    calls = edge_calls(record_calls(run, REM_KERNELS))
+    raw = record_calls(run, REM_KERNELS)
+    calls = edge_calls(raw)
     torch.cuda.synchronize()
-    print(f"{what}: inference builds {edge_builds(calls)}", flush=True)
-    timed = path == REM_TIMED
+    if require_tc:
+        check_tc_builds({"tpconv_edge": calls["tpconv_edge"]}, f"{what}: inference")
+    else:
+        print(f"{what}: inference builds {edge_builds(calls)}", flush=True)
+    check_masked_messages([c for c in raw["tpconv_edge"] if not c[1].get("sum_k", True)])
     with torch.no_grad():
         rows = replay(calls, {k: v for k, v in remainder_kernels().items() if calls[k]}, bitwise=REM_KERNELS,
                       timed=timed)
-    del calls
+    del calls, raw
     torch.cuda.empty_cache()
     tbatch = replicate_complex(padded, REM_TRAIN_B, device=dev)
     model.requires_grad_(True)
-    train_ms, train_rows, train_launches = remainder_train(model, tbatch, what, timed)
+    train_ms, train_rows, train_launches = remainder_train(model, tbatch, what, timed, require_tc)
     print(f"{what}: {B_POSES / secs:.3f} poses/s, rerank above, training step {train_ms:.2f} ms", flush=True)
     if not timed:
-        return []
+        return [], final.lig_pos
     ops = {"fused_tpconv_train": "tpconv_edge", "fused_tpconv_rec_train": "tpconv_rec_g_dm"}  # an op's launches: its forward's
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -4550,7 +4624,7 @@ def remainder_path(dev, path: str, conf, card: str) -> tuple:
     for r in train_rows:
         r["launches"] = train_launches[ops.get(r["name"], r["name"])]
         r["name"] += f", path {path} training"
-    return rows + train_rows
+    return rows + train_rows, final.lig_pos
 
 
 def remainder_plain(dev, name: str) -> None:
@@ -4597,13 +4671,90 @@ def remainder_phase(dev, conf, card: str) -> tuple:
     sys.stdout = Tagged(stdout, card)
     try:
         rows = []
-        for path in REM_PATHS:
-            rows += remainder_path(dev, path, conf, card)
+        for path, fields in REM_PATHS.items():
+            rows += remainder_path(dev, path, fields, conf, timed=path == REM_TIMED)[0]
             torch.cuda.empty_cache()
         for name in REM_PLAIN:
             remainder_plain(dev, name)
             torch.cuda.empty_cache()
         print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        sys.stdout.flush()
+        sys.stdout = stdout
+    return rows
+
+
+# ---------------------------------------------------------------------------- phase 17: sh_lmax = 3
+
+
+SH3_PATHS = {  # phase 5's score model (seeded, full width) with these fields; 16-wide harmonics
+    "D": dict(sh_lmax=3, no_torsion=True),
+    "F": dict(use_second_order_repr=True, sh_lmax=3, no_torsion=True),  # the float32 and 5-wide SHD=16 builds
+}
+
+
+def sh3_refusal() -> None:
+    """The torsion head at sh_lmax = 3 (phase 5's config with sh_lmax 3):
+    the factory must refuse it, naming the JAX package's KeyError: 5."""
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+
+    try:
+        get_model(ScoreModelConfig(lm_embedding_dim=LM_DIM, sh_lmax=3), device="cpu")
+    except ValueError as e:
+        print(f"the torsion head at sh_lmax=3 refused: {e}", flush=True)
+        if "KeyError: 5" not in str(e):
+            fail("the torsion head's refusal at sh_lmax=3 does not name the JAX package's failure")
+        return
+    fail("the score model with its torsion head at sh_lmax=3 was not refused")
+
+
+def sh3_confidence(dev, poses) -> None:
+    """(E): phase 6's confidence architecture at sh_lmax=3 (seed 0; 1a0q's
+    crystal pose and 3183 seeded atoms): the layers' builds and the rerank
+    of (D)'s poses through ``rerank_check`` (untimed replays)."""
+    from confidence_bootstrapping_tpu_torch.config import confidence_model_config
+    from confidence_bootstrapping_tpu_torch.models.factory import get_model
+
+    cfg = confidence_model_config(lm_embedding_dim=LM_DIM, sh_lmax=3)
+    what = "(E) the confidence model at sh_lmax=3"
+    padded, hc, _ = host_complex(LM_DIM, all_atoms=True)
+    padded["lig_pos"][: len(hc.orig_lig_pos)] = hc.orig_lig_pos  # the crystal pose
+    model = get_model(cfg, device=dev, seed=0)
+    print(f"{what}: ns={cfg.ns} nv={cfg.nv}, {cfg.num_conv_layers} trunk layers, lm_dim {LM_DIM}; layers by route:",
+          flush=True)
+    for line in layer_builds(model, 0, padded["lig_pos"].shape[0]):
+        print(f"  {line}", flush=True)
+    rerank_check(model, padded, poses, f"{what}: (D)'s poses", timed=False)
+
+
+def sh3_phase(dev, conf, card: str) -> list:
+    """Phase 17 (see the module docstring); every line ends with the card's
+    name and power limit. -> the JSON rows of (D)'s 16-wide kernels (rows 7,
+    10 and 11), launches per sample (inference) or per training step."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+
+    t0 = time.perf_counter()
+    stdout = sys.stdout
+    sys.stdout = Tagged(stdout, card)
+    try:
+        sh3_refusal()
+        padded = host_complex(LM_DIM)[0]
+        rows, poses = remainder_path(dev, "D", SH3_PATHS["D"], conf, timed=True, require_tc=True)
+        for r in rows:
+            r["name"] = r["name"].replace("path D", "sh_lmax=3 (D)")
+        torch.cuda.empty_cache()
+        step_card_vs_cpu(dev, ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=0.0, **SH3_PATHS["D"]), padded,
+                         "(D) training step")
+        sh3_confidence(dev, poses)
+        torch.cuda.empty_cache()
+        remainder_path(dev, "F", SH3_PATHS["F"], conf, timed=False)
+        torch.cuda.empty_cache()
+        step_card_vs_cpu(dev, ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=0.0, **SH3_PATHS["F"]), padded,
+                         "(F) training step")
+        print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         sys.stdout.flush()
         sys.stdout = stdout
@@ -4676,6 +4827,8 @@ def main() -> None:
     torch.cuda.synchronize()
     remainder_rows = remainder_phase(dev, rerank, card)
     torch.cuda.synchronize()
+    sh3_rows = sh3_phase(dev, rerank, card)
+    torch.cuda.synchronize()
 
     launches.update(conf_launches)
     launches.update(train_launches)
@@ -4686,6 +4839,7 @@ def main() -> None:
     for r in rows:
         r["launches"] = launches[r["name"]]
     rows += remainder_rows  # phase 16's path C, launches per sample or training step of that path
+    rows += sh3_rows  # phase 17's (D), launches per sample or training step
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,8 +8,9 @@
 // center and torsion convolutions); and ops/pallas/tpconv_v3.py:
 // fused_tpconv_nbr / fused_tpconv_msgs at inference (the composed route).
 // Inputs are per edge: the MLP input [M, K, F], the sender features
-// [M, K, Din] and the harmonics [M, K, SHD] (4 at lmax=1, 9 at lmax=2, 20 for
-// the torsion head's 1x2e + 1x1o + 1x2o + 1x3o), a [M, K] mask and, in
+// [M, K, Din] and the harmonics [M, K, SHD] (4 at lmax=1, 9 at lmax=2, 16 at
+// sh_lmax=3, 20 for the torsion head's 1x2e + 1x1o + 1x2o + 1x3o), a [M, K]
+// mask and, in
 // training, dm [M, K, hd] ({0, 1/keep}, hd = H or 1) applied after the ReLU.
 // One block per RT rows: edge_tile in tpconv_engine.cuh compacts the valid
 // edges, runs the engine on them and sums each row's messages in slot order,
@@ -98,6 +99,10 @@ static int launch_edges_tc_di(int Dsh, const float* attr, const float* send, con
     case 9:
       return has_dm ? launch_edges_tc<9, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
                     : launch_edges_tc<9, false, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
+    case 16:
+      return has_dm
+                 ? launch_edges_tc<16, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
+                 : launch_edges_tc<16, false, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream);
     case 20:
       return has_dm
                  ? launch_edges_tc<20, true, DI>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, out, stream)
@@ -158,6 +163,9 @@ extern "C" int cbt_tpconv_edge(const float* attr, const float* send, const float
     case 9:
       return has_dm ? launch_edges<9, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
                     : launch_edges<9, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
+    case 16:
+      return has_dm ? launch_edges<16, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
+                    : launch_edges<16, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
     case 20:
       return has_dm ? launch_edges<20, true>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream)
                     : launch_edges<20, false>(attr, send, sh, mask, dm, hd, W, T, d, M, K, RT, sum_k, cm, out, stream);
@@ -174,16 +182,20 @@ extern "C" long long cbt_static_smem_bytes(int tc, int cm) {
     return cm == TM ? static_bytes(tpconv_edge_tc_kernel<4, false>, tpconv_edge_tc_kernel<4, true>,
                                    tpconv_edge_tc_kernel<9, false>, tpconv_edge_tc_kernel<9, true>,
                                    tpconv_edge_tc_kernel<20, false>, tpconv_edge_tc_kernel<20, true>,
+                                   tpconv_edge_tc_kernel<16, false>, tpconv_edge_tc_kernel<16, true>,
                                    tpconv_edge_tc5_kernel<4, false>, tpconv_edge_tc5_kernel<4, true>,
                                    tpconv_edge_tc5_kernel<9, false>, tpconv_edge_tc5_kernel<9, true>,
-                                   tpconv_edge_tc5_kernel<20, false>, tpconv_edge_tc5_kernel<20, true>)
+                                   tpconv_edge_tc5_kernel<20, false>, tpconv_edge_tc5_kernel<20, true>,
+                                   tpconv_edge_tc5_kernel<16, false>, tpconv_edge_tc5_kernel<16, true>)
                     : -1;
   if (cm == TM)
     return static_bytes(tpconv_edge_kernel<4, false>, tpconv_edge_kernel<4, true>, tpconv_edge_kernel<9, false>,
-                        tpconv_edge_kernel<9, true>, tpconv_edge_kernel<20, false>, tpconv_edge_kernel<20, true>);
+                        tpconv_edge_kernel<9, true>, tpconv_edge_kernel<20, false>, tpconv_edge_kernel<20, true>,
+                        tpconv_edge_kernel<16, false>, tpconv_edge_kernel<16, true>);
   if (cm == TM_WIDE)
     return static_bytes(tpconv_edge_wide_kernel<4, false>, tpconv_edge_wide_kernel<4, true>,
                         tpconv_edge_wide_kernel<9, false>, tpconv_edge_wide_kernel<9, true>,
-                        tpconv_edge_wide_kernel<20, false>, tpconv_edge_wide_kernel<20, true>);
+                        tpconv_edge_wide_kernel<20, false>, tpconv_edge_wide_kernel<20, true>,
+                        tpconv_edge_wide_kernel<16, false>, tpconv_edge_wide_kernel<16, true>);
   return -1;
 }

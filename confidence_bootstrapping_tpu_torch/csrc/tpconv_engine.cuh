@@ -85,7 +85,8 @@
 //     and cg, copied into the msg region until step 4 zeroes msg, for
 //     contributions with fixed-trip loops (unrolled to the l = 1 harmonic
 //     block at SHD=4, the l = 2 block at SHD=9 and the l = 3 block at
-//     SHD=20, the torsion head's harmonics); the epilogue items,
+//     SHD=16 (sh_lmax=3) and SHD=20, the torsion head's harmonics); the
+//     epilogue items,
 //     copied once per block; b2 of a tile is read while the tile multiplies;
 //   * cross_rev runs both directions through one call site: two inlined
 //     copies of the stage hold too many registers at once and spill;
@@ -643,7 +644,7 @@ __device__ void stage_tables(float* sm, const LayoutTC& L, const Dims& d, const 
 // stage's irreps (input blocks of at most DI components: 3, l <= 1, or 5, the
 // second-order ladder's l = 2 blocks, a build of its own so that the l <= 1
 // layers keep their code; harmonic blocks up to l = 1 at SHD=4, l = 2 at
-// SHD=9, l = 3 at SHD=20: ds <= 3, 5 or 7); the same terms in the same order,
+// SHD=9, l = 3 at SHD=16 and 20: ds <= 3, 5 or 7); the same terms in the same order,
 // so X is the same bit for bit.
 template <int SHD, int DI = 3>
 __device__ void contributions_tc(float* sm, const LayoutTC& L, const TPTables& T) {
@@ -1137,7 +1138,7 @@ extern "C" const char* cbt_error_string(int code) { return cudaGetErrorString((c
 
 // The dynamic shared memory, in bytes, of one block of this library's
 // kernels at a layer: the tensor-core stage (tc) or the float32 stage at cm
-// edges a chunk (TM or TM_WIDE), shd harmonic components (4, 9 or 20); -1
+// edges a chunk (TM or TM_WIDE), shd harmonic components (4, 9, 16 or 20); -1
 // for a build that does not exist. The host mirror is
 // ops/cuda/tpconv_common.engine_smem_bytes.
 extern "C" long long cbt_smem_bytes(int tc, int cm, int shd, int Fe, int ns, int F, int H, int Din, int Dout, int S,
@@ -1149,6 +1150,8 @@ extern "C" long long cbt_smem_bytes(int tc, int cm, int shd, int Fe, int ns, int
       return cbt::layout_bytes<4>(tc, cm, d, T, RT);
     case 9:
       return cbt::layout_bytes<9>(tc, cm, d, T, RT);
+    case 16:
+      return cbt::layout_bytes<16>(tc, cm, d, T, RT);
     case 20:
       return cbt::layout_bytes<20>(tc, cm, d, T, RT);
     default:

@@ -1,13 +1,14 @@
-"""ESM2 embedding preparation: the FASTA and dedup half, and the ESMFold gate.
+"""ESM2 embedding preparation: the FASTA and dedup half, the online run and
+the ESMFold gate.
 
 Port of ``confidence_bootstrapping_tpu/data/esm_prep.py``: every chain
 sequence to a deduplicated FASTA (``write_dedup_fasta``), the offline ESM
 extract's per-sequence ``.pt`` files folded into one dict per complex
-(``fold_esm_outputs``), its reader, the two-stage CLI, and
-``predict_structure`` (ESMFold for sequence-only docking), which raises the
-JAX module's error without the ``esm`` package. The online embedding run
-(the JAX ``compute_embeddings``) is not ported: it needs ESM weights, which
-the repository does not hold.
+(``fold_esm_outputs``), its reader, the two-stage CLI, the online ESM2 run
+(``compute_embeddings``) and ``predict_structure`` (ESMFold for
+sequence-only docking). Both online functions need the ``esm`` package and
+its weights, which the repository does not hold; without the package they
+raise the JAX module's ``RuntimeError``.
 """
 
 
@@ -77,6 +78,40 @@ def load_embeddings_pt(path: str) -> Dict[str, np.ndarray]:
 
     d = torch.load(path, map_location="cpu", weights_only=False)
     return {k: np.asarray(v) for k, v in d.items()}
+
+
+def compute_embeddings(structures: Dict[str, ProteinStructure], model_name: str = "esm2_t33_650M_UR50D",
+                       device=None):
+    """Online ESM2 embeddings {complex: [residues, width]}, every chain's
+    last-layer representation in chain order (reference
+    utils/inference_utils.py:173-212), the model run on ``device`` (the
+    card unless the caller asks for the CPU, ``runtime.resolve_device``).
+    Requires the ``esm`` package and its weights; raises ``RuntimeError``
+    without the package."""
+    try:
+        import esm  # type: ignore
+        import torch
+    except ImportError as e:
+        raise RuntimeError(
+            "the `esm` package is not installed in this image; use the offline "
+            "FASTA -> extract.py -> fold_esm_outputs pipeline instead"
+        ) from e
+    from ..runtime import resolve_device
+
+    dev = resolve_device(device)
+    model, alphabet = esm.pretrained.load_model_and_alphabet(model_name)
+    model = model.to(dev).eval()
+    bc = alphabet.get_batch_converter()
+    out = {}
+    for name, st in structures.items():
+        chunks = []
+        for chain, seq in chain_sequences(st):
+            _, _, toks = bc([(chain, seq)])
+            with torch.no_grad():
+                rep = model(toks.to(dev), repr_layers=[model.num_layers])["representations"][model.num_layers]
+            chunks.append(rep[0, 1: len(seq) + 1].cpu().numpy())
+        out[name] = np.concatenate(chunks, axis=0)
+    return out
 
 
 def main(argv=None):

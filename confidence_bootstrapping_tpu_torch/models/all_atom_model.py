@@ -54,8 +54,8 @@ from ..ops.irreps import spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
 from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv
-from .score_model import ConfidenceOutput, ScoreOutput, add_confidence_heads, add_score_heads, confidence_heads, \
-    get_irrep_seq, init_weights, score_heads
+from .score_model import ConfidenceOutput, ScoreOutput, add_confidence_heads, add_score_heads, check_sh_lmax, \
+    confidence_heads, get_irrep_seq, init_weights, score_heads
 
 
 class AtomRecCache(NamedTuple):
@@ -168,8 +168,7 @@ class AllAtomScoreModel(nn.Module):
 
     def __init__(self, cfg: ScoreModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.sh_lmax > 2:
-            raise NotImplementedError("the port's models take sh_lmax <= 2")
+        check_sh_lmax(cfg)
         self.cfg = c = cfg
         ns, nv = c.ns, c.nv
         sh = str(spherical_harmonics_irreps(c.sh_lmax))

@@ -7,8 +7,9 @@ all-atom one). ``get_model`` builds every model the JAX package's builds,
 and refuses, with a ``ValueError`` naming each such field, a config that asks
 for what neither the port nor (where noted) the JAX package implements:
 
-* ``sh_lmax >= 3``: harmonics of l = 3 and above in the trunk, which the
-  port's kernels do not take (a later slice of the port);
+* ``sh_lmax >= 4``, and a torsion head at ``sh_lmax = 3`` (score mode
+  without ``no_torsion``, on any model): the JAX package cannot build them
+  either (``score_model.sh_lmax_refusal`` names why);
 * an all-atom model with protein-embedding layers but ``embed_also_ligand =
   false``: the JAX package raises there too (the widths do not match).
 
@@ -34,21 +35,21 @@ from ..ops.schedules import SigmaParams
 from ..runtime import resolve_device
 from .all_atom_model import AllAtomScoreModel
 from .legacy import OldAllAtomScoreModel, OldTensorProductScoreModel
-from .score_model import TensorProductScoreModel
+from .score_model import TensorProductScoreModel, sh_lmax_refusal
 
-# (field, true where the config asks for what the port does not implement, what that is)
+# (field, the reason the port refuses the config's value or None)
 _UNSUPPORTED = (
-    ("sh_lmax", lambda c: c.sh_lmax >= 3, "harmonics of l >= 3 in the trunk, a later slice of the port"),
+    ("sh_lmax", sh_lmax_refusal),
     ("embed_also_ligand",
-     lambda c: not c.old_score_model and c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0,
-     "protein-embedding layers without the ligand's, which the JAX package refuses too"),
+     lambda c: "protein-embedding layers without the ligand's, which the JAX package refuses too"
+     if not c.old_score_model and c.all_atoms and not c.embed_also_ligand and c.num_prot_emb_layers > 0 else None),
 )
 
 
 def unsupported_fields(cfg: ScoreModelConfig) -> list:
     """The fields of ``cfg`` whose values the port's models do not implement,
     each as "field=value (what it asks for)"."""
-    return [f"{name}={getattr(cfg, name)!r} ({what})" for name, test, what in _UNSUPPORTED if test(cfg)]
+    return [f"{name}={getattr(cfg, name)!r} ({why})" for name, refusal in _UNSUPPORTED if (why := refusal(cfg))]
 
 
 def get_model(cfg: ScoreModelConfig, device=None, seed: int = 0):

@@ -8,9 +8,11 @@ CPU tensors, on the route the layer takes (``TPConv.route``, the JAX
 package's ``_fused_mode``): the ladder kernels (rec, pb, cross_rev, row 4
 and the edge-list kernel's rows 5-6) for lmax=1 harmonics on the irreps
 ladder; the general kernels (``rec_g``, ``cross_g``, the edge-list kernel)
-for every other layout they take, the confidence model's lmax=2 and the
-second-order ladder's l = 2 node blocks among them; none (plain PyTorch) for
-depthwise layers and edge MLPs of other than 2 layers.
+for every other layout they take at lmax 1 or 2, the confidence model's
+lmax=2 and the second-order ladder's l = 2 node blocks among them; the
+edge-list kernel alone at sh_lmax=3, where the JAX package gathers the kNN
+and cross senders first; none (plain PyTorch) for depthwise layers and edge
+MLPs of other than 2 layers.
 
 On the ladder route the JAX package's gates are kept: ``conv_pb`` (the ligand pairs and bonds in one kernel) applies
 only when L % 8 == 0, ``conv_cross_rev`` (both cross directions) only when
@@ -37,8 +39,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda.tpconv_common import SH_IRREPS, PackedWeights, general_route, is_ladder, pack_weights, \
-    takes_harmonics
+from ..ops.cuda.tpconv_common import SH_IRREPS, PackedWeights, gather_harmonics, general_route, is_ladder, \
+    pack_weights, takes_harmonics
 from ..ops.cuda.tpconv_edge import edge_build, fused_tpconv_edge
 from ..ops.cuda.tpconv_g import fused_tpconv_cross_g, fused_tpconv_rec_g
 from ..ops.cuda.tpconv_lig import fused_tpconv_cross_rev, fused_tpconv_pb
@@ -217,9 +219,12 @@ class TPConv(nn.Module):
     (``tp_weights_layers`` layers). ``route``, fixed when the layer is built
     as the JAX package's ``TPConv._fused_mode`` chooses it: "ladder" (lmax=1
     harmonics and the lmax=1 irreps ladder: the rec, pb, cross_rev, row 4 and
-    edge-list kernels), "general" (any other layout the kernels take,
-    ``tpconv_common.general_route``: rec_g, cross_g and the edge-list
-    kernel, at lmax 1 or 2), or None: plain PyTorch in every mode, for
+    edge-list kernels), "general" (any other layout the kernels take at
+    lmax 1 or 2, ``tpconv_common.general_route``: rec_g, cross_g and the
+    edge-list kernel), "edge" (the layouts at sh_lmax=3, where the JAX
+    package gathers the kNN and cross senders first: the edge-list kernel,
+    in training the differentiable edge-list op, and never the kernels that
+    gather their senders), or None: plain PyTorch in every mode, for
     ``depthwise`` layers (a per-channel TP whose messages a linear map mixes
     after the mean, ``finalize``), edge MLPs of other than 2 layers and
     layouts no kernel takes.
@@ -247,8 +252,10 @@ class TPConv(nn.Module):
             self.route = None
         elif self.sh_irreps == _SH1 and is_ladder(self.in_irreps, self.out_irreps):
             self.route = "ladder"
-        else:
+        elif gather_harmonics(self.sh_irreps):
             self.route = "general"
+        else:
+            self.route = "edge"
         self.kernel_harmonics = takes_harmonics(self.sh_irreps) and self.route is not None
         self.edge_kernel = edge_kernel and self.kernel_harmonics
         hidden = hidden_features or n_edge_features
@@ -376,10 +383,11 @@ class TPConv(nn.Module):
         when N % 32 == 0 (otherwise the senders gathered, then ``conv_nbr``,
         as the JAX package routes it), on the general route rec_g; in
         training, on either route, the differentiable
-        ``fused_tpconv_rec_train`` with the hidden-layer dropout mask; on no
-        kernel route the gathered senders through ``conv_nbr``."""
+        ``fused_tpconv_rec_train`` with the hidden-layer dropout mask; on the
+        "edge" route and on no kernel route the gathered senders through
+        ``conv_nbr``."""
         counts = nbr_mask.sum(-1).to(torch.float32)
-        if self.route is None or (deterministic and self.ladder and node_attr.shape[1] % 32):
+        if self.route in (None, "edge") or (deterministic and self.ladder and node_attr.shape[1] % 32):
             sender, sh, eattr = self._gathered(node_attr, pos, node_attr, pos, nbr, edge_emb + sig[:, None, None, :],
                                                edge_emb.shape[-1])
             return self.conv_nbr(group, sender, sh, eattr, nbr_mask, deterministic, generator)[0], counts
@@ -402,9 +410,10 @@ class TPConv(nn.Module):
         node set (ligand <- receptor, ligand <- atom): (sums [B, L, out],
         counts [B, L]). At inference the cross kernel of the route
         (``fused_tpconv_cross`` on the ladder route, ``fused_tpconv_cross_g``
-        on the general one); in training, and on no kernel route, the JAX
-        package's fallback: the senders gathered, then ``conv_nbr``."""
-        if not deterministic or self.route is None:
+        on the general one); in training, on the "edge" route and on no
+        kernel route, the JAX package's fallback: the senders gathered, then
+        ``conv_nbr``."""
+        if not deterministic or self.route in (None, "edge"):
             sender, sh, eattr = self._gathered(src_attr, src_pos, recv_attr, recv_pos, idx, edge_emb, ns)
             return self.conv_nbr(group, sender, sh, eattr, idx_mask, deterministic, generator)
         args = (recv_attr.contiguous(), recv_pos.contiguous(), src_attr.contiguous(), src_pos.contiguous(),

@@ -54,7 +54,8 @@ from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spheric
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
 from ..runtime import resolve_device
 from .layers import AtomEncoder, FCBlock, GaussianSmearing, TPConv, pad_residual
-from .score_model import ConfidenceHead, ConfidenceOutput, FinalNormMLP, ScoreOutput, TorFinalMLP, get_irrep_seq, init_weights
+from .score_model import ConfidenceHead, ConfidenceOutput, FinalNormMLP, ScoreOutput, TorFinalMLP, check_sh_lmax, \
+    get_irrep_seq, init_weights
 
 
 class OldAtomEncoder(nn.Module):
@@ -152,6 +153,7 @@ class _LegacyBase(nn.Module):
     layer factory, the heads and their forward."""
 
     def _common(self, c: ScoreModelConfig):
+        check_sh_lmax(c)
         self.cfg = c
         ns = c.ns
         self.sigma_dim = sig = c.sigma_embed_dim * (3 if c.separate_noise_schedule else 1)

@@ -1,7 +1,8 @@
 """SE(3)-equivariant tensor-product score model on padded complex batches.
 
 Port of ``confidence_bootstrapping_tpu/models/score_model.py``, every
-configuration the JAX package builds but ``sh_lmax >= 3``: lmax 1 or 2, the
+configuration the JAX package builds: sh_lmax 1, 2 or 3 (at 3 without the
+torsion head, which the JAX package cannot build there: ``check_sh_lmax``), the
 lmax=1 or the second-order irreps ladder (``get_irrep_seq``), depthwise
 layers, edge MLPs of any depth (``tp_weights_layers``) and the side-chain
 head (``sidechain_pred``: an equivariant linear map of the receptor's final
@@ -121,14 +122,35 @@ class TorFinalMLP(nn.Module):
         return self.layers[1](dropout(torch.tanh(self.layers[0](x)), self.dropout, deterministic, generator))
 
 
+def sh_lmax_refusal(c: ScoreModelConfig) -> Optional[str]:
+    """Why no model of either package builds at ``c.sh_lmax``, or None:
+    harmonics above l = 3 (the JAX package's ``spherical_harmonics`` raises
+    there), or a torsion head at sh_lmax = 3, whose ``final_tp_tor`` (the
+    harmonics times the l = 2 bond harmonics) reaches l = 5, where the JAX
+    package raises ``KeyError: 5`` (``score_model.py:558``,
+    ``ops/irreps._sh_norms``)."""
+    if c.sh_lmax >= 4:
+        return "harmonics of l >= 4, which the JAX package does not implement either"
+    if c.sh_lmax == 3 and not c.confidence_mode and not c.no_torsion:
+        return ("a torsion head at sh_lmax = 3: its final_tp_tor reaches l = 5, where the JAX package raises "
+                "KeyError: 5 (score_model.py:558); set no_torsion or confidence_mode")
+    return None
+
+
+def check_sh_lmax(c: ScoreModelConfig) -> None:
+    """Raise ``ValueError`` where ``sh_lmax_refusal`` names a reason."""
+    why = sh_lmax_refusal(c)
+    if why is not None:
+        raise ValueError(f"sh_lmax={c.sh_lmax}: {why}")
+
+
 class TensorProductScoreModel(nn.Module):
     """Score model; built on ``device`` (default: the GPU) with weights drawn
     from ``seed``. Load trained weights with ``models.from_flax``."""
 
     def __init__(self, cfg: ScoreModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.sh_lmax > 2:
-            raise NotImplementedError("the port's models take sh_lmax <= 2")
+        check_sh_lmax(cfg)
         self.cfg = c = cfg
         ns, nv = c.ns, c.nv
         sh = str(spherical_harmonics_irreps(c.sh_lmax))

@@ -31,12 +31,15 @@ fits from a host mirror of their shared-memory layouts
 
 The edge harmonics are ``1x0e + 1x1o`` (lmax=1, the score model),
 ``1x0e + 1x1o + 1x2e`` (lmax=2, the all-atom confidence model) or, for the
-edge-list kernel that takes them as input, the score model's torsion-head
-harmonics ``1x2e + 1x1o + 1x2o + 1x3o``; the harmonic width (4, 9 or 20) is a
-compile-time parameter of the kernels. Input and output irreps may hold any
-l <= 2 blocks (l = 2: the second-order irreps ladder). ``general_route``
+edge-list kernel and the edge backward, which take them as input,
+``1x0e + 1x1o + 1x2e + 1x3o`` (sh_lmax=3) and the score model's torsion-head
+harmonics ``1x2e + 1x1o + 1x2o + 1x3o``; the harmonic width (4, 9, 16 or 20)
+is a compile-time parameter of the kernels. Input and output irreps may hold
+any l <= 2 blocks (l = 2: the second-order irreps ladder). ``general_route``
 says whether a layer takes the general kernels (rec_g, cross_g and the
-edge-list kernel) as the JAX package's ``tpconv_g.general_layout`` does.
+edge-list kernel) as the JAX package's ``tpconv_g.general_layout`` does;
+``gather_harmonics`` whether rec_g and cross_g take its harmonics (lmax 1
+and 2: the JAX package runs them at ``sh_lmax <= 2`` only).
 
 The training backward (``csrc/tpconv_bwd.cu``) reads w2 in its canonical
 column order and three more tables (``bwd_layout``); its tensor-core build
@@ -51,10 +54,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..irreps import FullTensorProduct, Irreps, WeightedTensorProduct, _sh_norms, clebsch_gordan
+from ..irreps import FullTensorProduct, Irreps, WeightedTensorProduct, _sh3_block, _sh_norms, clebsch_gordan
 
 SH_IRREPS = "1x0e + 1x1o"  # lmax=1
 SH2_IRREPS = "1x0e + 1x1o + 1x2e"  # lmax=2
+SH3_IRREPS = "1x0e + 1x1o + 1x2e + 1x3o"  # sh_lmax=3: the edge-list kernel and the edge backward only
 TOR_SH_IRREPS = str(FullTensorProduct(SH_IRREPS, "1x2e").irreps_out)  # the torsion head's, 1x2e + 1x1o + 1x2o + 1x3o
 TN = 64  # column tile of the kernels (csrc/tpconv_engine.cuh: TN, csrc/tpconv_bwd.cu: BN)
 TNC = 48  # column tile of the tensor-core stage (csrc/tpconv_engine.cuh: TNC)
@@ -82,7 +86,8 @@ class TPLayout(NamedTuple):
 
 
 def _sh_dims() -> dict:
-    return {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9, str(Irreps(TOR_SH_IRREPS)): 20}
+    return {str(Irreps(SH_IRREPS)): 4, str(Irreps(SH2_IRREPS)): 9, str(Irreps(SH3_IRREPS)): 16,
+            str(Irreps(TOR_SH_IRREPS)): 20}
 
 
 def takes_harmonics(irreps_sh: str) -> bool:
@@ -91,11 +96,22 @@ def takes_harmonics(irreps_sh: str) -> bool:
 
 
 def sh_dim(irreps_sh: str) -> int:
-    """Width of the kernels' harmonic vector: 4 (lmax=1), 9 (lmax=2) or 20
-    (the torsion head's, edge-list kernel only)."""
+    """Width of the kernels' harmonic vector: 4 (lmax=1), 9 (lmax=2), 16
+    (sh_lmax=3) or 20 (the torsion head's); 16 and 20 the edge-list kernel
+    and the edge backward only."""
     if not takes_harmonics(irreps_sh):
-        raise ValueError(f"TP-conv kernels take {SH_IRREPS}, {SH2_IRREPS} or {TOR_SH_IRREPS} harmonics, got {irreps_sh}")
+        raise ValueError(f"TP-conv kernels take {SH_IRREPS}, {SH2_IRREPS}, {SH3_IRREPS} or {TOR_SH_IRREPS} "
+                         f"harmonics, got {irreps_sh}")
     return _sh_dims()[str(Irreps(irreps_sh))]
+
+
+def gather_harmonics(irreps_sh: str) -> bool:
+    """Whether the kernels that gather their senders and compute the
+    harmonics in the kernel (rec, cross, rec_g, cross_g and rec with the
+    dropout mask) take these harmonics: lmax 1 and 2, the JAX package's
+    ``sh_lmax <= 2`` gate on rec_g, cross_g and the rec training op
+    (``layers.py:417``, ``:436``, ``:531``)."""
+    return takes_harmonics(irreps_sh) and sh_dim(irreps_sh) <= 9
 
 
 _LADDER_ORDER = ("0e", "1o", "1e", "0o")
@@ -374,19 +390,24 @@ def sh1(vec: torch.Tensor) -> torch.Tensor:
 
 
 def sh_kernel(vec: torch.Tensor, irreps_sh: str) -> torch.Tensor:
-    """The harmonics of ``irreps_sh`` as the kernels compute them: those of
-    ``ops.irreps.spherical_harmonics`` (the l=2 block xy, yz, 2z^2-x^2-y^2,
-    zx, x^2-y^2 with ``_sh_norms(2)``) of v / |v|, |v|^2 clamped at 1e-12,
-    so a zero vector gives zero in every l >= 1 component."""
-    if sh_dim(irreps_sh) == 4:
+    """The harmonics of ``irreps_sh`` (lmax 1, 2 or 3) as the kernels
+    compute them: those of ``ops.irreps.spherical_harmonics`` (the l=2 block
+    xy, yz, 2z^2-x^2-y^2, zx, x^2-y^2 with ``_sh_norms(2)``, the l=3 block
+    its ``_sh3_block``) of v / |v|, |v|^2 clamped at 1e-12, so a zero vector
+    gives zero in every l >= 1 component."""
+    shd = sh_dim(irreps_sh)
+    if shd == 4:
         return sh1(vec)
     d2 = torch.clamp(torch.sum(vec * vec, dim=-1, keepdim=True), min=1e-12)
     u = vec * torch.rsqrt(d2)
     x, y, z = u[..., 0], u[..., 1], u[..., 2]
     n = _sh_norms(2)
-    l2 = torch.stack([n[0] * x * y, n[1] * y * z, n[2] * (2 * z * z - x * x - y * y), n[3] * z * x,
-                      n[4] * (x * x - y * y)], dim=-1)
-    return torch.cat([torch.ones_like(d2), u * np.sqrt(3.0), l2], dim=-1)
+    blocks = [torch.ones_like(d2), u * np.sqrt(3.0),
+              torch.stack([n[0] * x * y, n[1] * y * z, n[2] * (2 * z * z - x * x - y * y), n[3] * z * x,
+                           n[4] * (x * x - y * y)], dim=-1)]
+    if shd == 16:
+        blocks.append(_sh3_block(x, y, z))
+    return torch.cat(blocks, dim=-1)
 
 
 def edge_messages(eattr, sender, sh, mask, w1, b1, w2, b2, irreps_in: str, irreps_out: str,

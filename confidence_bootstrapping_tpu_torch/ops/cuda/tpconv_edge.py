@@ -9,8 +9,9 @@ and the mask over pre-gathered edge lists [M, K, *], then the sum over K
 training TP-conv but the receptor kNN groups (``ops/cuda/tpconv_train.py``),
 and at inference the general route's edge lists (the ligand pairs and the
 receptor <- ligand lists of the residue-level model at lmax=2 and of the
-second-order ladder). The harmonics come in as input: widths 4, 9 or 20
-(``tpconv_common.sh_dim``); sender and output blocks of l <= 2.
+second-order ladder, and at sh_lmax=3 every kNN and cross group, whose
+senders are gathered first). The harmonics come in as input: widths 4, 9, 16
+or 20 (``tpconv_common.sh_dim``); sender and output blocks of l <= 2.
 A layer with H <= KMAX = 96 whose layout fits (the score model's ns=32
 ladder, its center and torsion convolutions) runs the kernel's tensor-core
 build (3xTF32 ``wgmma``, from the split, tiled w2 fields of

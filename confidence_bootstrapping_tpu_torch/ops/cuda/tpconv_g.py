@@ -16,8 +16,8 @@ lmax=1; ``tpconv_common.general_route``):
   ligand <- atom); the edge embedding already holds the sigma embedding.
 
 The Pallas kernels take any mul-1 harmonics up to l=2; these take
-``1x0e + 1x1o + 1x2e`` or ``1x0e + 1x1o`` (``tpconv_common.sh_dim``: each
-kernel is built at 9 and at 4 harmonic components), and input and output
+``1x0e + 1x1o + 1x2e`` or ``1x0e + 1x1o`` (``tpconv_common.gather_harmonics``:
+each kernel is built at 9 and at 4 harmonic components), and input and output
 irreps of l <= 2. Positions stay float32 (the Pallas
 kernels split them into bf16 halves, about 1e-4 from a float32 composition).
 What bounds the kernels and how they are laid out: ``csrc/tpconv_engine.cuh``.
@@ -45,7 +45,8 @@ import torch
 from ..graph_builders import gather_nodes
 from . import build
 from .tpconv_common import (TM, TM_WIDE, TNC, Dims, block_width, check_dmask, check_inputs, device_tables,
-                            edge_messages, launch_weights, pick_build, ptr, sh_dim, sh_kernel, tp_layout)
+                            edge_messages, gather_harmonics, launch_weights, pick_build, ptr, sh_dim, sh_kernel,
+                            tp_layout)
 
 RT_REC = 8  # receivers per rec_g block: 8 * K=24 receptor or K=8 atom neighbours
 
@@ -56,7 +57,6 @@ _REC_DM_ARGTYPES = [_P] * 7 + [_I] + [_P] * 8 + [_I] * 14 + [_P, _P]
 _REC_DM_TC_ARGTYPES = [_P] * 7 + [_I] + [_P] * 9 + [_I] * 16 + [_P, _P]
 _CROSS_ARGTYPES = [_P] * 15 + [_I] * 14 + [_P, _P]  # row 4's; cross_g's take one more int, the harmonic width
 _CROSS_TC_ARGTYPES = [_P] * 16 + [_I] * 15 + [_P, _P]
-_GENERAL_SHD = (4, 9)  # the harmonic widths rec_g and cross_g are built at
 
 
 def cross_rows_per_block(K: int, chunk: int = TM) -> int:
@@ -128,7 +128,7 @@ def _launch_rec_g(node_attr, pos, nbr, edge_emb, sig, mask, w1, b1, w2, b2, irre
                   packed, dmask=None):
     dev = node_attr.device
     shd = sh_dim(irreps_sh)
-    if shd not in _GENERAL_SHD:
+    if not gather_harmonics(irreps_sh):
         raise ValueError(f"fused_tpconv_rec_g runs lmax=1 or lmax=2 harmonics, got {irreps_sh}")
     lay = tp_layout(irreps_in, irreps_out, irreps_sh)
     B, N, Din = node_attr.shape
@@ -200,7 +200,7 @@ def fused_tpconv_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, 
 
 def _launch_cross_g(recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                     irreps_in, irreps_sh, irreps_out, ns, packed):
-    if sh_dim(irreps_sh) not in _GENERAL_SHD:
+    if not gather_harmonics(irreps_sh):
         raise ValueError(f"fused_tpconv_cross_g runs lmax=1 or lmax=2 harmonics, got {irreps_sh}")
     return launch_cross("tpconv_cross_g", recv_attr, recv_pos, src_attr, src_pos, idx, edge_emb, mask, w1, b1, w2, b2,
                         irreps_in, irreps_sh, irreps_out, ns, packed)

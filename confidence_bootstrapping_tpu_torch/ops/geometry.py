@@ -1,9 +1,9 @@
 """Rotation representations and batched Kabsch alignment.
 
-Port of the parts of ``confidence_bootstrapping_tpu/ops/geometry.py`` that
-sampling reads: quaternion/axis-angle to matrix and back (SVGD compares
-poses by the rotation vector of their Kabsch fit) and the
-reflection-corrected Kabsch fit. Shape-polymorphic over leading batch dims.
+Port of ``confidence_bootstrapping_tpu/ops/geometry.py``: quaternion/
+axis-angle to matrix and back (SVGD compares poses by the rotation vector of
+their Kabsch fit), the reflection-corrected Kabsch fit and
+``rigid_transform_independent``. Shape-polymorphic over leading batch dims.
 """
 
 from __future__ import annotations
@@ -106,3 +106,15 @@ def kabsch_align(A: torch.Tensor, B: torch.Tensor, mask=None) -> torch.Tensor:
     """A rigidly aligned onto B: A @ R^T + t."""
     R, t = rigid_transform_kabsch(A, B, mask)
     return torch.einsum("...ni,...ji->...nj", A, R) + t
+
+
+def rigid_transform_independent(A: torch.Tensor, B: torch.Tensor, mask=None):
+    """Centroid shift and Kabsch rotation vector between two point sets
+    (reference ``utils/geometry.py:279``, the SVGD particle kernels' helper):
+    (t [..., 3], rotvec [..., 3])."""
+    w = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device) if mask is None else mask.to(A.dtype)
+    wsum = torch.sum(w, dim=-1, keepdim=True) + 1e-12
+    cA = torch.sum(A * w[..., None], dim=-2) / wsum
+    cB = torch.sum(B * w[..., None], dim=-2) / wsum
+    R, _ = rigid_transform_kabsch(A, B, mask)
+    return cB - cA, matrix_to_axis_angle(R)

@@ -39,6 +39,13 @@ def topk_neighbors(a, b, cutoff, a_mask, b_mask, k: int, exclude_self: bool = Fa
     return idx, dist < _BIG / 2, dist
 
 
+def count_overflow(a, b, cutoff, a_mask, b_mask, k: int, exclude_self: bool = False) -> torch.Tensor:
+    """Number of rows i whose true neighbour count within ``cutoff`` exceeds
+    the capacity k."""
+    m, _ = radius_mask(a, b, cutoff, a_mask, b_mask, exclude_self)
+    return torch.sum(torch.sum(m, dim=-1) > k)
+
+
 def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, N, D], idx [B, ..., K] -> [B, ..., K, D]."""
     B = x.shape[0]

@@ -97,9 +97,9 @@ def spherical_harmonics_irreps(lmax: int) -> Irreps:
 # --------------------------------------------------------------------------
 
 # Monomial bases per l, {(ax, ay, az): coeff}: the standard real solid
-# harmonics, normalized below so E_{u~S^2}[Y_m(u)^2] = 1. Degrees 3 and 4 are
-# needed only to fit the Wigner-D matrices behind the l_out = 3 and 4 CG paths
-# (the torsion head's sh (x) 2e product at lmax=1 and lmax=2).
+# harmonics, normalized below so E_{u~S^2}[Y_m(u)^2] = 1. Degree 3 is also the
+# trunk's at sh_lmax=3; degree 4 is needed only to fit the Wigner-D matrices
+# behind the l_out = 4 CG paths (the torsion head's sh (x) 2e product at lmax=2).
 _POLY_BASES = {
     0: [{(0, 0, 0): 1.0}],
     1: [{(1, 0, 0): 1.0}, {(0, 1, 0): 1.0}, {(0, 0, 1): 1.0}],
@@ -175,9 +175,9 @@ def _sh_eval_np(l: int, v: np.ndarray) -> np.ndarray:
 
 def spherical_harmonics(lmax: int, vec: torch.Tensor, normalize: bool = True, eps: float = 1e-12) -> torch.Tensor:
     """Component-normalized real spherical harmonics of ``vec`` [..., 3] for
-    l = 0..lmax (lmax <= 2), blocks concatenated on the last axis."""
-    if lmax > 2:
-        raise NotImplementedError("spherical harmonics are ported up to l=2")
+    l = 0..lmax (lmax <= 3), blocks concatenated on the last axis."""
+    if lmax > 3:
+        raise NotImplementedError("spherical harmonics implemented up to l=3")
     if normalize:
         vec = vec / (torch.linalg.norm(vec, dim=-1, keepdim=True) + eps)
     x, y, z = vec[..., 0], vec[..., 1], vec[..., 2]
@@ -192,7 +192,26 @@ def spherical_harmonics(lmax: int, vec: torch.Tensor, normalize: bool = True, ep
                 dim=-1,
             )
         )
+    if lmax >= 3:
+        blocks.append(_sh3_block(x, y, z))
     return torch.cat(blocks, dim=-1)
+
+
+def _sh3_block(x, y, z) -> torch.Tensor:
+    """The l=3 block of unit-vector components, in the JAX package's order."""
+    n = _sh_norms(3)
+    return torch.stack(
+        [
+            n[0] * (3 * x * x * y - y**3),
+            n[1] * x * y * z,
+            n[2] * (4 * z * z * y - x * x * y - y**3),
+            n[3] * (2 * z**3 - 3 * x * x * z - 3 * y * y * z),
+            n[4] * (4 * z * z * x - x**3 - x * y * y),
+            n[5] * (x * x * z - y * y * z),
+            n[6] * (x**3 - 3 * x * y * y),
+        ],
+        dim=-1,
+    )
 
 
 # --------------------------------------------------------------------------

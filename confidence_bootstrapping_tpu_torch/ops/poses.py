@@ -2,7 +2,7 @@
 
 Port of ``confidence_bootstrapping_tpu/ops/poses.py``: translate and rotate
 the ligand about its centroid, apply the torsion updates, then Kabsch-align
-the flexible result back onto the rigid pose.
+the flexible result back onto the rigid pose; ``masked_mean``.
 """
 
 from __future__ import annotations
@@ -11,6 +11,18 @@ import torch
 
 from .geometry import axis_angle_to_matrix, kabsch_align
 from .torsion import apply_torsion_updates
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis, keepdims: bool = False) -> torch.Tensor:
+    """Mean of x over ``axis`` counting only entries where mask is True (x
+    may carry one trailing feature axis past the mask's)."""
+    m = mask.to(x.dtype)
+    per_feature = x.ndim == m.ndim + 1
+    num = torch.sum(x * m[..., None] if per_feature else x * m, dim=axis, keepdim=keepdims)
+    den = torch.sum(m, dim=axis, keepdim=keepdims)
+    if per_feature and not keepdims:
+        den = den[..., None]
+    return num / torch.clamp(den, min=1e-12)
 
 
 def modify_conformer(pos, lig_mask, tr_update, rot_update, tor_updates, tor_src, tor_dst, mask_rotate, tor_mask):

@@ -26,6 +26,10 @@ class SigmaParams(NamedTuple):
     tor_sigma_max: float = 3.14
 
 
+def sigmoid_np(t):
+    return 1 / (1 + np.e ** (-t))
+
+
 def t_to_sigma_individual(t, sigma_min, sigma_max):
     """sigma(t) = sigma_min^(1-t) * sigma_max^t (exponential interpolation)."""
     return sigma_min ** (1 - t) * sigma_max**t
@@ -47,6 +51,11 @@ def get_t_schedule(inference_steps, sigma_schedule="expbeta", inf_sched_alpha=1.
     lin_max = _beta.cdf(t_max, a=inf_sched_alpha, b=inf_sched_beta)
     c = np.linspace(lin_max, 0, inference_steps + 1)[:-1]
     return _beta.ppf(c, a=inf_sched_alpha, b=inf_sched_beta).astype(np.float32)
+
+
+def get_inverse_schedule(t, sched_alpha=1.0, sched_beta=1.0):
+    """The inverse Beta CDF of ``t`` (host numpy)."""
+    return _beta.ppf(t, a=sched_alpha, b=sched_beta)
 
 
 def sinusoidal_embedding(timesteps: torch.Tensor, embedding_dim: int, max_positions: int = 10000) -> torch.Tensor:

@@ -18,7 +18,7 @@
   ``yaml.safe_dump``'s; each side reads the other's text to the same data,
   for drawn field values too; the refused constructs name their line.
 * The factory: every field the port does not implement is refused by name
-  (``sh_lmax >= 3``), the fields refused before the port had them build a
+  (a torsion head at ``sh_lmax = 3``), the fields refused before the port had them build a
   model whose forward is finite, and ``config_from_reference_manifest``
   equals the JAX one.
 * No module of the port imports jax, flax, msgpack, yaml or the JAX package.
@@ -361,7 +361,7 @@ _REFUSED = [("old_score_model", True), ("separate_noise_schedule", True), ("use_
             ("sh_lmax", 2), ("all_atoms", True), ("sh_lmax", 3)]
 
 
-# what the port still refuses: harmonics of l >= 3 in the trunk (a later slice)
+# what the port still refuses: a torsion head at sh_lmax = 3 (score mode; the JAX package fails there with KeyError: 5)
 _STILL_REFUSED = {("sh_lmax", 3)}
 # refused until the score-model remainder was ported
 _REMAINDER = {"use_second_order_repr", "tp_weights_layers", "depthwise_convolution", "sidechain_pred",

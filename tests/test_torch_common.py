@@ -11,6 +11,7 @@ import pickle
 import jax
 import jax.numpy as jnp
 import numpy as np
+import threadpoolctl
 import torch
 
 from confidence_bootstrapping_tpu.config import ScoreModelConfig as JaxScoreConfig
@@ -22,6 +23,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKL = os.path.join(ROOT, "cache", "1a0q_44f574e0e5cb3bc5.pkl")
 
 TINY = dict(ns=16, nv=4, num_conv_layers=2, num_prot_emb_layers=1)
+
+
+def share_the_cores() -> None:
+    """Under pytest-xdist, size each worker's BLAS and torch thread pools to
+    its share of the cores. Pools sized to every core each, in several
+    workers at once, oversubscribe the machine many times over, and the
+    spinning BLAS threads make a numpy SVD (the Clebsch-Gordan solves) tens
+    of times slower than in one process. Every worker imports this module
+    while it collects the suite, so the sizes hold for every test it runs;
+    one process alone keeps the defaults."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        threadpoolctl.threadpool_limits(1, user_api="blas")
+        torch.set_num_threads(max(1, -(-(os.cpu_count() or 1) // workers)))
+
+
+share_the_cores()
 
 
 def tiny_configs(lm_dim: int):

@@ -156,7 +156,8 @@ def test_score_confidence_matches_jax(compact):
     jmodel, variables, model = _models("embedding")
     jb, tb = _batches(scale=2.0, seed=4)
     pos = perturbed_pose(small_complex()[0], B, seed=5, scale=1.0)
-    want = jsampling.score_confidence(jmodel, variables, jb, lig_pos=jax.numpy.asarray(pos), compact=compact)
+    jit = jax.jit(functools.partial(jsampling.score_confidence, jmodel, compact=compact))  # one compile, not per op
+    want = jit(variables, jb, lig_pos=jax.numpy.asarray(pos))
     got = sampling.score_confidence(model, tb, lig_pos=torch.as_tensor(pos), compact=compact)
     _close(got, want)
 

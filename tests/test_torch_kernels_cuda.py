@@ -30,7 +30,11 @@ second-order irreps ladder's l = 2 node blocks (5-component input and output
 blocks in the CG stage, the X table and the backward's d_w) run on the
 edge-list kernel, rec_g with and without the mask, cross_g and the edge
 backward, and rec_g and cross_g at lmax=1 (their SHD=4 builds, the general
-route). Every library's shared-memory bytes equal the host mirror's. Tolerance:
+route). At sh_lmax=3 (16-wide harmonics) the edge-list kernel's SHD=16
+instances (the tensor-core build, its 5-wide one, the float32 build at 32
+edges a chunk), the edge backward and the training op run at the layouts of
+the score, confidence and second-order models. Every library's
+shared-memory bytes equal the host mirror's. Tolerance:
 max |kernel - plain| <= 2e-4 * max(1, max |plain|), the JAX package's kernel
 bar; the backward's weight gradients, sums over every edge in another order
 than the plain version's, at 1e-3 * max(1, max |plain|). The plain versions
@@ -59,6 +63,7 @@ WIDE = WIDE_SEQ[3]  # its 156 -> 156 trunk layer (W=6928, H=144)
 ODD_H = "10x0e + 2x1o + 2x1e + 2x0o"  # ns=10: H=30, not a multiple of 8
 CONF_TRUNK = "24x0e + 6x1o + 6x1e + 24x0o"
 SH1, SH2 = "1x0e + 1x1o", "1x0e + 1x1o + 1x2e"
+SH3 = tpconv_common.SH3_IRREPS  # sh_lmax=3: the edge-list kernel and the edge backward only
 REL = 2e-4
 
 
@@ -706,6 +711,10 @@ def test_rec_g_dropout_builds_match_plain(dev, masked, hd, H):
     (FLAGSHIP, SH1, FLAGSHIP, 9000, 0.55, 1, 96),  # an edge list, 55% masked, one dropout value an edge
     (FLAGSHIP, tpconv_common.TOR_SH_IRREPS, TOR_OUT, 200, 0.3, "H", 96),  # the torsion head's Dsh = 20
     (FLAGSHIP, SH2, FLAGSHIP, 100, 0.3, None, 96),
+    ("32x0e + 6x1o", SH3, "32x0e + 6x1o + 6x1e", 3000, 0.3, "H", 96),  # sh_lmax=3: the tensor-core build
+    (FLAGSHIP, SH3, FLAGSHIP, 2000, 0.3, 1, 96),  # sh_lmax=3's trunk layer: the float32 build at 32 edges a block
+    ("32x0e + 6x1o + 6x2e + 6x1e + 6x2o + 6x0o", SH3, "32x0e + 6x1o + 6x2e + 6x1e + 6x2o + 6x0o", 700, 0.3, None,
+     96),  # the second-order ladder's 134 -> 134 layer at sh_lmax=3: 16 edges a block
     (ODD_H, SH1, ODD_H, 500, 0.3, "H", 30),  # H = 30, not a multiple of 8
     (CONF_TRUNK, SH2, CONF_TRUNK, 2000, 0.3, 1, 72),  # H = 72 at lmax = 2
     (WIDE, SH1, WIDE, 333, 0.3, "H", 144),  # the ns=48 trunk layer: the float32 build at 16 edges a block
@@ -761,22 +770,34 @@ def test_edge_bwd_without_valid_takes_every_edge(dev, irreps, H):
     assert all(torch.equal(a, b) for a, b in zip(got, every))
 
 
-def test_train_ops_match_autograd_of_plain(dev):
-    """The autograd ops on the card (edge-list and rec kernels forward, the
-    edge backward kernel) against autograd through the plain compositions
-    on the card: outputs and every gradient."""
-    g = _gen(10)
-    inputs, weights, dmask = _edge_inputs(g, FLAGSHIP, SH1, FLAGSHIP, 40, 24, 96, dev, True)
+def _edge_op_matches_autograd_of_plain(g, irreps_in, irreps_sh, irreps_out, dev, dropout):
+    inputs, weights, dmask = _edge_inputs(g, irreps_in, irreps_sh, irreps_out, 40, 24, 96, dev, dropout)
     for sum_k in (True, False):
         leaves = [t.clone().requires_grad_(True) for t in inputs[:3] + weights]
         a = leaves[:3] + [inputs[3]] + leaves[3:]
-        out = tpconv_train.fused_tpconv_train(*a, FLAGSHIP, SH1, FLAGSHIP, dmask=dmask, sum_k=sum_k)
-        ref = tpconv_edge.tpconv_edge_plain(*a, FLAGSHIP, SH1, FLAGSHIP, dmask, sum_k)
+        out = tpconv_train.fused_tpconv_train(*a, irreps_in, irreps_sh, irreps_out, dmask=dmask, sum_k=sum_k)
+        ref = tpconv_edge.tpconv_edge_plain(*a, irreps_in, irreps_sh, irreps_out, dmask, sum_k)
         cot = torch.randn(out.shape, generator=g).to(dev)
         _close(out, ref)
         for i, (x, y) in enumerate(zip(torch.autograd.grad((out * cot).sum(), leaves),
                                        torch.autograd.grad((ref * cot).sum(), leaves))):
             _close(x, y, REL if i < 3 else SUM_REL)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_train_op_at_16_wide_harmonics_matches_autograd_of_plain(dev, dropout):
+    """Row 11 at sh_lmax=3 (the edge-list kernel's SHD=16 tensor-core build
+    forward, the edge backward at Dsh=16), with and without the dropout
+    mask, against autograd through the plain composition on the card."""
+    _edge_op_matches_autograd_of_plain(_gen(40), "32x0e + 6x1o", SH3, "32x0e + 6x1o + 6x1e", dev, dropout)
+
+
+def test_train_ops_match_autograd_of_plain(dev):
+    """The autograd ops on the card (edge-list and rec kernels forward, the
+    edge backward kernel) against autograd through the plain compositions
+    on the card: outputs and every gradient."""
+    g = _gen(10)
+    _edge_op_matches_autograd_of_plain(g, FLAGSHIP, SH1, FLAGSHIP, dev, True)
     B, N, K, ns = 2, 40, 24, 32
     # no self-edges: at a zero vector d_pos is a cancellation of ~1e6-sized terms in either version
     nbr = (torch.arange(N)[None, :, None] + torch.randint(1, N, (B, N, K), generator=g)) % N
@@ -1010,6 +1031,31 @@ def test_edge_kernel_at_l2_node_blocks_matches_plain(dev, layer, irreps_sh, drop
     assert float(got[:3].abs().max()) == 0.0
     if not sum_k:
         assert float(got[~inputs[3]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("sum_k", [True, False])
+@pytest.mark.parametrize("irreps_in,irreps_out,H,build", [
+    (FLAGSHIP, FLAGSHIP, 96, (True, 64)),  # the score model's trunk layer at sh_lmax=3
+    (SECOND[3], "2x1o + 2x1e", 64, (True, 64)),  # the second-order center convolution: the 5-wide instance
+    (SECOND[1], SECOND[2], 96, (False, 32)),  # the second-order ladder's 80 -> 128 layer: float32 at 32 edges
+])
+def test_edge_kernel_at_16_wide_harmonics_matches_plain(dev, irreps_in, irreps_out, H, build, sum_k):
+    """Row 7 at sh_lmax=3 (SHD=16) on each of its builds, with the dropout
+    mask at one value per hidden unit: the same bits on a second launch,
+    masked edges and rows with no valid edge exactly zero."""
+    inputs, weights, dmask = _edge_inputs(_gen(41), irreps_in, SH3, irreps_out, 11, 24, H, dev, True, H)
+    assert tpconv_edge.edge_build(irreps_in, SH3, irreps_out, H, H, 24) == build
+    for dm in (None, dmask):
+        before = tpconv_edge.fused_tpconv_edge.launches
+        got = tpconv_edge.fused_tpconv_edge(*inputs, *weights, irreps_in, SH3, irreps_out, dmask=dm, sum_k=sum_k)
+        again = tpconv_edge.fused_tpconv_edge(*inputs, *weights, irreps_in, SH3, irreps_out, dmask=dm, sum_k=sum_k)
+        torch.cuda.synchronize()
+        assert tpconv_edge.fused_tpconv_edge.launches == before + 2
+        _close(got, tpconv_edge.tpconv_edge_plain(*inputs, *weights, irreps_in, SH3, irreps_out, dm, sum_k))
+        assert torch.equal(got, again)
+        assert float(got[:3].abs().max()) == 0.0
+        if not sum_k:
+            assert float(got[~inputs[3]].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("layer,irreps_sh,hd", [(0, SH1, None), (1, SH1, "H"), (3, SH1, None), (3, SH1, "H"),

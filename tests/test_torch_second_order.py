@@ -35,7 +35,7 @@ from confidence_bootstrapping_tpu_torch.ops import irreps, torus
 from confidence_bootstrapping_tpu_torch.ops.cuda import tpconv_bwd, tpconv_common, tpconv_edge, tpconv_g, tpconv_train
 from confidence_bootstrapping_tpu_torch.train import losses
 
-SH1, SH2 = tpconv_common.SH_IRREPS, tpconv_common.SH2_IRREPS
+SH1, SH2, SH3 = tpconv_common.SH_IRREPS, tpconv_common.SH2_IRREPS, tpconv_common.SH3_IRREPS
 SEQ = get_irrep_seq(4, 1, True, use_second_order_repr=True)  # 4x0e, + 1x1o + 1x2e, + 1x1e + 1x2o, + 1x0o
 LAYERS = [(SEQ[0], SEQ[1]), (SEQ[1], SEQ[2]), (SEQ[2], SEQ[3]), (SEQ[3], SEQ[3])]
 REL = 2e-4
@@ -63,6 +63,7 @@ def _weights(rng, F, H, W):
     ("8x0e", SH1, "8x0e + 2x1o"), ("8x0e + 2x1o + 2x1e + 2x0o", SH1, "2x1o + 2x1e"), (SEQ[1], SH1, SEQ[2]),
     (SEQ[1], SH2, SEQ[2]), ("8x0e + 2x1o", SH2, "8x0e + 2x1o + 2x1e"), ("96x0e + 40x1o", SH1, "8x0e + 2x1o"),
     (SEQ[3], str(irreps.FullTensorProduct(SH1, "1x2e").irreps_out), "6x0o + 6x0e"),
+    ("8x0e", SH3, "8x0e + 2x1o"), (SEQ[1], SH3, SEQ[2]), ("96x0e + 40x1o", SH3, "8x0e + 2x1o"),  # sh_lmax=3
 ])
 def test_routes_follow_the_jax_gates(irreps_in, irreps_sh, irreps_out):
     """The ladder route where the JAX package's ladder_spec takes the layout

@@ -198,7 +198,10 @@ def test_lmax2_tables_match_weighted_tp(irreps_in, irreps_out):
 
 
 def test_wrappers_take_only_the_harmonics_they_were_built_for():
-    with pytest.raises(ValueError):
-        tpconv_common.tp_layout("8x0e", "8x0e", "1x0e + 1x1o + 1x2e + 1x3o")
+    with pytest.raises(ValueError):  # l = 4: no kernel is built for it
+        tpconv_common.tp_layout("8x0e", "8x0e", "1x0e + 1x1o + 1x2e + 1x3o + 1x4e")
+    # sh_lmax = 3: the edge-list kernel and the backward take it, rec_g and cross_g (lmax 1 and 2) do not
+    assert tpconv_common.sh_dim(tpconv_common.SH3_IRREPS) == 16 and not tpconv_common.gather_harmonics(
+        tpconv_common.SH3_IRREPS)
     assert tpconv_common.sh_dim(SH2) == 9 and tpconv_common.sh_dim("1x0e+1x1o") == 4
     assert tpconv_g.cross_rows_per_block(64) == 1 and tpconv_g.cross_rows_per_block(32) == 2
