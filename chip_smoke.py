@@ -187,7 +187,7 @@ Phases (each one fails the script when it fails):
      sh_lmax=2) and the legacy all-atom model at phase 6's widths, seeded,
      lm 0, through the same files and converter: each layer's route (the
      edge-list kernel's build with its shared-memory bytes at 24- and
-     1-edge lists, or the plain TP), B=2 forwards and a 2-step B=8 ODE sample card against CPU,
+     1-edge lists, or the plain TP), B=2 forwards and a 1-step B=8 ODE sample card against CPU,
      ``cli.infer --old_score_model`` on 1a0q (8 poses x 20 steps, the
      legacy rerank; messages by route, launches against the config, every
      ns=24 layer on a tensor-core build), one sample and rerank recorded and
@@ -238,7 +238,25 @@ Phases (each one fails the script when it fails):
      true`` on phase 16's flow as (D), its replays untimed (the float32 and
      5-wide SHD=16 builds, which only (F) reaches), and a B=2 training step
      card against CPU. Every line carries the card's name and power limit.
-Then the script's wall time, one JSON line with every kernel's numbers (launches per 20-step sample
+ 18. data parallel (``parallel/mesh``): (G) ``cli.infer --data_parallel``
+     on 1a0q from files (phase 13's set-up, 8 poses x 20 steps) in this
+     process at world size 1 over NCCL (torchrun's environment), its
+     rmsds.npy against the run without the flag within 1e-4 A; (H) two
+     ranks spawned by the script (``--dp-rank``) on cuda:0 over gloo, which
+     load the kernels this process built: phase 7's model at
+     ``TrainConfig()`` (B=16, 8 a rank) one step at dropout 0 against the
+     same step in this process (loss rtol 1e-4, every gradient element
+     within 2e-4 + 2e-3 |value|, parameters after the lr 1e-3 Adam step
+     within 2.5e-3, batch statistics), one at dropout 0.1 (finite, its
+     launches against the config), phase 5's B=32 sample over the ranks
+     (16 a rank) against phase 5's poses within 1e-2 A with each rank's
+     launches against the config (the per-batch counts), each rank's
+     gradient all-reduce ms and poses/s (two ranks share one card: no
+     scaling); (I) the same step with the state cut over a (1, 2) data x
+     model mesh under (H)'s tolerances, at least one leaf cut; the ranks
+     hold the same parameters after every step. Every line carries the
+     card's name and power limit.
+Then the script's wall time with each phase's, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
 phase 12's rec_g with the mask, per sample and per training step of phase
@@ -454,11 +472,12 @@ def main_path(dev):
     return model, b0, run
 
 
-def sample_run(model, b0) -> tuple:
+def sample_run(model, b0, mesh=None) -> tuple:
     """(phase 5's sample of ``model`` from the poses ``b0`` as a function,
     its phase plan): STEPS steps, the plan PLAN cut to the receptor's
     bucket, the noise drawn from seed 1, so that every run draws the same
-    noise and runs the same data as the one phase 3 records."""
+    noise and runs the same data as the one phase 3 records; over
+    ``mesh``'s ranks when given (phase 18)."""
     import torch
 
     from confidence_bootstrapping_tpu_torch.config import SamplerConfig
@@ -468,7 +487,8 @@ def sample_run(model, b0) -> tuple:
     plan = [(s, c) for s, c in PLAN if c < b0.rec_pos.shape[1]]
     scfg = SamplerConfig(inference_steps=STEPS, rec_phase_steps=tuple(s for s, _ in plan),
                          rec_phase_caps=tuple(c for _, c in plan))
-    return lambda: sample(model, b0, model.cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev), plan
+    return lambda: sample(model, b0, model.cfg, scfg, torch.Generator(device=dev).manual_seed(1), device=dev,
+                          mesh=mesh), plan
 
 
 def record_calls(run, names=KERNELS) -> dict:
@@ -2191,12 +2211,13 @@ def cb_run(dev, conf_model) -> None:
                           buffers={n: b.clone() for n, b in state.model.named_buffers()}, state=state))
         return out
 
-    def inference_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn=None, device=None):
+    def inference_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn=None, device=None, dp_mesh=None):
         state = rolls[-1]["state"]
         before, counts = snapshot(state), read_counters()
         calls = {}
         out = []
-        run = lambda: out.append(real_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn, device=device))
+        run = lambda: out.append(real_epoch(roll, targets, generator, model_cfg, cb_, confidence_fn, device=device,
+                                            dp_mesh=dp_mesh))
         if len(rounds) == CB_EPOCHS - 1:  # epoch 1's rollout: on the weights the fine-tune moved
             calls = record_calls(run)
         else:
@@ -2207,8 +2228,8 @@ def cb_run(dev, conf_model) -> None:
         recorded["rollout"] = calls or recorded.get("rollout")
         return out[0]
 
-    def make_train_step(model_cfg, tcfg):
-        real = real_make_step(model_cfg, tcfg)
+    def make_train_step(model_cfg, tcfg, mesh=None):
+        real = real_make_step(model_cfg, tcfg, mesh)
 
         def step(state, batch, generator, mark=None, grad_mask=None):
             counts = read_counters()
@@ -3701,7 +3722,7 @@ def reference_state_dict(model) -> dict:
 
 LEGACY_DIR = os.path.join(ROOT, "build", "legacy")  # reference files, converted directories, 1a0q, workdirs; removed
 LEGACY_SCORE = dict(ns=48, nv=10, num_conv_layers=6, sh_lmax=2)  # DiffDock's published score model
-LEGACY_B, LEGACY_CPU_STEPS = 8, 2  # infer's batch of poses; the card-vs-CPU sample's steps
+LEGACY_B, LEGACY_CPU_STEPS = 8, 1  # infer's batch of poses; the card-vs-CPU sample's steps
 AFF_SAMPLES, AFF_BATCH, AFF_BATCHES, AFF_CPU_B = 4, 16, 2, 8  # the affinity runs' cache, batch, steps; CPU check batch
 AFF_CPU_LAYERS = 4  # the card-vs-CPU step's trunk depth: 24 -> 42 -> 60 -> 84 -> 84, every layout of the 5-layer model
 
@@ -4761,9 +4782,316 @@ def sh3_phase(dev, conf, card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------- phase 18: data parallel
+
+DP_DIR = os.path.join(ROOT, "build", "dp")  # 1a0q as files, a model directory, the ranks' store and results; removed
+DP_RANKS = 2  # (H) and (I): ranks on cuda:0 over gloo (NCCL refuses two ranks on one card)
+DP_TIMEOUT = 600  # s: the ranks' wall limit
+DP_CHILD = [sys.executable, os.path.abspath(__file__), "--dp-rank"]  # + rank, directory, device
+DP_INFER_SAMPLES = 8  # (G): poses of 1a0q in each evaluator run
+RMSDS_ATOL = 1e-4  # (G): rmsds.npy with --data_parallel against the run without, in A
+LOSS_RTOL, PARAM_ATOL = 1e-4, 2.5e-3  # tests/test_training.py:150-155 argues the parameters' bound
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4  # elementwise, tests/test_torch_training.py's bar for whole-model gradients
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_infer_nccl(model) -> None:
+    """(G): ``cli.infer`` on 1a0q from files (phase 13's set-up) without and
+    with ``--data_parallel``, the latter at world size 1 over NCCL in this
+    process (torchrun's environment); rmsds.npy alike within RMSDS_ATOL."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from confidence_bootstrapping_tpu_torch.cli import infer
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    prot, lig, esm = write_1a0q(os.path.join(DP_DIR, "inputs"))[:3]
+    data = os.path.join(DP_DIR, "data", "1a0q")
+    os.makedirs(data)
+    for src in (prot, lig):
+        shutil.copy(src, os.path.join(data, os.path.basename(src)))
+    torch.save({"1a0q": torch.load(esm)["A"].numpy()}, os.path.join(DP_DIR, "esm.pt"))
+    checkpoints.save_model_dir(os.path.join(DP_DIR, "score"), model.cfg, model)
+    argv = ["--data_dir", os.path.dirname(data), "--samples_per_complex", str(DP_INFER_SAMPLES), "--inference_steps",
+            str(STEPS), "--model_dir", os.path.join(DP_DIR, "score"), "--esm_embeddings_path",
+            os.path.join(DP_DIR, "esm.pt"), "--cache_path", os.path.join(DP_DIR, "cache")]
+    walls, world = {}, None
+    for tag, extra in (("one", []), ("nccl", ["--data_parallel"])):
+        env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(free_port())) if extra else {}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                m = infer.main(argv + ["--out_dir", os.path.join(DP_DIR, tag)] + extra)
+            torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+            if extra:
+                world = (dist.get_backend(), dist.get_world_size())
+                dist.destroy_process_group()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if m["failures"]:
+            fail(f"(G) infer {tag}: {m['failures']} failures")
+    one, dp = (np.load(os.path.join(DP_DIR, t, "rmsds.npy")) for t in ("one", "nccl"))
+    err = float(np.abs(one - dp).max())
+    print(f"(G) cli.infer --data_parallel on 1a0q ({DP_INFER_SAMPLES} poses x {STEPS} steps) in this process over "
+          f"{world[0]} at world size {world[1]}: {walls['nccl']:.3f} s (without the flag {walls['one']:.3f} s); "
+          f"rmsds.npy max_abs_err {err:.3g} A (tolerance {RMSDS_ATOL} A)", flush=True)
+    if world != ("nccl", 1) or not err <= RMSDS_ATOL:
+        fail("(G): --data_parallel over NCCL at world size 1 does not give the run without it")
+
+
+def dp_step(dev, mesh=None, dropout: float = 0.0, cut: bool = False) -> dict:
+    """One ``TrainConfig()`` step (lr 1e-3, Adam) of phase 7's score model
+    (seed 0, full width) on 1a0q x 16 at ``dropout``, its noise from seed 11:
+    over ``mesh`` (8 poses a rank; ``cut``: the state cut over the model axis
+    by ``shard_model_tree``) or in one process. -> the loss, the gradients
+    the update took (reduced over the ranks), the parameters and batch
+    statistics after it, the step's wall, its gradient all-reduce ms and
+    its launches."""
+    import torch
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig, TrainConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import replicate_complex
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.parallel import mesh as meshlib
+    from confidence_bootstrapping_tpu_torch.train import train_loop
+
+    cfg, tcfg = ScoreModelConfig(lm_embedding_dim=LM_DIM, dropout=dropout), TrainConfig()
+    model = TensorProductScoreModel(cfg, device=dev, seed=0)
+    state = train_loop.init_train_state(model, tcfg)
+    if cut:
+        state = meshlib.shard_model_tree(mesh, state)
+    batch = replicate_complex(host_complex(LM_DIM)[0], tcfg.batch_size, device=dev)
+    grads, reduce_s = [], []
+    real_apply, real_reduce = train_loop.apply_gradients, meshlib.reduce_gradients
+
+    def apply(st, g, *a, **k):
+        grads.append([torch.zeros(p.shape) if x is None else x.detach().cpu() for x, p in zip(g, model.parameters())])
+        return real_apply(st, g, *a, **k)
+
+    def reduce(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_reduce(*a, **k)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t)
+        return out
+
+    counters = train_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    train_loop.apply_gradients, meshlib.reduce_gradients = apply, reduce
+    try:
+        t0 = time.perf_counter()
+        m = train_loop.make_train_step(cfg, tcfg, mesh)(state, batch, torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_loop.apply_gradients, meshlib.reduce_gradients = real_apply, real_reduce
+    names = [n for n, _ in model.named_parameters()]
+    return dict(loss=float(m["loss"]), skipped=float(m["skipped"]), grads=dict(zip(names, grads[0])),
+                params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                buffers={n: b.cpu() for n, b in model.named_buffers()}, wall=wall, reduce_ms=1e3 * sum(reduce_s),
+                rows=batch.batch_size // (mesh.shape["data"] if mesh is not None else 1),
+                launches={name: getattr(fn, attr) for name, (fn, attr) in counters.items()}, n_cut=len(state.shards),
+                want=expected_train_launches(model))
+
+
+def gloo_gather_probe(dev) -> str:
+    """Whether gloo's all_gather takes tensors on ``dev`` as they are
+    (``parallel/mesh`` stages CUDA tensors through host memory either way)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(2, device=dev)
+    try:
+        dist.all_gather([torch.empty_like(x) for _ in range(DP_RANKS)], x)
+        return "takes them"
+    except (RuntimeError, ValueError) as e:
+        return f"refuses them ({str(e).strip().splitlines()[0][:120]})"
+
+
+def dp_rank(rank: int, d: str, device: str) -> None:
+    """One rank of (H) and (I), spawned by ``dp_phase``: it loads the
+    kernels the parent built (and fails rather than build them), joins a
+    gloo group of DP_RANKS on ``device`` through a file store in ``d``, runs the
+    steps at dropout 0 and 0.1 and the timed B=32 sample over a 1-D mesh,
+    then the step on the (1, DP_RANKS) data x model mesh, and saves what it
+    measured to ``d/rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import confidence_bootstrapping_tpu_torch  # noqa: F401  (switches TF32 off)
+    from confidence_bootstrapping_tpu_torch.ops.cuda import build
+    from confidence_bootstrapping_tpu_torch.parallel import mesh as meshlib
+
+    if build.stale():
+        fail(f"rank {rank}: {build.stale()} not built: a rank loads the parent's build and never builds")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'store')}", world_size=DP_RANKS, rank=rank)
+    mesh = meshlib.make_mesh(device=dev)
+    out = {"gather": gloo_gather_probe(dev)}
+    out.update(step0=dp_step(dev, mesh), step01=dp_step(dev, mesh, dropout=0.1))
+    model, b0, _ = main_path(dev)
+    run = sample_run(model, b0, mesh)[0]
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (final, _), launches = counted(run)
+    out["sample"] = dict(pos=final.lig_pos.cpu(), warm=warm, secs=time.perf_counter() - t0, launches=launches,
+                         want=expected_launches(model, STEPS))
+    del model
+    torch.cuda.empty_cache()
+    out["step2d"] = dp_step(dev, meshlib.make_mesh_2d(1, DP_RANKS, device=dev), cut=True)
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def worst(got: dict, want: dict, floor: float) -> tuple:
+    """(the largest max |got - want| / max(floor, max |want|) over the
+    tensors, its name)."""
+    return max(((got[n] - w).abs().max().item() / max(floor, w.abs().max().item()), n) for n, w in want.items()
+               if w.numel())
+
+
+def dp_check(what: str, got: dict, ref: dict) -> None:
+    """A rank's step against the one-process step: loss within LOSS_RTOL,
+    every gradient element within GRAD_ATOL + GRAD_RTOL x |its value|, each
+    parameter within PARAM_ATOL, the batch statistics within MODEL_RTOL x
+    max(1, max |value|). Printed beside the gradients' bound: their worst
+    error relative to each tensor's max |value|."""
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    g = max((((got["grads"][n] - w).abs() / (GRAD_ATOL + GRAD_RTOL * w.abs())).max().item(), n)
+            for n, w in ref["grads"].items() if w.numel())
+    g_max = worst(got["grads"], ref["grads"], 1e-12)
+    p = worst(got["params"], ref["params"], 1.0)
+    b = worst(got["buffers"], ref["buffers"], 1.0)
+    print(f"{what}: loss {got['loss']:.6f} vs {ref['loss']:.6f} (rel {loss_err:.3g}, tolerance {LOSS_RTOL}); "
+          f"gradients worst {g[0]:.3g} of their tolerance ({GRAD_ATOL} + {GRAD_RTOL} x |value|) at {g[1]}, "
+          f"{g_max[0]:.3g} of the tensor's max |value| at {g_max[1]}; parameters after the step max_abs_err "
+          f"{p[0]:.3g} (tolerance {PARAM_ATOL}) at {p[1]}; batch statistics {b[0]:.3g} (tolerance {MODEL_RTOL})",
+          flush=True)
+    if not (loss_err <= LOSS_RTOL and g[0] <= 1.0 and p[0] <= PARAM_ATOL and b[0] <= MODEL_RTOL
+            and got["skipped"] == 0.0):
+        fail(f"{what} does not equal the one-process step")
+
+
+def dp_phase(dev, b0, final_pos, model, poses_s: float, card: str) -> None:
+    """Phase 18 (see the module docstring); every line ends with the card's
+    name and power limit. ``b0``/``final_pos``: phase 5's prior and poses;
+    ``model``: phase 5's score model; ``poses_s``: phase 5's rate."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    stdout = sys.stdout
+    sys.stdout = Tagged(stdout, card)
+    try:
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+        os.makedirs(DP_DIR)
+        t0 = time.perf_counter()
+        dp_infer_nccl(model)
+        t_g = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ref0, ref01 = dp_step(dev), dp_step(dev, dropout=0.1)
+        logs = [open(os.path.join(DP_DIR, f"rank{r}.log"), "w") for r in range(DP_RANKS)]
+        device = str(torch.device(dev.type, 0) if dev.index is None else dev)  # the ranks share phase 5's card
+        procs = [subprocess.Popen(DP_CHILD + [str(r), DP_DIR, device], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(DP_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, log in zip(procs, logs):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        t_ranks = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(open(os.path.join(DP_DIR, f"rank{r}.log")).read()[-6000:], flush=True)
+                fail(f"rank {r} of (H)/(I) exited {p.returncode}")
+        outs = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+
+        mask = b0.lig_mask.cpu()
+        for r, o in enumerate(outs):
+            s0, s01, smp, s2 = o["step0"], o["step01"], o["sample"], o["step2d"]
+            print(f"(H) rank {r} of {DP_RANKS} on {device} over gloo: step at dropout 0, {s0['rows']} of {ref0['rows']} "
+                  f"poses: {s0['wall']:.3f} "
+                  f"s (the rank's first; one process {ref0['wall']:.3f} s), gradient all-reduce {s0['reduce_ms']:.2f} "
+                  f"ms; launches {s0['launches']} (one process {ref0['launches']})", flush=True)
+            dp_check(f"(H) rank {r}, step at dropout 0 against one process", s0, ref0)
+            if s0["launches"] != ref0["launches"]:
+                fail("(H): a rank's step launches what one process's does not")
+            d01 = abs(s01["loss"] - ref01["loss"]) / abs(ref01["loss"])
+            p01 = worst(s01["params"], ref01["params"], 1.0)
+            print(f"(H) rank {r}, step at dropout 0.1: loss {s01['loss']:.6f} (one process {ref01['loss']:.6f}, rel "
+                  f"{d01:.3g}; masks drawn at the global rows), parameters max_abs_err {p01[0]:.3g}; {s01['wall']:.3f} s, "
+                  f"all-reduce {s01['reduce_ms']:.2f} ms; launches {s01['launches']}, expected from the config "
+                  f"{s01['want']}", flush=True)
+            if not np.isfinite(s01["loss"]) or s01["skipped"] or s01["launches"] != s01["want"]:
+                fail("(H): the step at dropout 0.1 is not finite or misses a kernel")
+            err = float((smp["pos"] - final_pos.cpu())[mask].abs().max())
+            print(f"(H) rank {r}, phase 5's sample over the ranks (B={B_POSES}, {B_POSES // DP_RANKS} a rank, {STEPS} "
+                  f"steps): warm-up {smp['warm']:.3f} s, timed {smp['secs']:.4f} s, {B_POSES / smp['secs']:.3f} "
+                  f"poses/s (phase 5, one process: {poses_s:.3f}; two ranks share one card: no scaling); poses "
+                  f"max_abs_err {err:.3g} A against phase 5's (tolerance {SAMPLE_ATOL} A); launches "
+                  f"{smp['launches']}, expected from the config {smp['want']}", flush=True)
+            if not err <= SAMPLE_ATOL or smp["launches"] != smp["want"]:
+                fail("(H): the sample over the ranks disagrees with phase 5's or misses a kernel")
+            print(f"(I) rank {r}, (n_data, n_model) = (1, {DP_RANKS}): {s2['n_cut']} leaves cut over the model axis; "
+                  f"{s2['wall']:.3f} s", flush=True)
+            dp_check(f"(I) rank {r}, 2-D step against one process", s2, ref0)
+            if not s2["n_cut"]:
+                fail("(I): no leaf is cut over the model axis")
+        same = all(torch.equal(outs[0][k]["params"][n], o[k]["params"][n]) for o in outs[1:]
+                   for k in ("step0", "step01", "step2d") for n in o[k]["params"])
+        print(f"gloo's all_gather, given tensors on {device}: {outs[0]['gather']}", flush=True)
+        print(f"(H)/(I): the ranks hold the same parameters after every step: {same}; the ranks' wall "
+              f"{t_ranks:.1f} s, (G) {t_g:.1f} s", flush=True)
+        if not same:
+            fail("(H)/(I): the ranks' parameters differ")
+        print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        sys.stdout.flush()
+        sys.stdout = stdout
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 18, spawned by it
+        dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4790,17 +5118,25 @@ def main() -> None:
     spills = tc_spills(logs)
     print(f"tensor-core kernels' spill stores (ptxas): {spills}", flush=True)
     check_tc_spills(spills)
+    walls, t_lap = {"1-2": time.perf_counter() - t_script}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t_lap[0], 1)
+        t_lap[0] = time.perf_counter()
+
     model, b0, run = main_path(dev)
     rows = kernel_phase(model, run)
     torch.cuda.synchronize()
+    lap("3")
     model_phase(dev)
-    torch.cuda.synchronize()
+    lap("4")
     launches, final_pos, poses_s = sample_phase(model, b0, run)
-    torch.cuda.synchronize()
+    lap("5")
     conf_rows, conf_launches, rerank = confidence_phase(dev, final_pos)
-    torch.cuda.synchronize()
+    lap("6")
     train_rows, train_launches = train_phase(dev)
-    torch.cuda.synchronize()
+    lap("7")
     eval_launches, calls = eval_phase(dev, rerank)
     torch.cuda.synchronize()
     pairs_launches, calls_8b = composed_pairs_phase(dev)
@@ -4810,25 +5146,27 @@ def main() -> None:
     for r in eval_rows[1:]:  # rows 5 and 6 launch the edge-list kernel's inference instance
         r["source"] = "confidence_bootstrapping_tpu_torch/csrc/tpconv_edge.cu"
     replay_v1(calls)
-    torch.cuda.synchronize()
+    lap("8, 8b")
     wide_phase(dev)
-    torch.cuda.synchronize()
+    lap("9")
     model_dir_phase(dev, model, b0, final_pos, rerank)
-    torch.cuda.synchronize()
+    lap("10")
     cb_phase(dev, rerank[0], card)
-    torch.cuda.synchronize()
+    lap("11")
     conf_train_rows, conf_train_launches = conf_train_phase(dev, model, card)
-    torch.cuda.synchronize()
+    lap("12")
     serve_files_phase(dev, model, rerank[0], card, poses_s)
-    torch.cuda.synchronize()
+    lap("13")
     train_files_phase(dev, card)
-    torch.cuda.synchronize()
+    lap("14")
     legacy_phase(dev, model, rerank[0], b0, final_pos, rerank, card)
-    torch.cuda.synchronize()
+    lap("15")
     remainder_rows = remainder_phase(dev, rerank, card)
-    torch.cuda.synchronize()
+    lap("16")
     sh3_rows = sh3_phase(dev, rerank, card)
-    torch.cuda.synchronize()
+    lap("17")
+    dp_phase(dev, b0, final_pos, model, poses_s, card)
+    lap("18")
 
     launches.update(conf_launches)
     launches.update(train_launches)
@@ -4840,7 +5178,8 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     rows += remainder_rows  # phase 16's path C, launches per sample or training step of that path
     rows += sh3_rows  # phase 17's (D), launches per sample or training step
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s", flush=True)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s; walls by phase (s): {walls}",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

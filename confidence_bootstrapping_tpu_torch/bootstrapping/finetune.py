@@ -21,7 +21,14 @@ at that moment, copied under ``no_grad`` with ``copy_`` so that each
 weight's version moves and the TP-convs repack their kernel weights. A
 rollout leaves the training model, its optimizer and its EMA untouched.
 Every entry point runs on the GPU unless the caller passes ``device="cpu"``.
-The JAX function's ``dp_mesh`` is not ported (``parallel/mesh`` is not).
+
+``dp_mesh`` (``parallel.mesh``): the rollouts' pose batches and the
+fine-tune batches split over the mesh's ranks (when they split evenly, as
+the JAX loop's ``n % size`` guard asks). Every rank draws the same prior and
+noise and gathers the poses, so the RMSDs, the confidences and the buffer's
+picks (its own seeded generator) are the same on every rank; the fine-tune
+steps equal the one-process steps. Rank 0 alone writes the workdir, and
+every rank returns rank 0's history.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..config import CBConfig, SamplerConfig, ScoreModelConfig, TrainConfig
 from ..data.complex_graph import HostComplex, batch_complexes, pad_complex, pick_bucket, replicate_complex
 from ..eval import rmsd as rmsd_mod
 from ..models.factory import get_model
+from ..parallel import mesh as meshlib
 from ..runtime import resolve_device
 from ..sampler import sampling
 from ..train import checkpoints, train_loop
@@ -88,12 +96,12 @@ def rollout_weights(roll_model: torch.nn.Module, state: train_loop.TrainState, u
 
 
 def rollout_poses(model, target: CBTarget, n: int, generator: torch.Generator, model_cfg: ScoreModelConfig,
-                  sampler_cfg: SamplerConfig, dev) -> torch.Tensor:
+                  sampler_cfg: SamplerConfig, dev, dp_mesh=None) -> torch.Tensor:
     """``n`` poses of the target's ligand, [n, L, 3] on ``dev``: a random
-    placement, then the reverse diffusion."""
+    placement, then the reverse diffusion (over ``dp_mesh``'s ranks)."""
     batch = replicate_complex(target.padded, n, device=dev)
     batch = sampling.randomize_position(batch, generator, model_cfg.sigma.tr_sigma_max)
-    final, _ = sampling.sample(model, batch, model_cfg, sampler_cfg, generator, device=dev)
+    final, _ = sampling.sample(model, batch, model_cfg, sampler_cfg, generator, device=dev, mesh=dp_mesh)
     return final.lig_pos[:, : len(target.hc.lig_f)]
 
 
@@ -143,6 +151,7 @@ def inference_epoch(
     cb: CBConfig,
     confidence_fn: Optional[Callable] = None,
     device=None,
+    dp_mesh=None,
 ) -> Tuple[List[Tuple[dict, str, float]], Dict]:
     """One rollout round over the target complexes, on ``device`` (default:
     the GPU), where ``model`` and ``generator`` must be.
@@ -151,8 +160,8 @@ def inference_epoch(
     confidence [n] (tensor or array); None together with
     oracle_confidence=False keeps every pose with confidence 0. A target
     whose round raises is skipped, up to ``cb.limit_failures`` of them
-    (reference finetune_train.py:171-197). Returns (kept buffer items,
-    metrics dict)."""
+    (reference finetune_train.py:171-197). ``dp_mesh``: the rollouts split
+    over its ranks. Returns (kept buffer items, metrics dict)."""
     dev = resolve_device(device)
     sampler_cfg = SamplerConfig(inference_steps=cb.inference_steps)
     kept: List[Tuple[dict, str, float]] = []
@@ -177,7 +186,7 @@ def inference_epoch(
         try:
             t0 = time.perf_counter()
             poses = rollout_poses(model, target, cb.inference_samples, generator, model_cfg, _sampler_cfg_for(target),
-                                  dev)
+                                  dev, dp_mesh)
             host = poses.cpu().numpy()
             wall["rollout"] += time.perf_counter() - t0
 
@@ -232,6 +241,7 @@ def inference_finetune(
     workdir: Optional[str] = None,
     original_dataset=None,
     device=None,
+    dp_mesh=None,
 ):
     """The full CB loop on ``device`` (default: the GPU), where ``model`` and
     ``generator`` must be; ``model`` is the one trained. Returns (final
@@ -240,13 +250,16 @@ def inference_finetune(
     ``original_dataset`` (``keep_original_train``): a
     ``data.dataset.ComplexDataset`` on the device, or anything else with
     ``len`` and ``epoch_batches(batch_size, rng)`` -> a list of
-    ``ComplexBatch`` there; its batches alternate with the buffer's."""
+    ``ComplexBatch`` there; its batches alternate with the buffer's.
+    ``dp_mesh``: rollouts and fine-tune steps over its ranks (module
+    docstring)."""
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"inference_finetune on {dev}: move the model there first")
     tcfg = finetune_config(cb)
     state = train_loop.init_train_state(model, tcfg)
-    train_step = train_loop.make_train_step(model_cfg, tcfg)
+    train_step = train_loop.make_train_step(model_cfg, tcfg, mesh=dp_mesh)
+    writer = dp_mesh is None or dp_mesh.rank == 0  # rank 0 alone writes the workdir
     roll_model = get_model(model.cfg, device=dev).requires_grad_(False)
 
     buffer = CBBuffer(
@@ -269,7 +282,7 @@ def inference_finetune(
             inf_metrics = {}
             for it in range(n_iters):
                 kept, inf_metrics = inference_epoch(roll_model, targets, generator, model_cfg, cb, confidence_fn,
-                                                    device=dev)
+                                                    device=dev, dp_mesh=dp_mesh)
                 filtered_rmsds.extend(inf_metrics.pop("kept_rmsds", []))
                 buffer.add_complexes(kept)
                 print(f"epoch {epoch} rollout {it}: kept {inf_metrics['n_kept']}/{inf_metrics['n_sampled']}, "
@@ -303,7 +316,7 @@ def inference_finetune(
         history.append(entry)
         print(f"epoch {epoch}: loss {train_metrics.get('loss', float('nan')):.4f} ({entry['wall']:.1f}s)")
 
-        if workdir:
+        if workdir and writer:
             os.makedirs(workdir, exist_ok=True)
             checkpoints.save_params(os.path.join(workdir, "last_model.msgpack"), state.model)
             checkpoints.save_params(os.path.join(workdir, "ema_model.msgpack"), state.model, params=state.ema)
@@ -312,5 +325,9 @@ def inference_finetune(
             # RMSDs of every confidence-filtered pose (reference
             # finetune_train.py:348-349 --save_final_rmsds)
             np.save(os.path.join(workdir, "final_filtered_rmsds.npy"), np.asarray(filtered_rmsds))
+        if dp_mesh is not None:  # the others wait for rank 0's files
+            meshlib.coordinator_barrier(f"cb_epoch{epoch}")
 
+    if dp_mesh is not None:  # rank 0's history, with its wall times
+        history = meshlib.broadcast_object(dp_mesh, history)
     return state, history

@@ -13,7 +13,10 @@ The workdir gets ``last_model`` and ``ema_model`` (Flax msgpack bundles),
 Randomness: one ``torch.Generator`` on the device, seeded by ``--seed``,
 draws every rollout and training step (not the JAX package's numbers).
 Runs on ``--device`` (default: the GPU; without a card it raises unless
-``--device cpu`` is given).
+``--device cpu`` is given). ``--data_parallel``: the rollouts and fine-tune
+batches split over the ranks of ``torch.distributed`` (``parallel/mesh``;
+torchrun's or the JAX package's environment), with the results of one
+process; rank 0 alone writes the workdir.
 
 Example (the recipe):
   python -m confidence_bootstrapping_tpu_torch.cli.finetune \\
@@ -36,6 +39,7 @@ from .. import yaml_io
 from ..bootstrapping import finetune as ft
 from ..config import CBConfig, ScoreModelConfig
 from ..data.dataset import ComplexDataset, discover_dir
+from ..parallel import mesh as meshlib
 from ..runtime import resolve_device
 from .dock import load_or_init_model, peek_model_config
 
@@ -82,7 +86,8 @@ def get_parser():
     p.add_argument("--matching_tries", type=int, default=1)
     p.add_argument("--matching_popsize", type=int, default=20)
     p.add_argument("--matching_maxiter", type=int, default=20)
-    p.add_argument("--data_parallel", action="store_true", help="shard rollout and finetune batches over all devices")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard rollout and finetune batches over the torch.distributed ranks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--limit_complexes", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device (default: cuda; cpu runs the plain versions)")
@@ -110,10 +115,12 @@ def cb_config(args) -> CBConfig:
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    dp_mesh = None
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel needs parallel/mesh, which the port has not yet "
-                                  "(ROADMAP.md, Queue 1 item 8)")
-    dev = resolve_device(args.device)
+        meshlib.maybe_init_distributed(args.device)
+        dp_mesh = meshlib.make_mesh(device=args.device)
+        print(f"data-parallel CB loop over {dp_mesh.size} ranks")
+    dev = dp_mesh.device if dp_mesh is not None else resolve_device(args.device)
     cb = cb_config(args)
 
     names = None
@@ -152,6 +159,7 @@ def main(argv=None):
     state, history = ft.inference_finetune(
         model, targets, model_cfg, cb, torch.Generator(device=dev).manual_seed(args.seed),
         confidence_fn=confidence_fn, workdir=args.workdir, original_dataset=original_dataset, device=dev,
+        dp_mesh=dp_mesh,
     )
     print("CB finetune done;", history[-1])
     return state, history

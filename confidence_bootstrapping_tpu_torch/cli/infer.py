@@ -22,8 +22,14 @@ there it only groups the run times. ``--old_score_model`` serves the legacy
 architecture (``models/legacy.py``): a model directory written with it
 (``cli.convert --old_score_model``), or seeded weights where there is no
 checkpoint; a directory of the modern architecture is refused.
-``--data_parallel`` needs ``parallel/mesh``, which the port does not have
-yet, and raises ``NotImplementedError``. ``--esm_embeddings_path`` (a ``.pt`` dict of
+``--data_parallel`` shards each pose batch over the ranks of
+``torch.distributed`` (``parallel/mesh``: started from torchrun's or the JAX
+package's environment, one rank per device, ``cuda:LOCAL_RANK`` unless
+``--device`` says otherwise); every rank draws the same prior and noise,
+samples its slice and gathers the poses, so the results are the one-process
+run's. A batch that does not split evenly runs whole on every rank. Rank 0
+alone writes the artifacts; every rank returns the same metrics.
+``--esm_embeddings_path`` (a ``.pt`` dict of
 per-complex embeddings, as ``data.esm_prep.fold_esm_outputs`` writes it)
 gives each complex its receptor features after featurization, so the cache
 keys stay the JAX CLI's; the JAX CLI parses the flag but pads every receptor
@@ -53,6 +59,7 @@ from ..data.complex_graph import _CacheUnpickler, pad_complex, pick_bucket, repl
 from ..eval import metrics as metrics_mod
 from ..eval import rmsd as rmsd_mod
 from ..models.factory import get_model
+from ..parallel import mesh as meshlib
 from ..runtime import resolve_device
 from ..sampler import sampling
 from ..train import checkpoints
@@ -149,7 +156,8 @@ def get_parser():
     p.add_argument("--save_visualisation", action="store_true",
                    help="write reverse-diffusion trajectory PDBs per pose")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard each pose batch over all local devices (not ported yet)")
+                   help="shard each pose batch over the torch.distributed ranks (torchrun, or the JAX "
+                        "package's JAX_COORDINATOR_ADDRESS contract)")
     p.add_argument("--out_dir", default="results/eval")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--esm_embeddings_path", default=None, help=".pt dict of per-complex ESM2 embeddings")
@@ -268,11 +276,15 @@ def with_config(model, cfg):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    dp_mesh = None
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel needs parallel/mesh, which the port has not yet "
-                                  "(ROADMAP.md, Queue 1 item 8)")
-    dev = resolve_device(args.device)
-    os.makedirs(args.out_dir, exist_ok=True)
+        meshlib.maybe_init_distributed(args.device)
+        dp_mesh = meshlib.make_mesh(device=args.device)
+        print(f"data-parallel sampling over {dp_mesh.size} ranks")
+    dev = dp_mesh.device if dp_mesh is not None else resolve_device(args.device)
+    writer = dp_mesh is None or dp_mesh.rank == 0  # rank 0 alone writes the artifacts
+    if writer:
+        os.makedirs(args.out_dir, exist_ok=True)
     complexes = discover_complexes(args)
     print(f"evaluating {len(complexes)} complexes, {args.samples_per_complex} poses each on {dev}")
 
@@ -395,10 +407,10 @@ def main(argv=None):
                         final, traj = batch, None
                     else:
                         final, traj = sampling.sample(model, batch, cfg, sc_local, generator,
-                                                      args.save_visualisation, device=dev)
+                                                      args.save_visualisation, device=dev, mesh=dp_mesh)
                     pos = final.lig_pos[:, :L].cpu().numpy()  # a sync point
                     t_sample += time.time() - t_s0
-                    if args.save_visualisation and traj is not None:
+                    if args.save_visualisation and traj is not None and writer:
                         tr = torch.cat([batch.lig_pos[None], traj], dim=0)[:, :, :L].cpu().numpy()
                         vis_dir = os.path.join(args.out_dir, "visualisation", name)
                         os.makedirs(vis_dir, exist_ok=True)
@@ -451,7 +463,7 @@ def main(argv=None):
             all_centroids.append(cent)
             all_confidences.append(confs)
             all_self.append(self_d)
-            if args.save_complexes:
+            if args.save_complexes and writer:
                 os.makedirs(f"{args.out_dir}/poses", exist_ok=True)
                 np.save(f"{args.out_dir}/poses/{name}.npy", poses)
             print(f"{name}: min rmsd {rmsds.min():.2f} A, top-conf rmsd {rmsds[np.argmax(confs)]:.2f} A, "
@@ -478,12 +490,13 @@ def main(argv=None):
     self_d = np.stack(all_self)
     run_times = np.asarray(run_times)
 
-    np.save(f"{args.out_dir}/rmsds.npy", rmsds)
-    np.save(f"{args.out_dir}/centroid_distances.npy", centroids)
-    np.save(f"{args.out_dir}/confidences.npy", confidences)
-    np.save(f"{args.out_dir}/min_self_distances.npy", self_d)
-    np.save(f"{args.out_dir}/run_times.npy", run_times)
-    np.save(f"{args.out_dir}/complex_names.npy", np.asarray(names))
+    if writer:
+        np.save(f"{args.out_dir}/rmsds.npy", rmsds)
+        np.save(f"{args.out_dir}/centroid_distances.npy", centroids)
+        np.save(f"{args.out_dir}/confidences.npy", confidences)
+        np.save(f"{args.out_dir}/min_self_distances.npy", self_d)
+        np.save(f"{args.out_dir}/run_times.npy", run_times)
+        np.save(f"{args.out_dir}/complex_names.npy", np.asarray(names))
 
     m = metrics_mod.performance_metrics(rmsds, centroids, confidences if cmodel is not None else None, self_d,
                                         run_times)
@@ -499,7 +512,8 @@ def main(argv=None):
     m["failures"] = failures
     m["poses_per_sec"] = round(float(len(names) * N / max(run_times.sum(), 1e-9)), 3)
     cold = np.asarray(variant_cold, dtype=bool)
-    np.save(f"{args.out_dir}/cold_variant.npy", cold)
+    if writer:
+        np.save(f"{args.out_dir}/cold_variant.npy", cold)
     warm_sel = (~cold) & (run_times > 0)
     m["n_variant_compiles"] = int(cold.sum())
     if warm_sel.any():
@@ -527,8 +541,19 @@ def main(argv=None):
         if drop_f > 0.01:
             print(f"WARNING: cross-edge cap {m['cross_cap']} truncates {drop_f:.1%} of in-radius "
                   f"edges even at the FINAL-step cutoff - consider --cross_cap {2 * m['cross_cap']}")
-    with open(f"{args.out_dir}/metrics.json", "w") as f:
-        json.dump(m, f, indent=2)
+    if writer:
+        with open(f"{args.out_dir}/metrics.json", "w") as f:
+            json.dump(m, f, indent=2)
+        write_ecdf(args.out_dir, rmsds, confidences)
+    if dp_mesh is not None:  # the others wait for rank 0's files, then take its metrics (and their walls)
+        meshlib.coordinator_barrier("infer_artifacts")
+        m = meshlib.broadcast_object(dp_mesh, m)
+    for k, v in sorted(m.items()):
+        print(f"{k}: {v}")
+    return m
+
+
+def write_ecdf(out_dir: str, rmsds, confidences) -> None:
     try:  # ECDF plot of the per-complex best and top-confidence RMSDs; optional, as in the JAX CLI
         import matplotlib
 
@@ -545,12 +570,9 @@ def main(argv=None):
         ax.set_xlim(0, 10)
         ax.legend()
         fig.tight_layout()
-        fig.savefig(f"{args.out_dir}/rmsd_ecdf.png", dpi=120)
+        fig.savefig(f"{out_dir}/rmsd_ecdf.png", dpi=120)
     except Exception as e:
         print(f"ecdf plot skipped: {type(e).__name__}")
-    for k, v in sorted(m.items()):
-        print(f"{k}: {v}")
-    return m
 
 
 if __name__ == "__main__":

@@ -28,6 +28,14 @@ seeded by ``--seed`` (not the JAX package's numbers). Runs on ``--device``
 (default: the GPU; without a card it raises unless ``--device cpu`` is
 given).
 
+``--data_parallel``: the training batches split over the ranks of
+``torch.distributed`` (``parallel/mesh``: torchrun's or the JAX package's
+environment, ``cuda:LOCAL_RANK`` unless ``--device`` says otherwise); every
+rank builds the same batches and draws the same noise, so each step equals
+the one-process step (``train_loop.make_train_step``'s ``mesh``).
+Validation and the benchmark run whole on every rank, as in the JAX CLI.
+Rank 0 alone writes the workdir; every rank returns rank 0's history.
+
 Example:
   python -m confidence_bootstrapping_tpu_torch.cli.train --data_dir data/ \\
       --workdir workdir/run --n_epochs 100 --batch_size 16
@@ -50,6 +58,7 @@ from ..data.complex_graph import pad_complex, pick_bucket, replicate_complex
 from ..data.dataset import ComplexDataset, discover_dir
 from ..eval import rmsd as rmsd_mod
 from ..models.factory import get_model
+from ..parallel import mesh as meshlib
 from ..runtime import resolve_device
 from ..sampler import sampling
 from ..train import checkpoints, train_loop
@@ -104,7 +113,8 @@ def get_parser():
     p.add_argument("--matching_tries", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--limit_complexes", type=int, default=0)
-    p.add_argument("--data_parallel", action="store_true", help="shard batches over all local devices")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard training batches over the torch.distributed ranks")
     p.add_argument("--wandb", action="store_true", help="log to wandb when the package is available")
     p.add_argument("--project", default="cbt_train")
     p.add_argument("--device", default=None, help="torch device (default: cuda; cpu runs the plain versions)")
@@ -227,11 +237,15 @@ def restore(args, state, tcfg: TrainConfig):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    dp_mesh = None
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel needs parallel/mesh, which the port has not yet "
-                                  "(ROADMAP.md, Queue 1 item 8)")
-    dev = resolve_device(args.device)
-    os.makedirs(args.workdir, exist_ok=True)
+        meshlib.maybe_init_distributed(args.device)
+        dp_mesh = meshlib.make_mesh(device=args.device)
+        print(f"data-parallel training over {dp_mesh.size} ranks")
+    dev = dp_mesh.device if dp_mesh is not None else resolve_device(args.device)
+    writer = dp_mesh is None or dp_mesh.rank == 0  # rank 0 alone writes the workdir
+    if writer:
+        os.makedirs(args.workdir, exist_ok=True)
 
     model_cfg = ScoreModelConfig(lm_embedding_dim=0)
     if args.config:
@@ -258,22 +272,24 @@ def main(argv=None):
     state, start_epoch = restore(args, state, tcfg)
 
     if torsional_mode:
-        train_step = train_loop.make_torsional_train_step(model_cfg, tcfg)
+        train_step = train_loop.make_torsional_train_step(model_cfg, tcfg, mesh=dp_mesh)
         eval_step = train_loop.make_torsional_eval_step(model_cfg, tcfg)
         args.val_inference_freq = 0  # no pose sampling in torsional pretraining
     else:
-        train_step = train_loop.make_train_step(model_cfg, tcfg)
+        train_step = train_loop.make_train_step(model_cfg, tcfg, mesh=dp_mesh)
         eval_step = train_loop.make_eval_step(model_cfg, tcfg)
     scheduler = train_loop.PlateauScheduler(patience=30, factor=0.7)
-    save_yaml(model_cfg, os.path.join(args.workdir, checkpoints.CONFIG_NAME))
+    if writer:
+        save_yaml(model_cfg, os.path.join(args.workdir, checkpoints.CONFIG_NAME))
     roll_model = None  # the EMA weights with the model's batch statistics, for the benchmark
 
     def save(name, ema=False):
-        checkpoints.save_params(os.path.join(args.workdir, f"{name}.msgpack"), state.model,
-                                params=state.ema if ema else None)
+        if writer:
+            checkpoints.save_params(os.path.join(args.workdir, f"{name}.msgpack"), state.model,
+                                    params=state.ema if ema else None)
 
     wandb_run = None
-    if args.wandb:
+    if args.wandb and writer:
         try:
             import wandb
 
@@ -331,7 +347,8 @@ def main(argv=None):
             save(f"epoch{epoch}_model")
         state = scheduler.step(state, val_metrics["loss"])
         save("last_model")
-        checkpoints.save_train_state(args.workdir, state, epoch)
+        if writer:
+            checkpoints.save_train_state(args.workdir, state, epoch)
         save("last_ema_model", ema=True)
         history.append(entry)
         if wandb_run is not None:
@@ -339,14 +356,19 @@ def main(argv=None):
             flat.update({f"val_{k}": v for k, v in val_metrics.items()})
             flat.update(entry.get("inference", {}))
             wandb_run.log(flat, step=epoch)
-        with open(os.path.join(args.workdir, "history.pkl"), "wb") as f:
-            pickle.dump(history, f)
+        if writer:
+            with open(os.path.join(args.workdir, "history.pkl"), "wb") as f:
+                pickle.dump(history, f)
+        if dp_mesh is not None:  # the others wait for rank 0's checkpoints
+            meshlib.coordinator_barrier(f"train_epoch{epoch}")
         print(f"epoch {epoch}: train loss {train_metrics['loss']:.4f} val {val_metrics['loss']:.4f} "
               f"({entry['wall']:.1f}s)" + (f" inf<2A {entry['inference']['valinf_rmsds_lt2']:.3f}"
                                            if "inference" in entry else ""))
         if bad_epochs * args.val_inference_freq > args.inference_earlystop_patience:
             print("early stopping on inference metric")
             break
+    if dp_mesh is not None:  # rank 0's history, with its wall times
+        history = meshlib.broadcast_object(dp_mesh, history)
     return state, history
 
 

@@ -153,9 +153,11 @@ class ComplexDataset:
         alts = discover_alt_poses(lig, heavy.num_atoms)
         if alts:
             hc = hc._replace(alt_orig_lig_pos=np.stack(alts) - hc.orig_center[None, None])
-        if self.cache_dir:
-            with open(path, "wb") as f:
+        if self.cache_dir:  # written aside, then renamed: a rank featurizing the same complex never reads half a file
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
                 pickle.dump((hc, heavy), f)
+            os.replace(tmp, path)
         return hc, heavy
 
     def __len__(self):

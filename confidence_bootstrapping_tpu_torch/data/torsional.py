@@ -25,6 +25,7 @@ from ..config import TrainConfig
 from ..ops import torus
 from ..ops.schedules import SigmaParams, t_to_sigma
 from ..ops.torsion import apply_torsion_updates
+from ..parallel.mesh import psum
 from ..train.diffusion import ScoreTargets, sample_train_times
 from .complex_graph import ComplexBatch, HostComplex, batch_complexes, pad_complex, pick_bucket
 from .featurize import featurize_ligand, get_transformation_mask
@@ -74,7 +75,7 @@ def torsional_loss(tor_pred, targets: ScoreTargets, batch: ComplexBatch):
     m = batch.tor_mask.to(tor_pred.dtype)
     per_edge = (tor_pred - targets.tor_score) ** 2 / norm2 * m
     base = targets.tor_score ** 2 / norm2 * m
-    cnt = torch.clamp(torch.sum(m), min=1.0)
+    cnt = torch.clamp(psum(torch.sum(m)), min=1.0)  # global under parallel.mesh.data_parallel
     return torch.sum(per_edge) / cnt, torch.sum(base) / cnt
 
 

@@ -29,7 +29,11 @@ routing: every TP-conv goes through the differentiable ops of
 ``fused_tpconv_rec_train``, every other group through ``fused_tpconv_train``)
 with a hidden-layer dropout mask drawn once per call; dropout masks come from
 the generator the caller passes. ``use_running_average=False`` normalizes with
-the batch's masked statistics and updates the running ones.
+the batch's masked statistics and updates the running ones. Inside
+``parallel.mesh.data_parallel`` the statistics are those of the global
+batch's valid rows (counts and sums over the ranks, differentiable) and the
+dropout masks are drawn at the global batch's rows, so a rank's slice
+computes what the one-process run computes for those rows.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..ops.cuda.tpconv_rec import fused_tpconv_cross, fused_tpconv_rec
 from ..ops.cuda.tpconv_train import fused_tpconv_rec_train, fused_tpconv_train
 from ..ops.cuda.tpconv_v3 import fused_tpconv_msgs, fused_tpconv_nbr
 from ..ops.graph_builders import gather_nodes, scatter_count_to_nodes
+from ..parallel.mesh import all_sum, psum, rows
 from ..ops.irreps import DepthwiseTensorProduct, Irreps, WeightedTensorProduct, linear_apply, linear_weight_shapes, \
     spherical_harmonics
 
@@ -56,7 +61,7 @@ def dropout_mask(shape, p: float, generator: Optional[torch.Generator], device) 
     """nn.Dropout's mask: 1/keep with probability keep = 1 - p, else 0
     (float32, drawn from ``generator``)."""
     keep = 1.0 - p
-    return (torch.rand(shape, generator=generator, device=device) < keep).to(torch.float32) / keep
+    return (rows(torch.rand, shape, generator, device) < keep).to(torch.float32) / keep
 
 
 def dropout(x, p: float, deterministic: bool, generator: Optional[torch.Generator]):
@@ -142,7 +147,7 @@ class BatchNormIrreps(nn.Module):
     def forward(self, x, mask=None, use_running_average: bool = True):
         if not use_running_average:
             m = (torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device) if mask is None else mask).to(x.dtype)
-            denom = torch.clamp(m.sum(), min=1.0)
+            denom = torch.clamp(psum(m.sum()), min=1.0)
             axes = tuple(range(x.ndim - 1))
         out, new_means, new_vars, new_norms = [], [], [], []
         i_s = i_f = i_w = 0
@@ -154,8 +159,8 @@ class BatchNormIrreps(nn.Module):
                 if use_running_average:
                     mean, var = self.mean[i_s : i_s + mul], self.var[i_s : i_s + mul]
                 else:
-                    mean = torch.sum(blk * m[..., None], dim=axes) / denom
-                    var = torch.sum((blk - mean) ** 2 * m[..., None], dim=axes) / denom
+                    mean = all_sum(torch.sum(blk * m[..., None], dim=axes)) / denom
+                    var = all_sum(torch.sum((blk - mean) ** 2 * m[..., None], dim=axes)) / denom
                     new_means.append(mean)
                     new_vars.append(var)
                 b = self.bias[i_s : i_s + mul]
@@ -166,7 +171,7 @@ class BatchNormIrreps(nn.Module):
                 if use_running_average:
                     norm = self.norm[i_f : i_f + mul]
                 else:
-                    norm = torch.sum(torch.mean(f**2, dim=-1) * m[..., None], dim=axes) / denom
+                    norm = all_sum(torch.sum(torch.mean(f**2, dim=-1) * m[..., None], dim=axes)) / denom
                     new_norms.append(norm)
                 i_f += mul
                 out.append((f / torch.sqrt(norm + self.epsilon)[:, None] * w[:, None]).reshape(blk.shape))

@@ -59,6 +59,7 @@ from ..ops import so3, torus
 from ..ops.graph_builders import gather_nodes, pairwise_dist, radius_mask, scatter_mean_to_nodes, topk_neighbors
 from ..ops.irreps import FullTensorProduct, Irreps, spherical_harmonics, spherical_harmonics_irreps
 from ..ops.schedules import get_timestep_embedding, t_to_sigma
+from ..parallel.mesh import all_sum, psum
 from ..runtime import resolve_device
 from .layers import AtomEncoder, FCBlock, GaussianSmearing, LinearIrreps, TPConv, dropout, pad_residual
 
@@ -503,9 +504,9 @@ class MaskedBatchNorm1d(nn.Module):
             m = (torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device) if mask is None else mask).to(x.dtype)
             m = m[..., None]
             axes = tuple(range(x.ndim - 1))
-            denom = torch.clamp(m.sum(), min=1.0)
-            mean = torch.sum(x * m, dim=axes) / denom
-            var = torch.sum((x - mean) ** 2 * m, dim=axes) / denom
+            denom = torch.clamp(psum(m.sum()), min=1.0)  # global under parallel.mesh.data_parallel
+            mean = all_sum(torch.sum(x * m, dim=axes)) / denom
+            var = all_sum(torch.sum((x - mean) ** 2 * m, dim=axes)) / denom
             with torch.no_grad():
                 self.mean.mul_(1 - self.momentum).add_(self.momentum * mean.detach())
                 self.var.mul_(1 - self.momentum).add_(self.momentum * var.detach())

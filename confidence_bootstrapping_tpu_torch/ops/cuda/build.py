@@ -64,12 +64,18 @@ def build(names=KERNEL_SOURCES) -> dict:
     return logs
 
 
+def stale(names=KERNEL_SOURCES) -> list:
+    """The libraries missing from ``build/torch_kernels`` or older than their
+    sources: what ``load`` would build first."""
+    return [n for n in names if _stale(n)]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building every kernel source
     first if any is missing or stale."""
     with _lock:
         if name not in _libs:
-            if any(_stale(n) for n in KERNEL_SOURCES):
+            if stale():
                 build()
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
             lib.cbt_error_string.argtypes = [ctypes.c_int]

@@ -36,6 +36,7 @@ from ..ops.graph_builders import pairwise_dist, radius_mask
 from ..ops.poses import modify_conformer
 from ..ops.schedules import get_t_schedule, t_to_sigma
 from ..ops.torsion import apply_torsion_updates, get_torsion_angles
+from ..parallel import mesh as meshlib
 from ..runtime import resolve_device
 
 
@@ -143,10 +144,10 @@ def reverse_diffusion_step(model, batch: ComplexBatch, rec_cache, step_idx: int,
     rot_g = _g(rot_sigma, sp.rot_sigma_max, sp.rot_sigma_min)
     tor_g = _g(tor_sigma, sp.tor_sigma_max, sp.tor_sigma_min)
 
-    if tr_z is None:
-        tr_z = torch.randn(B, 3, generator=generator, device=dev)
-        rot_z = torch.randn(B, 3, generator=generator, device=dev)
-        tor_z = torch.randn(tor_score.shape, generator=generator, device=dev)
+    if tr_z is None:  # drawn at the global batch's rows under parallel.mesh.data_parallel
+        tr_z = meshlib.rows(torch.randn, (B, 3), generator, dev)
+        rot_z = meshlib.rows(torch.randn, (B, 3), generator, dev)
+        tor_z = meshlib.rows(torch.randn, tor_score.shape, generator, dev)
     last = step_idx == num_steps(cfg) - 1
     if cfg.no_random or (cfg.no_final_step_noise and last):
         tr_z, rot_z, tor_z = tr_z * 0.0, rot_z * 0.0, tor_z * 0.0
@@ -171,9 +172,12 @@ def reverse_diffusion_step(model, batch: ComplexBatch, rec_cache, step_idx: int,
         tor_perturb = tor_g**2 * dt_tor * (lam_tor + t2 * p2 / 2) * tor_score + tor_g * torch.sqrt(dt_tor * (1 + p2)) * tor_z
 
     if cfg.svgd_weight_log_0 is not None and cfg.svgd_weight_log_1 is not None and not cfg.ode:
-        tr_perturb, rot_perturb, tor_perturb = _svgd_perturbations(
-            batch, cfg, step_idx / num_steps(cfg), (tr_score, rot_score, tor_score), (tr_z, rot_z, tor_z),
-            (tr_g, rot_g, tor_g), (dt_tr, dt_rot, dt_tor), sched, step_idx, model_cfg)
+        # the particles couple across the whole pose batch: gathered under data parallel, then sliced again
+        g = meshlib.gathered
+        perturbs = _svgd_perturbations(
+            batch.map(g), cfg, step_idx / num_steps(cfg), (g(tr_score), g(rot_score), g(tor_score)),
+            (g(tr_z), g(rot_z), g(tor_z)), (tr_g, rot_g, tor_g), (dt_tr, dt_rot, dt_tor), sched, step_idx, model_cfg)
+        tr_perturb, rot_perturb, tor_perturb = (meshlib.shard_rows(x) for x in perturbs)
 
     new_pos = modify_conformer(batch.lig_pos, batch.lig_mask, tr_perturb, rot_perturb,
                                None if model_cfg.no_torsion else tor_perturb,
@@ -261,7 +265,7 @@ def _compact_receptor(batch: ComplexBatch, rec_cache, radius, cap: int):
     dev = batch.rec_pos.device
     inf = torch.tensor(float("inf"), device=dev)
     d = torch.where(batch.lig_mask[:, :, None], pairwise_dist(batch.lig_pos, batch.rec_pos), inf).amin(dim=1)
-    pri = torch.where(batch.rec_mask & (d < radius), d, inf).amin(dim=0)  # [N] shared over poses
+    pri = meshlib.all_min(torch.where(batch.rec_mask & (d < radius), d, inf).amin(dim=0))  # [N] over all poses
     idx = torch.argsort(pri, stable=True)[:cap]
     selected = pri[idx] < inf
     new_of_old = torch.full((N,), -1, dtype=torch.int64, device=dev)
@@ -433,13 +437,34 @@ def receptor_cache(model, batch: ComplexBatch, shared: bool = True):
 
 @torch.no_grad()
 def sample(model, batch: ComplexBatch, model_cfg: ScoreModelConfig, cfg: SamplerConfig,
-           generator: Optional[torch.Generator] = None, return_trajectory: bool = False, device=None):
+           generator: Optional[torch.Generator] = None, return_trajectory: bool = False, device=None,
+           mesh: Optional[meshlib.Mesh] = None):
     """Run the reverse diffusion. Returns (final batch, [steps, B, L, 3]
     trajectory or None). Runs on ``device`` (default: the GPU), where the
-    model and the batch must already be."""
+    model and the batch must already be.
+
+    ``mesh`` (``parallel.mesh``): every rank passes the same global batch
+    and generator state and runs its slice of the poses, with the receptor
+    cache its own; the noise is drawn at the global batch's rows, the phase
+    compaction keeps the residues of all poses, SVGD couples all poses, and
+    the final poses (and trajectory) are gathered, so every rank returns the
+    one-process result. A batch that does not split over the data axis runs
+    whole on every rank."""
     dev = resolve_device(device)
     if batch.lig_pos.device.type != dev.type or next(model.parameters()).device.type != dev.type:
         raise ValueError(f"sample on {dev}: move the model and the batch there first")
+    dp = meshlib.data_mesh(mesh, batch.batch_size)
+    if dp is None:
+        return _sample(model, batch, model_cfg, cfg, generator, return_trajectory)
+    with meshlib.data_parallel(dp):
+        final, traj = _sample(model, meshlib.shard_batch(dp, batch), model_cfg, cfg, generator, return_trajectory)
+        pos = meshlib.gathered(final.lig_pos)
+        traj = None if traj is None else meshlib.gathered(traj.transpose(0, 1)).transpose(0, 1)
+    return batch.replace(lig_pos=pos), traj
+
+
+def _sample(model, batch: ComplexBatch, model_cfg: ScoreModelConfig, cfg: SamplerConfig,
+            generator: Optional[torch.Generator], return_trajectory: bool):
     sched = make_schedules(cfg)
     n = num_steps(cfg)
     rec_cache = receptor_cache(model, batch, cfg.shared_receptor)

@@ -14,6 +14,12 @@ Port of ``confidence_bootstrapping_tpu/train/losses.py``:
 * ``affinity_loss``: the binding-affinity mean squared error, over the poses
   a validity mask keeps (the combined head) or over every group (the legacy
   affinity model).
+
+Inside ``parallel.mesh.data_parallel`` the score-matching, torsion and
+side-chain losses are this rank's share of the global batch's: each mean
+is the local sum over the global count (``dp_mean``, ``psum``), so the
+shares sum to the one-process loss and their gradients sum to its
+gradient. The side-chain normalizers are global values.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import so3, torus
+from ..parallel.mesh import dp_mean, psum
 from ..ops.schedules import SigmaParams, t_to_sigma
 from .diffusion import ScoreTargets
 
@@ -43,7 +50,7 @@ def score_matching_loss(tr_pred, rot_pred, tor_pred, targets: ScoreTargets, batc
     tr_sigma, rot_sigma, _ = t_to_sigma(batch.t_tr, batch.t_rot, batch.t_tor, sigma)
 
     def _m(x):
-        return torch.mean(x) if apply_mean else torch.mean(x, dim=1)
+        return dp_mean(x) if apply_mean else torch.mean(x, dim=1)
 
     tr_loss = _m((tr_pred - targets.tr_score) ** 2 * tr_sigma[:, None] ** 2)
     tr_base = _m(targets.tr_score**2 * tr_sigma[:, None] ** 2)
@@ -58,7 +65,7 @@ def score_matching_loss(tr_pred, rot_pred, tor_pred, targets: ScoreTargets, batc
         per_edge = (tor_pred - targets.tor_score) ** 2 / tor_norm2 * m
         per_edge_base = targets.tor_score**2 / tor_norm2 * m
         if apply_mean:
-            cnt = torch.clamp(torch.sum(m), min=1.0)
+            cnt = torch.clamp(psum(torch.sum(m)), min=1.0)
             tor_loss, tor_base = torch.sum(per_edge) / cnt, torch.sum(per_edge_base) / cnt
         else:
             cnt = torch.sum(m, dim=1) + 1e-4
@@ -80,12 +87,12 @@ def sidechain_losses(sidechain_pred, rec_sidechain, rec_mask):
     chi_s, chi_p = torch.where(defined, chi, zero), torch.where(defined, chi_pred, zero)
     diff = torch.abs(chi_p - chi_s)
     diff = torch.minimum(diff, 1.0 - diff)  # angles are circular: a full turn is 1
-    n_def = torch.clamp(defined.sum().to(chi.dtype), min=1.0)
-    chi_base = torch.sum(chi_s**2 * defined) / n_def + 1e-4
+    n_def = torch.clamp(psum(defined.sum().to(chi.dtype)), min=1.0)
+    chi_base = psum(torch.sum(chi_s**2 * defined)) / n_def + 1e-4
     sidechain_loss = torch.sum(diff**2 * defined) / n_def / chi_base
     bb, bb_pred = rec_sidechain[..., 4:], sidechain_pred[..., 4:]
-    n_bb = torch.clamp(m.sum() * 6, min=1.0)
-    bb_base = torch.sum(bb**2 * m[..., None]) / n_bb + 1e-4
+    n_bb = torch.clamp(psum(m.sum()) * 6, min=1.0)
+    bb_base = psum(torch.sum(bb**2 * m[..., None])) / n_bb + 1e-4
     backbone_loss = torch.sum((bb_pred - bb) ** 2 * m[..., None]) / n_bb / bb_base
     return sidechain_loss, backbone_loss, chi_base, bb_base
 

@@ -30,8 +30,9 @@ when its loss is not finite (``train_loop.py:249-256``).
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional
+import contextlib
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -39,8 +40,9 @@ from ..config import ScoreModelConfig, TrainConfig
 from ..data.complex_graph import ComplexBatch
 from ..data.torsional import torsional_apply_noise, torsional_loss
 from ..models.from_flax import flax_path
+from ..parallel import mesh as meshlib
 from .diffusion import apply_noise
-from .losses import score_matching_loss
+from .losses import LossBreakdown, score_matching_loss
 
 
 @dataclass
@@ -51,6 +53,11 @@ class TrainState:
     step: int = 0
     lr_scale: float = 1.0  # host-controlled plateau scaling of the learning rate
     grad_clip: Optional[float] = None  # the chain's clip, as built at init (optax's state nests one level deeper)
+    # the 2-D split (parallel/mesh.shard_model_tree): parameter name -> (dim, start, length, this rank's slice),
+    # the leaf the optimizer and the EMA hold for a parameter cut over the mesh's model axis
+    shards: Dict[str, Tuple[int, int, int, torch.nn.Parameter]] = field(default_factory=dict)
+    mesh: Optional[meshlib.Mesh] = None
+    model_axis: str = "model"
 
 
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Optimizer:
@@ -139,7 +146,9 @@ def apply_gradients(state: TrainState, grads, ok, cfg: TrainConfig, grad_mask: O
     ``grad_clip`` (the chain ``init_train_state`` built, as optax's lives in
     the JAX state), Adam or AdamW at lr * lr_scale on every parameter, EMA
     with decay min(ema_rate, (1 + step) / (10 + step)) (``ema_warmup``) or
-    ema_rate, step + 1."""
+    ema_rate, step + 1. A parameter cut over a 2-D mesh's model axis
+    (``state.shards``) takes the update and the EMA on this rank's slice,
+    and the slices are then gathered into the whole parameter."""
     named = list(state.model.named_parameters())
     params = [p for _, p in named]
     grads = [torch.where(ok, g, torch.zeros_like(g)) if g is not None else torch.zeros_like(p)
@@ -148,46 +157,85 @@ def apply_gradients(state: TrainState, grads, ok, cfg: TrainConfig, grad_mask: O
         grads = [g * grad_mask[n] for g, (n, _) in zip(grads, named)]
     if state.grad_clip:
         grads = clip_by_global_norm(grads, state.grad_clip)
-    for p, g in zip(params, grads):
-        p.grad = g
+    leaves = [state.shards[n][3] if n in state.shards else p for n, p in named]
+    for (n, _), leaf, g in zip(named, leaves, grads):
+        leaf.grad = g.narrow(*state.shards[n][:3]) if n in state.shards else g
     for group in state.optimizer.param_groups:
         group["lr"] = cfg.lr * state.lr_scale
     state.optimizer.step()
-    for p in params:
-        p.grad = None
+    for leaf in leaves:
+        leaf.grad = None
     decay = min(cfg.ema_rate, (1 + state.step) / (10 + state.step)) if ema_warmup else cfg.ema_rate
-    for n, p in state.model.named_parameters():
-        state.ema[n].mul_(decay).add_(p, alpha=1 - decay)
+    for (n, _), leaf in zip(named, leaves):
+        state.ema[n].mul_(decay).add_(leaf, alpha=1 - decay)
+    if state.shards:
+        meshlib.gather_model_tree(state)
     state.step += 1
 
 
-def make_train_step(model_cfg: ScoreModelConfig, cfg: TrainConfig) -> Callable:
+def _reduced(dp: Optional[meshlib.Mesh], state: TrainState, loss: torch.Tensor, params, shares):
+    """(gradients, global metric values): the gradients of this rank's
+    share of the loss and the metric shares (a 1-D tensor), each summed over
+    the data axis when ``dp``; on a 2-D state, the model axis's first
+    rank's."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    if dp is not None:
+        with meshlib.data_parallel(dp):
+            grads, shares = meshlib.reduce_gradients(dp, grads, params), meshlib.psum(shares)
+    if state.shards:
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        meshlib.agree(state.mesh, grads + [shares], state.model_axis)
+    return grads, shares
+
+
+def _context(dp: Optional[meshlib.Mesh]):
+    return meshlib.data_parallel(dp) if dp is not None else contextlib.nullcontext()
+
+
+def make_train_step(model_cfg: ScoreModelConfig, cfg: TrainConfig, mesh: Optional[meshlib.Mesh] = None) -> Callable:
     """-> step(state, batch, generator, mark=None, grad_mask=None) -> metrics
     (0-d tensors, not synchronized). ``mark(name)``, when given, is called
     after the noise and forward ("forward"), after the backward ("backward")
     and after the update ("update"), e.g. to record CUDA events.
-    ``grad_mask``: ``layer_freeze_mask``'s dict, or None."""
+    ``grad_mask``: ``layer_freeze_mask``'s dict, or None.
+
+    ``mesh`` (``parallel.mesh``): data parallel over its "data" axis. Every
+    rank passes the same global batch and generator state; the noise is
+    applied to the global batch, each rank runs its slice inside
+    ``mesh.data_parallel`` (batch statistics over the global valid rows,
+    dropout masks drawn at the global rows, loss denominators global), the
+    gradients and metrics are summed over the ranks, and the NaN skip and
+    clipping then decide alike on every rank: the step equals the
+    one-process step on the global batch. A 2-D state
+    (``mesh.shard_model_tree``) updates its slices of the cut leaves."""
 
     def step(state: TrainState, batch: ComplexBatch, generator: torch.Generator, mark: Optional[Callable] = None,
              grad_mask: Optional[Dict[str, float]] = None):
         model = state.model
         noised, targets = apply_noise(batch, model_cfg.sigma, cfg, generator, model_cfg.no_torsion)
+        dp = meshlib.data_mesh(mesh, batch.batch_size)
+        if dp is not None:
+            noised, targets = meshlib.shard_batch(dp, noised), meshlib.shard_batch(dp, targets)
         saved = batch_stats(model)
-        out = model(noised, deterministic=False, use_running_average=False, generator=generator)
-        lb = score_matching_loss(out.tr_pred, out.rot_pred, out.tor_pred, targets, noised, model_cfg.sigma,
-                                 cfg.tr_weight, cfg.rot_weight, cfg.tor_weight, model_cfg.no_torsion)
+        with _context(dp):
+            out = model(noised, deterministic=False, use_running_average=False, generator=generator)
+            lb = score_matching_loss(out.tr_pred, out.rot_pred, out.tor_pred, targets, noised, model_cfg.sigma,
+                                     cfg.tr_weight, cfg.rot_weight, cfg.tor_weight, model_cfg.no_torsion)
         if mark:
             mark("forward")
         params = [p for _, p in model.named_parameters()]
-        grads = torch.autograd.grad(lb.loss, params, allow_unused=True)
+        grads, totals = _reduced(dp, state, lb.loss, params, torch.stack([v.detach() for v in lb]))
+        lb = LossBreakdown(*totals.unbind())
         if mark:
             mark("backward")
         ok = torch.isfinite(lb.loss)
         apply_gradients(state, grads, ok, cfg, grad_mask)
         keep_batch_stats(model, saved, ok)
+        if state.shards:
+            meshlib.agree(state.mesh, list(model.buffers()), state.model_axis)
         if mark:
             mark("update")
-        metrics = {k: v.detach() for k, v in lb._asdict().items()}
+        metrics = dict(lb._asdict())
         metrics["skipped"] = (~ok).to(torch.float32)
         return metrics
 
@@ -216,23 +264,34 @@ def make_eval_step(model_cfg: ScoreModelConfig, cfg: TrainConfig, use_running_av
     return eval_step
 
 
-def make_torsional_train_step(model_cfg: ScoreModelConfig, cfg: TrainConfig) -> Callable:
+def make_torsional_train_step(model_cfg: ScoreModelConfig, cfg: TrainConfig,
+                              mesh: Optional[meshlib.Mesh] = None) -> Callable:
     """-> step(state, batch, generator, grad_mask=None) -> metrics {loss,
     tor_base_loss, skipped}: torsion-only noise, ``torsional_forward`` in
     training, ``torsional_loss``, then ``apply_gradients`` with the EMA at
     ``ema_rate`` and the step's batch statistics kept (the JAX torsional
-    step's arithmetic). ``grad_mask`` as in ``make_train_step``."""
+    step's arithmetic). ``grad_mask`` and ``mesh`` as in
+    ``make_train_step``."""
 
     def step(state: TrainState, batch: ComplexBatch, generator: torch.Generator,
              grad_mask: Optional[Dict[str, float]] = None):
         model = state.model
         noised, targets = torsional_apply_noise(batch, model_cfg.sigma, cfg, generator)
-        tor_pred = model.torsional_forward(noised, deterministic=False, use_running_average=False, generator=generator)
-        loss, base = torsional_loss(tor_pred, targets, noised)
-        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()], allow_unused=True)
+        dp = meshlib.data_mesh(mesh, batch.batch_size)
+        if dp is not None:
+            noised, targets = meshlib.shard_batch(dp, noised), meshlib.shard_batch(dp, targets)
+        with _context(dp):
+            tor_pred = model.torsional_forward(noised, deterministic=False, use_running_average=False,
+                                               generator=generator)
+            loss, base = torsional_loss(tor_pred, targets, noised)
+        params = [p for _, p in model.named_parameters()]
+        grads, totals = _reduced(dp, state, loss, params, torch.stack([loss.detach(), base.detach()]))
+        loss, base = totals.unbind()
         ok = torch.isfinite(loss)
         apply_gradients(state, grads, ok, cfg, grad_mask, ema_warmup=False)
-        return {"loss": loss.detach(), "tor_base_loss": base.detach(), "skipped": (~ok).to(torch.float32)}
+        if state.shards:
+            meshlib.agree(state.mesh, list(model.buffers()), state.model_axis)
+        return {"loss": loss, "tor_base_loss": base, "skipped": (~ok).to(torch.float32)}
 
     return step
 

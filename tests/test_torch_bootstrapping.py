@@ -174,7 +174,8 @@ def _stub_samplers(monkeypatch, seed, fail_on=()):
     monkeypatch.setattr(jsampling, "sample_jit",
                         lambda model, variables, batch, key, model_cfg, cfg: stub("jax", jnp.asarray, batch))
     monkeypatch.setattr(sampling, "sample",
-                        lambda model, batch, model_cfg, cfg, generator=None, device=None: stub("port", torch.as_tensor, batch))
+                        lambda model, batch, model_cfg, cfg, generator=None, device=None, mesh=None:
+                        stub("port", torch.as_tensor, batch))
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,8 +8,9 @@ per pose that parses back to its returned pose (within the file's 4
 decimals); its featurized complex equals the JAX CLI's ``build_host_complex``
 call exactly; the evaluator writes the JAX CLI's artifact names and
 ``metrics.json`` keys (the JAX CLI run with ``--no_model``), and a second
-run reads the featurization cache, under the JAX CLI's file names. The flags
-that need unported modules raise, and neither CLI falls back to the CPU.
+run reads the featurization cache, under the JAX CLI's file names.
+``infer --data_parallel`` over two gloo ranks (tests/torch_parallel_worker.py)
+gives one process's RMSDs. Neither CLI falls back to the CPU.
 """
 
 import json
@@ -30,6 +31,7 @@ from confidence_bootstrapping_tpu_torch.models.factory import get_model
 from confidence_bootstrapping_tpu_torch.train.checkpoints import save_model_dir
 from test_torch_common import install_jax_tables
 from test_torch_files import write_complex
+from torch_parallel_worker import run_ranks
 
 SDF_ATOL = 1e-4  # A: the SDF's 4 decimals, and float32 coordinates tens of A from the origin
 ARTIFACTS = ["centroid_distances.npy", "cold_variant.npy", "complex_names.npy", "confidences.npy", "metrics.json",
@@ -217,17 +219,38 @@ def test_infer_old_score_model_on_a_converted_directory(files, tmp_path, monkeyp
 
 def test_unported_flags_and_devices_raise(files, tmp_path):
     base = ["--data_dir", files["data"], "--out_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        infer.main(base + ["--data_parallel"])
     with pytest.raises(SystemExit, match="modern architecture"):  # --old_score_model on a modern checkpoint
         infer.main(base + ["--old_score_model", "--model_dir", files["score"]])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             infer.main(base[:-2])
+        with pytest.raises(RuntimeError, match="no CUDA device"):  # a rank's default device is its card
+            infer.main(base[:-2] + ["--data_parallel"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dock.main(dock_argv(files, tmp_path)[:-2])
     with pytest.raises(RuntimeError, match="esm"):
         dock.main(["--protein_sequence", "MKT", "--ligand", "CCO", "--out_dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_infer_data_parallel_matches_one_rank(files, tmp_path, monkeypatch):
+    """JAX tests/test_cli_infer.py:106-127 over two gloo ranks: 4 poses a
+    complex split 2 + 2, then 3 poses a batch (uneven: whole on both
+    ranks); rmsds.npy within 1e-4 of one process's, the artifacts written
+    once (rank 0's directory only), the same metrics on both ranks."""
+    install_jax_tables(monkeypatch)
+    argv = ["--data_dir", files["eval_data"], "--samples_per_complex", "4", "--inference_steps", "2",
+            "--model_dir", files["score"], "--seed", "3", "--cache_path", str(tmp_path / "cache"), "--device", "cpu"]
+    for bs in ("4", "3"):
+        one = tmp_path / f"one{bs}"
+        infer.main(argv + ["--batch_size", bs, "--out_dir", str(one)])
+        outs = run_ranks("cli", tmp_path / f"dp{bs}", 2, dict(cli="infer", argv=argv + ["--batch_size", bs,
+                                                                                         "--data_parallel"],
+                                                              rank_argv=[["--out_dir", str(tmp_path / f"r{bs}_{r}")]
+                                                                         for r in range(2)]))
+        np.testing.assert_allclose(np.load(tmp_path / f"r{bs}_0" / "rmsds.npy"), np.load(one / "rmsds.npy"),
+                                   rtol=1e-4, atol=1e-4)
+        assert set(ARTIFACTS) <= set(os.listdir(tmp_path / f"r{bs}_0")) and not os.path.exists(tmp_path / f"r{bs}_1")
+        assert outs[0]["metrics"] == outs[1]["metrics"] and outs[0]["metrics"]["failures"] == 0
 
 
 def test_dock_and_infer_with_an_all_atom_score_model(files, tmp_path, monkeypatch):

@@ -1185,3 +1185,43 @@ def test_second_order_layers_take_the_general_kernels(dev):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
     for a, b in zip(got, cpu):
         _close(a, b)
+
+
+def test_two_rank_training_step_over_gloo_matches_one_process(dev, tmp_path):
+    """``chip_smoke.py`` phase 18's (H) at a small width (ns=8, nv=2, two
+    trunk layers, lm 0): two gloo ranks on cuda:0 (tests/torch_parallel_worker.py),
+    1a0q x 4 split 2 + 2, a step at dropout 0 and at 0.1 and a torsional
+    step, each against the same step in one process on the card: loss rtol
+    1e-4, gradients rtol 2e-3 / atol 2e-4, parameters after one Adam step at
+    lr 1e-3 within 2.5e-3, batch statistics within 1e-4. The ranks load the
+    kernels this process built."""
+    import os
+
+    from confidence_bootstrapping_tpu_torch.config import ScoreModelConfig
+    from confidence_bootstrapping_tpu_torch.data.complex_graph import (load_host_cache, pad_complex, pick_bucket,
+                                                                       replicate_complex)
+    from confidence_bootstrapping_tpu_torch.models.score_model import TensorProductScoreModel
+    from confidence_bootstrapping_tpu_torch.ops.cuda import build
+    from torch_parallel_worker import fields_of, run_ranks, train_case
+
+    build.load("tpconv_edge")  # builds every stale library here, so that no rank builds
+    hc, _ = load_host_cache(os.path.join(os.path.dirname(os.path.dirname(__file__)), "cache",
+                                         "1a0q_44f574e0e5cb3bc5.pkl"))
+    bucket = pick_bucket(len(hc.lig_f), len(hc.lig_edge_src), len(hc.tor_src), len(hc.rec_f))
+    batch = replicate_complex(pad_complex(hc, bucket, lm_dim=0), 4, device="cpu")
+    cfg = dict(ns=8, nv=2, num_conv_layers=2, num_prot_emb_layers=1, lm_embedding_dim=0)
+    model = TensorProductScoreModel(ScoreModelConfig(**cfg), device="cpu", seed=0)
+    inputs = dict(cfg=cfg, state=model.state_dict(), batch=fields_of(batch), device="cuda:0")
+    ranks = run_ranks("train", tmp_path, 2, inputs, timeout=300)
+    one = train_case(inputs, None)
+    for key, ref in one.items():
+        for out in ranks:
+            got = out[key]
+            assert got["metrics"]["skipped"] == 0.0
+            assert abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) <= 1e-4 * abs(ref["metrics"]["loss"]), key
+            for n, w in ref["grads"].items():
+                torch.testing.assert_close(got["grads"][n], w, rtol=2e-3, atol=2e-4, msg=lambda m: f"{key} {n}: {m}")
+            for n, w in ((n, w) for n, w in ref["params"].items() if w.numel()):
+                assert (got["params"][n] - w).abs().max().item() <= 2.5e-3, (key, n)
+            for n, w in ((n, w) for n, w in ref["buffers"].items() if w.numel()):
+                assert (got["buffers"][n] - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item()), n

@@ -16,8 +16,11 @@ tests' toy complexes.
   within 1e-6.
 * ``transfer_matching_variables``: what the JAX function copies, by Flax
   path, the same count.
-* The flags that need unported modules raise, and no CLI runs without a
-  card unless ``--device cpu`` is given.
+* ``--data_parallel`` over two gloo ranks (tests/torch_parallel_worker.py):
+  ``train``'s epoch losses equal one process's within 1e-4 and rank 0 alone
+  writes the workdir; ``finetune`` keeps 8 poses and both ranks hold the
+  same buffer and parameters.
+* No CLI runs without a card unless ``--device cpu`` is given.
 """
 
 import inspect
@@ -49,6 +52,7 @@ from confidence_bootstrapping_tpu_torch.sampler import sampling
 from confidence_bootstrapping_tpu_torch.train import checkpoints, train_loop
 from test_datasets import _write_toy_complex_dir
 from test_torch_common import install_jax_tables
+from torch_parallel_worker import run_ranks
 
 TINY = dict(ns=8, nv=2, num_conv_layers=1, num_prot_emb_layers=1, lm_embedding_dim=0, dropout=0.0)
 # what the JAX train CLI writes at --val_inference_freq 1 --save_model_freq 1 --inference_secondary_metric
@@ -317,23 +321,62 @@ def test_transfer_matching_variables_matches_jax():
 
 def test_unported_flags_and_devices_raise(files, tmp_path, monkeypatch):
     conf_base = ["--data_dir", str(files / "data"), "--original_model_dir", str(files / "score"), "--device", "cpu"]
-    for call, item in ((lambda: train.main(_train_argv(files, tmp_path, "--data_parallel")), "parallel/mesh"),
-                       (lambda: finetune.main(["--data_dir", "x", "--data_parallel", "--device", "cpu"]),
-                        "parallel/mesh"),
-                       ):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
     # the affinity flags, ported: their labels and the legacy model they need are checked before any rollout
     for flags, what in ((["--affinity_prediction"], "affinity_csv"), (["--parallel", "2"], "affinity_prediction")):
         with pytest.raises(SystemExit, match=what):
             confidence_train.main(conf_base + flags)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: train.main(_train_argv(files, tmp_path)[:-2]),  # no --device
+                 lambda: train.main(_train_argv(files, tmp_path, "--data_parallel")[:-2]),  # a rank's default: its card
+                 lambda: finetune.main(["--data_dir", str(files / "data"), "--data_parallel"]),
                  lambda: bootstrap_gen.main(["--data_dir", str(files / "data"), "--model_dir", str(files / "score")]),
                  lambda: finetune.main(["--data_dir", str(files / "data")]),
                  lambda: confidence_train.main(conf_base[:-2])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_train_cli_data_parallel_matches_one_rank(files, tmp_path, monkeypatch):
+    """Two epochs of one 2-complex batch split over two ranks: the epoch
+    losses of one process within 1e-4, one checkpoint set (rank 0's)."""
+    install_jax_tables(monkeypatch)
+    extra = ("--n_epochs", "2", "--val_inference_freq", "0")
+    _, one = train.main(_train_argv(files, tmp_path / "one", *extra))
+    argv = _train_argv(files, tmp_path / "unused", *extra, "--data_parallel")
+    outs = run_ranks("cli", tmp_path / "dp", 2, dict(cli="train", argv=argv, rank_argv=[
+        ["--workdir", str(tmp_path / f"wd{r}")] for r in range(2)]))
+    for out in outs:
+        assert [h["epoch"] for h in out["history"]] == [0, 1] and out["history"] == outs[0]["history"]
+        for h, h1 in zip(out["history"], one):
+            for part in ("train", "val"):
+                for k, v in h1[part].items():
+                    np.testing.assert_allclose(h[part][k], v, rtol=1e-4, atol=1e-6, err_msg=(part, k))
+    assert sorted(os.listdir(tmp_path / "wd0")) == sorted(os.listdir(tmp_path / "one"))
+    assert not os.path.exists(tmp_path / "wd1") and not os.path.exists(tmp_path / "unused")
+    assert all(torch.equal(outs[0]["params"][n], outs[1]["params"][n]) for n in outs[0]["params"])
+
+
+def test_finetune_cli_data_parallel(files, tmp_path, monkeypatch):
+    """JAX tests/test_bootstrapping.py:207-240 over two ranks: 8 rollouts
+    split 4 + 4 and gathered, all kept (oracle confidence), one fine-tune
+    step of 8 split 4 + 4; both ranks hold the same buffer and weights."""
+    install_jax_tables(monkeypatch)
+    argv = ["--data_dir", str(files / "data"), "--cache_path", str(files / "cache"), "--model_dir",
+            str(files / "score"), "--n_epochs", "1", "--inference_samples", "8", "--inference_steps", "2",
+            "--oracle_confidence", "--confidence_cutoff", "-1000", "--initial_iterations", "1",
+            "--inference_iterations", "1", "--batch_size", "8", "--limit_complexes", "1", "--no_matching",
+            "--data_parallel", "--device", "cpu"]
+    outs = run_ranks("cli", tmp_path / "dp", 2, dict(cli="finetune", argv=argv, rank_argv=[
+        ["--workdir", str(tmp_path / f"wd{r}")] for r in range(2)]))
+    a, b = outs
+    assert len(a["history"]) == 1 and a["history"][0]["inference"]["n_kept"] == 8
+    assert a["history"] == b["history"] and np.isfinite(a["history"][0]["train"]["loss"])
+    assert len(a["buffer"]) == len(b["buffer"]) == a["history"][0]["buffer"]["size"] > 0  # the per-receptor cap
+    for x, y in zip(a["buffer"], b["buffer"]):
+        assert x[:3] == y[:3] and np.array_equal(x[3], y[3])
+    assert all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+    assert {"last_model.msgpack", "ema_model.msgpack", "metrics.pkl"} <= set(os.listdir(tmp_path / "wd0"))
+    assert not os.path.exists(tmp_path / "wd1")
 
 
 @pytest.mark.parametrize("overlay", [dict(all_atoms=True), dict(sh_lmax=2), dict(use_second_order_repr=True),
