@@ -256,12 +256,28 @@ Phases (each one fails the script when it fails):
      model mesh under (H)'s tolerances, at least one leaf cut; the ranks
      hold the same parameters after every step. Every line carries the
      card's name and power limit.
+ 19. DockGen scale: three synthetic protein-like complexes
+     (``scripts/stress_eval_torch.write_complex``, seeds 0-2; 900, 1800 and
+     2800 residues, so the N=1024, 2048 and 3072 receptor buckets, the
+     all-atom buckets A=3072 to 12288) with seeded 1280-d embeddings, phase
+     5's score model and phase 6's confidence model as model directories,
+     through ``cli.infer`` (8 poses x 20 steps, the auto phase plans, the
+     all-atom rerank): a warm-up run, then a timed one (the run time per
+     receptor bucket); no failure, every artifact written, the cross-cap
+     telemetry present; then the N=3072 complex alone: the launches of its
+     sample and rerank against the config, every call of them recorded and
+     replayed through kernel and plain version (rec, pb, rec_g and cross_g
+     bit for bit across two launches; every cross_g call on its tensor-core
+     build), timed; its rows enter the ``kernels`` line as ", DockGen
+     N=3072". Every line carries the card's name and power limit.
 Then the script's wall time with each phase's, one JSON line with every kernel's numbers (launches per 20-step sample
 for phase 3's kernels and rows 4, 5 and 6, per confidence forward for phase
 6's, per training step for phase 7's and per confidence training step for
 phase 12's rec_g with the mask, per sample and per training step of phase
 16's path C for the rows named ", path C" and of phase 17's (D) for those
-named ", sh_lmax=3 (D)"; ``bound_ms`` the tensor-core bound,
+named ", sh_lmax=3 (D)", per evaluator batch (a sample) or rerank of phase
+19's N=3072 complex for those named ", DockGen N=3072"; ``bound_ms`` the
+tensor-core bound,
 ``bound_fp32_ms`` the float32 one), and last the device line.
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -5086,6 +5102,121 @@ def dp_phase(dev, b0, final_pos, model, poses_s: float, card: str) -> None:
         shutil.rmtree(DP_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------- phase 19: DockGen-scale buckets
+
+
+DOCKGEN_DIR = os.path.join(ROOT, "build", "dockgen")  # the complexes, embeddings, model directories, outputs; removed
+DOCKGEN_SIZES = (900, 1800, 2800)  # residues of the complexes of seeds 0-2: the N=1024, 2048 and 3072 buckets
+DOCKGEN_LIG = 22  # ligand atoms: the L=24 bucket of the stress run's 20-24
+DOCKGEN_SAMPLES = 8  # poses of each complex, one batch (scripts/stress_eval_torch.py's)
+DOCKGEN_FILES = ("rmsds", "centroid_distances", "confidences", "min_self_distances", "run_times", "complex_names",
+                 "cold_variant")
+CROSS_CAP_KEYS = ("cross_cap_dropped_edge_frac", "cross_cap_overflow_atom_frac", "cross_cap_dropped_edge_frac_final",
+                  "cross_cap_overflow_atom_frac_final")
+
+
+def dockgen_phase(dev, model, conf, card: str) -> list:
+    """Phase 19 (see the module docstring); every line ends with the card's
+    name and power limit. -> the JSON rows of the N=3072 complex's kernels."""
+    import shutil
+
+    stdout = sys.stdout
+    sys.stdout = Tagged(stdout, card)
+    shutil.rmtree(DOCKGEN_DIR, ignore_errors=True)
+    try:
+        return dockgen_run(dev, model, conf)
+    finally:
+        shutil.rmtree(DOCKGEN_DIR, ignore_errors=True)
+        sys.stdout.flush()
+        sys.stdout = stdout
+
+
+def dockgen_run(dev, model, conf) -> list:
+    """Three synthetic complexes (``scripts/stress_eval_torch.write_complex``,
+    seeds 0-2) in the N=1024, 2048 and 3072 buckets with seeded ESM-sized
+    embeddings, phase 5's score model and phase 6's confidence model as
+    model directories, through ``cli.infer`` (8 poses x 20 steps, the
+    all-atom rerank): a warm-up run, then a timed one (per-bucket run
+    times); no failure, every artifact written, the cross-cap telemetry
+    present. Then the N=3072 complex alone: its sample's and rerank's
+    launches against the config, every kernel call of them recorded and
+    replayed through kernel and plain version."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from stress_eval_torch import receptor_bucket, write_complex
+
+    from confidence_bootstrapping_tpu_torch.cli import infer
+    from confidence_bootstrapping_tpu_torch.train import checkpoints
+
+    data, names, emb = os.path.join(DOCKGEN_DIR, "data"), [], {}
+    for seed, n_res in enumerate(DOCKGEN_SIZES):
+        names.append(f"dockgen{seed}_n{receptor_bucket(n_res)}")
+        write_complex(data, names[-1], n_res, DOCKGEN_LIG, seed)
+        emb[names[-1]] = torch.as_tensor(np.random.RandomState(seed).randn(n_res, LM_DIM).astype(np.float32))
+    esm = os.path.join(DOCKGEN_DIR, "esm.pt")
+    torch.save(emb, esm)
+    dirs = {}
+    for tag, m in (("score", model), ("confidence", conf)):
+        dirs[tag] = os.path.join(DOCKGEN_DIR, tag)
+        checkpoints.save_model_dir(dirs[tag], m.cfg, m)
+    only = os.path.join(DOCKGEN_DIR, "n3072.txt")
+    with open(only, "w") as f:
+        f.write(names[-1] + "\n")
+
+    def argv(out: str, *extra) -> list:
+        return ["--data_dir", data, "--model_dir", dirs["score"], "--confidence_model_dir", dirs["confidence"],
+                "--esm_embeddings_path", esm, "--samples_per_complex", str(DOCKGEN_SAMPLES), "--batch_size",
+                str(DOCKGEN_SAMPLES), "--inference_steps", str(STEPS), "--cache_path", os.path.join(DOCKGEN_DIR, "cache"),
+                "--out_dir", os.path.join(DOCKGEN_DIR, out), *extra]
+
+    walls = {}
+    for run_name in ("warm-up", "timed"):
+        t0 = time.perf_counter()
+        m = infer.main(argv(run_name))
+        torch.cuda.synchronize()
+        walls[run_name] = time.perf_counter() - t0
+    out = os.path.join(DOCKGEN_DIR, "timed")
+    missing = [a for a in DOCKGEN_FILES if not os.path.exists(os.path.join(out, f"{a}.npy"))]
+    missing += [] if os.path.exists(os.path.join(out, "metrics.json")) else ["metrics.json"]
+    run_times = np.load(os.path.join(out, "run_times.npy"))
+    rmsds = np.load(os.path.join(out, "rmsds.npy"))
+    loaded = [str(x) for x in np.load(os.path.join(out, "complex_names.npy"))]
+    per_bucket = {receptor_bucket(n): float(rt) for n, nm, rt in zip(DOCKGEN_SIZES, names, run_times)}
+    print(f"DockGen-scale evaluator: warm-up run {walls['warm-up']:.1f} s, timed run {walls['timed']:.1f} s; warm run "
+          f"time per complex by receptor bucket (8 poses x {STEPS} steps + the rerank, s): {per_bucket}; "
+          f"cross cap {m.get('cross_cap')}: " + ", ".join(f"{k} {m.get(k)}" for k in CROSS_CAP_KEYS), flush=True)
+    if m["failures"] or m["n_complexes"] != len(names) or loaded != names:
+        fail(f"DockGen-scale evaluator: {m['failures']} failures, {m['n_complexes']} complexes ({loaded})")
+    if missing or any(m.get(k) is None for k in CROSS_CAP_KEYS):
+        fail(f"DockGen-scale evaluator: artifacts missing {missing} or cross-cap telemetry absent")
+    if not (np.isfinite(rmsds).all() and (rmsds < 1e4).all()):
+        fail("DockGen-scale evaluator: RMSDs not finite")
+
+    names_k = KERNELS + CONF_KERNELS
+    calls, launches, plain = counted_all(lambda: record_calls(
+        lambda: infer.main(argv("n3072", "--names_file", only)), names_k))
+    want = {name: 0 for name in all_counters()}
+    want.update(expected_launches(model, STEPS))
+    want.update(expected_conf_launches(conf))
+    print(f"N=3072 complex through cli.infer: launches {nonzero(launches)}, expected from the config "
+          f"{nonzero(want)}; plain versions called {plain}; recorded calls "
+          f"{ {k: len(v) for k, v in calls.items()} }", flush=True)
+    if launches != want or any(plain.values()):
+        fail("DockGen scale: the N=3072 sample and rerank did not run every TP-conv through its kernel")
+    check_tc_builds({"tpconv_cross_g": calls["tpconv_cross_g"]}, "N=3072 rerank")
+    kernels = dict(sample_kernels())
+    kernels.update({k: v for k, v in remainder_kernels().items() if k in CONF_KERNELS})
+    with torch.no_grad():
+        rows = replay(calls, kernels, bitwise=("tpconv_rec", "tpconv_pb") + CONF_KERNELS)
+    del calls
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        r["name"] += ", DockGen N=3072"
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -5167,6 +5298,8 @@ def main() -> None:
     lap("17")
     dp_phase(dev, b0, final_pos, model, poses_s, card)
     lap("18")
+    dockgen_rows = dockgen_phase(dev, model, rerank[0], card)
+    lap("19")
 
     launches.update(conf_launches)
     launches.update(train_launches)
@@ -5178,6 +5311,7 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     rows += remainder_rows  # phase 16's path C, launches per sample or training step of that path
     rows += sh3_rows  # phase 17's (D), launches per sample or training step
+    rows += dockgen_rows  # phase 19's N=3072 complex, launches per evaluator batch (sample) or rerank
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s; walls by phase (s): {walls}",
           flush=True)
     print(json.dumps({"kernels": rows}))
