@@ -75,6 +75,8 @@ def get_irrep_seq(ns: int, nv: int, reduce_pseudoscalars: bool, use_second_order
 
 
 SIDECHAIN_IRREPS = "4x0e + 2x1e + 4x0o + 2x1o"  # the side-chain head's even and odd parts, summed
+# the standard deviation of a standard normal truncated to [-2, 2]: Flax's lecun_normal divides by it
+LECUN_TRUNC_STD = 0.87962566103423978
 
 
 class RecCache(NamedTuple):
@@ -585,20 +587,23 @@ def confidence_heads(model: nn.Module, lig_attr, lig_mask, deterministic: bool =
 
 def init_weights(model: nn.Module, seed: int) -> None:
     """Random weights from ``seed`` (torch.Generator on the CPU, so the same
-    seed gives the same model on every device): linear layers uniform in
-    +-1/sqrt(fan_in), embeddings Xavier-uniform, the equivariant linear
-    maps' weights standard normal (their biases zero), batch norm at
-    identity."""
+    seed gives the same model on every device), drawn as Flax's defaults
+    draw them: linear layers as ``nn.Dense`` (LeCun-normal weights, a
+    standard normal truncated to [-2, 2] scaled to variance 1/fan_in;
+    zero biases), embeddings Xavier-uniform, the equivariant linear maps'
+    weights standard normal (their biases zero), batch norm at identity.
+    The numbers are the port's own, not JAX's random stream."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, LinearIrreps):
             for k in mod.weight_names:
                 getattr(mod, k).data = torch.randn(getattr(mod, k).shape, generator=gen)
         if isinstance(mod, nn.Linear):
-            bound = mod.in_features ** -0.5
-            mod.weight.data = (torch.rand(mod.weight.shape, generator=gen) * 2 - 1) * bound
+            w = torch.empty(mod.weight.shape)
+            nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
+            mod.weight.data = w * (mod.in_features ** -0.5 / LECUN_TRUNC_STD)
             if mod.bias is not None:
-                mod.bias.data = (torch.rand(mod.bias.shape, generator=gen) * 2 - 1) * bound
+                mod.bias.data = torch.zeros(mod.bias.shape)
         elif isinstance(mod, nn.Embedding):
             bound = (6.0 / sum(mod.weight.shape)) ** 0.5
             mod.weight.data = (torch.rand(mod.weight.shape, generator=gen) * 2 - 1) * bound

@@ -59,11 +59,13 @@ def get_inverse_schedule(t, sched_alpha=1.0, sched_beta=1.0):
 
 
 def sinusoidal_embedding(timesteps: torch.Tensor, embedding_dim: int, max_positions: int = 10000) -> torch.Tensor:
-    """Sinusoidal timestep embedding; timesteps [N] -> [N, embedding_dim]."""
+    """Sinusoidal timestep embedding; timesteps [N] -> [N, embedding_dim],
+    float32 (float64 for float64 timesteps)."""
     half_dim = embedding_dim // 2
     scale = math.log(max_positions) / (half_dim - 1)
-    freqs = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=timesteps.device) * -scale)
-    emb = timesteps.to(torch.float32)[:, None] * freqs[None, :]
+    dtype = torch.float64 if timesteps.dtype == torch.float64 else torch.float32
+    freqs = torch.exp(torch.arange(half_dim, dtype=dtype, device=timesteps.device) * -scale)
+    emb = timesteps.to(dtype)[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
     if embedding_dim % 2 == 1:
         emb = torch.nn.functional.pad(emb, (0, 1))

@@ -17,7 +17,8 @@ subprocesses on gloo, joined through a file store in the test's directory
   statistics within 1e-5. Both ranks report the same metrics. At dropout
   0.1 the masks are drawn at the global batch's rows, so the step equals
   the one-process step too; the torsional step likewise.
-* The 2-rank sample (plain SDE, a phase plan, SVGD) against one process.
+* The 2-rank sample (plain SDE, a phase plan, SVGD) against one process
+  within 1e-4 A; SVGD's within max(1e-4, 2 x the one process's own spread).
 * A 4-rank (2, 2) data x model step against the one-process step.
 * The environment's contracts (torchrun's and the JAX package's) start a
   2-rank world.
@@ -52,6 +53,11 @@ from test_torch_common import install_jax_tables
 from torch_parallel_worker import fields_of, run_ranks, sample_case, step2d_case, train_case
 
 TINY = dict(ns=8, nv=2, num_conv_layers=1, num_prot_emb_layers=1, lm_embedding_dim=0)
+# SVGD couples the poses and carries a rounding further than the other samplers: its samples are held to the one
+# process's own spread (test_two_rank_sample_matches_one_process). The order keeps a pose of the first complex in
+# row 0, whose ligand SVGD takes for every pose.
+SPREAD_CASES = ("svgd",)
+POSE_ORDER = torch.tensor([1, 0, 3, 2])
 
 
 def toy_batch(root) -> "ComplexBatch":
@@ -78,7 +84,9 @@ def case(tmp_path_factory):
         model = TensorProductScoreModel(ScoreModelConfig(**TINY), device="cpu", seed=0)
         inputs = dict(cfg=TINY, state=model.state_dict(), batch=fields_of(batch))
         ranks = run_ranks("dp", root / "run", 2, inputs)
-        one = dict(train=train_case(inputs, None), sample=sample_case(inputs, None))
+        one = dict(train=train_case(inputs, None), sample=sample_case(inputs, None),
+                   sample_permuted=sample_case(inputs, None, names=SPREAD_CASES, perm=POSE_ORDER),
+                   sample_ranks=sample_case(inputs, None, names=SPREAD_CASES, parts=2))
         # the noised batch and targets the step's first draws give
         noised, targets = diffusion.apply_noise(batch, ScoreModelConfig(**TINY).sigma, TrainConfig(lr=1e-3),
                                                 torch.Generator().manual_seed(7))
@@ -214,13 +222,28 @@ def test_dropout_and_torsional_steps_match_one_process(case):
 
 def test_two_rank_sample_matches_one_process(case):
     """Poses and trajectories of a plain SDE sample, one with a phase plan
-    (the compaction keeps the residues of every rank's poses) and SVGD."""
+    (the compaction keeps the residues of every rank's poses) and SVGD,
+    within 1e-4 A of one process. SVGD's within max(1e-4, 2 x the one
+    process's own spread): the larger of its samples' distances from the
+    one-process sample when the poses run in another order (each with its
+    own noise; 0 on the CPU, where row order changes no arithmetic) and when
+    the forwards run on the two ranks' rows apart (``rank_rows``): each
+    rank's forward sees half the poses, and the CPU's matrix products round
+    a row by the number of rows (one ulp of the translation head at step 2),
+    which SVGD's coupling carries to every pose."""
     for name, one in case["one"]["sample"].items():
+        atol = dict(pos=1e-4, traj=1e-4)
+        for k in atol if name in SPREAD_CASES else ():
+            spread = {v: float((case["one"][f"sample_{v}"][name][k] - one[k]).abs().max())
+                      for v in ("permuted", "ranks")}
+            print(f"{name} {k}: the one process's spread {spread} A")
+            atol[k] = max(atol[k], 2 * max(spread.values()))
         for out in case["ranks"]:
             dp = out["sample"][name]
             assert dp["pos"].shape == one["pos"].shape == case["batch"].lig_pos.shape
-            np.testing.assert_allclose(dp["pos"].numpy(), one["pos"].numpy(), rtol=0, atol=1e-4, err_msg=name)
-            np.testing.assert_allclose(dp["traj"].numpy(), one["traj"].numpy(), rtol=0, atol=1e-4, err_msg=name)
+            for k, tol in atol.items():
+                np.testing.assert_allclose(dp[k].numpy(), one[k].numpy(), rtol=0, atol=tol,
+                                           err_msg=f"{name} {k} (atol {tol:.4e})")
 
 
 def test_four_rank_2d_step_matches_one_process(case, tmp_path):

@@ -17,9 +17,11 @@ tests' toy complexes.
 * ``transfer_matching_variables``: what the JAX function copies, by Flax
   path, the same count.
 * ``--data_parallel`` over two gloo ranks (tests/torch_parallel_worker.py):
-  ``train``'s epoch losses equal one process's within 1e-4 and rank 0 alone
-  writes the workdir; ``finetune`` keeps 8 poses and both ranks hold the
-  same buffer and parameters.
+  ``train`` against one process step by step (the losses before any
+  update, each step's gradients, the parameters each step leaves, the
+  losses after an update against the one process's own spread) and rank 0
+  alone writes the workdir; ``finetune`` keeps 8 poses and both ranks hold
+  the same buffer and parameters.
 * No CLI runs without a card unless ``--device cpu`` is given.
 """
 
@@ -49,12 +51,15 @@ from confidence_bootstrapping_tpu_torch.data.mol_io import write_sdf
 from confidence_bootstrapping_tpu_torch.models import from_flax
 from confidence_bootstrapping_tpu_torch.models.factory import get_model
 from confidence_bootstrapping_tpu_torch.sampler import sampling
-from confidence_bootstrapping_tpu_torch.train import checkpoints, train_loop
+from confidence_bootstrapping_tpu_torch.train import checkpoints, diffusion, train_loop
 from test_datasets import _write_toy_complex_dir
 from test_torch_common import install_jax_tables
-from torch_parallel_worker import run_ranks
+from torch_parallel_worker import captured_gradients, run_ranks
 
 TINY = dict(ns=8, nv=2, num_conv_layers=1, num_prot_emb_layers=1, lm_embedding_dim=0, dropout=0.0)
+# of max |g| of a tensor: the gradient comparison's own tolerance. An element within it of zero may take either
+# sign over two ranks and pass that comparison, and Adam's first step turns its sign into +-lr.
+ROUNDING_FLOOR = 1e-4
 # what the JAX train CLI writes at --val_inference_freq 1 --save_model_freq 1 --inference_secondary_metric
 TRAIN_FILES = ["best_ema_inference_epoch_model.msgpack", "best_ema_model.msgpack",
                "best_ema_secondary_epoch_model.msgpack", "best_inference_epoch_model.msgpack", "best_model.msgpack",
@@ -336,21 +341,83 @@ def test_unported_flags_and_devices_raise(files, tmp_path, monkeypatch):
             call()
 
 
+def adam_step_bound(step: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most Adam's ``step``-th update (from 1, eps 0) can move an
+    element, in units of lr, over every history of gradients: the
+    bias-corrected first moment over the root of the second, at its
+    largest by Cauchy-Schwarz (1 at step 1, 1.0014 at step 2)."""
+    w1 = [(1 - b1) * b1 ** (step - i) for i in range(1, step + 1)]
+    w2 = [(1 - b2) * b2 ** (step - i) for i in range(1, step + 1)]
+    return float(np.sqrt(sum(a * a / b for a, b in zip(w1, w2))) * np.sqrt(1 - b2 ** step) / (1 - b1 ** step))
+
+
+def _captured_train(argv, reverse=False):
+    """``train.main(argv)`` in this process with each step's gradients and
+    parameters (``captured_gradients``); with ``reverse``, every batch's
+    complexes in the other order, each with its own noise, so that only the
+    order of the sums over the batch changes. -> (history, grads, steps)."""
+    grads, steps = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        if reverse:
+            stack, draw = dataset.batch_complexes, diffusion.draw_noise
+            mp.setattr(dataset, "batch_complexes", lambda items, device=None: stack(list(items)[::-1], device))
+            mp.setattr(diffusion, "draw_noise",
+                       lambda *a, **k: diffusion.NoiseDraws(*(x.flip(0) for x in draw(*a, **k))))
+        with captured_gradients(grads, steps):
+            _, history = train.main(argv)
+    return history, grads, steps
+
+
 def test_train_cli_data_parallel_matches_one_rank(files, tmp_path, monkeypatch):
-    """Two epochs of one 2-complex batch split over two ranks: the epoch
-    losses of one process within 1e-4, one checkpoint set (rank 0's)."""
+    """Two epochs of one 2-complex batch split over two ranks against one
+    process: what data parallelism promises, step by step. Epoch 0's train
+    losses (before any update) within rtol 1e-4; each step's all-reduced
+    gradients within 1e-4 x max |g| of each tensor; after each step every
+    parameter whose one-process gradient is above its tensor's rounding
+    floor (ROUNDING_FLOOR x max |g|) within atol 2.5e-3 (a step's tolerance,
+    tests/test_torch_parallel.py), and every other one within twice Adam's
+    largest step (lr x ``adam_step_bound``) of the one-process value, beyond
+    the two runs' difference before the step: there the gradient is
+    rounding noise, and Adam's first step turns its sign into +-lr. The
+    losses after an update (epoch 1's train losses, the validation losses)
+    within rtol 1e-4, or within 2 x the one process's own spread when the
+    batch's complexes run in the other order, whichever is larger. Both
+    ranks end with the same history and parameters; rank 0 alone writes the
+    workdir, the one-process set of files."""
     install_jax_tables(monkeypatch)
     extra = ("--n_epochs", "2", "--val_inference_freq", "0")
-    _, one = train.main(_train_argv(files, tmp_path / "one", *extra))
+    one, g_one, s_one = _captured_train(_train_argv(files, tmp_path / "one", *extra))
     argv = _train_argv(files, tmp_path / "unused", *extra, "--data_parallel")
     outs = run_ranks("cli", tmp_path / "dp", 2, dict(cli="train", argv=argv, rank_argv=[
         ["--workdir", str(tmp_path / f"wd{r}")] for r in range(2)]))
+    again, _, _ = _captured_train(_train_argv(files, tmp_path / "again", *extra), reverse=True)
+    lr = TrainConfig().lr
     for out in outs:
         assert [h["epoch"] for h in out["history"]] == [0, 1] and out["history"] == outs[0]["history"]
-        for h, h1 in zip(out["history"], one):
-            for part in ("train", "val"):
-                for k, v in h1[part].items():
-                    np.testing.assert_allclose(h[part][k], v, rtol=1e-4, atol=1e-6, err_msg=(part, k))
+        for k, v in one[0]["train"].items():
+            np.testing.assert_allclose(out["history"][0]["train"][k], v, rtol=1e-4, atol=1e-6, err_msg=("train", k))
+        for epoch, part in ((0, "val"), (1, "train"), (1, "val")):
+            for k, v in one[epoch][part].items():
+                spread = abs(again[epoch][part][k] - v)
+                tol = max(1e-6 + 1e-4 * abs(v), 2 * spread)
+                assert abs(out["history"][epoch][part][k] - v) <= tol, (
+                    epoch, part, k, out["history"][epoch][part][k], v, f"one process's spread {spread:.4e}")
+        assert len(out["grads"]) == len(g_one) == len(out["steps"]) == len(s_one) == 2
+        names = [n for n, _ in outs[0]["params"].items()]
+        for step, (gd, go, (bd, ad), (bo, ao)) in enumerate(zip(out["grads"], g_one, out["steps"], s_one), 1):
+            for n, *ts in zip(names, gd, go, ad, ao, bd, bo):
+                a, b, pd, po, p0, q0 = (t.numpy() for t in ts)
+                scale = np.abs(b).max(initial=0.0)
+                assert np.abs(a - b).max(initial=0.0) <= ROUNDING_FLOOR * scale, (step, n, np.abs(a - b).max(), scale)
+                if step == 1:
+                    assert np.array_equal(p0, q0), n  # the same seeded weights
+                above = np.abs(b) > ROUNDING_FLOOR * scale
+                assert np.abs(pd - po)[above].max(initial=0.0) <= 2.5e-3, (step, n)
+                # below the floor each run's update is at most lr x adam_step_bound, of either sign
+                off, was = np.abs(pd - po)[~above], np.abs(p0 - q0)[~above]
+                slack = 2 * np.spacing(np.abs(p0).max(initial=0.0))
+                bound = was + 2 * lr * adam_step_bound(step) + slack
+                assert (off <= bound).all(), (step, n, (off - bound).max(initial=0.0))
     assert sorted(os.listdir(tmp_path / "wd0")) == sorted(os.listdir(tmp_path / "one"))
     assert not os.path.exists(tmp_path / "wd1") and not os.path.exists(tmp_path / "unused")
     assert all(torch.equal(outs[0]["params"][n], outs[1]["params"][n]) for n in outs[0]["params"])

@@ -62,14 +62,19 @@ def fields_of(batch: ComplexBatch) -> dict:
 
 
 @contextlib.contextmanager
-def captured_gradients(into: list):
-    """Record the gradients each step hands ``apply_gradients``."""
+def captured_gradients(into: list, params: list = None):
+    """Record the gradients each step hands ``apply_gradients`` and, given
+    ``params``, the parameters before and after the step (a pair a step)."""
     real = train_loop.apply_gradients
 
     def spy(state, grads, *a, **k):
         into.append([g.detach().clone() if g is not None else torch.zeros_like(p)
                      for g, p in zip(grads, state.model.parameters())])
-        return real(state, grads, *a, **k)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        out = real(state, grads, *a, **k)
+        if params is not None:
+            params.append((before, [p.detach().clone() for p in state.model.parameters()]))
+        return out
 
     train_loop.apply_gradients = spy
     try:
@@ -128,17 +133,82 @@ SAMPLERS = dict(
 )
 
 
-def sample_case(inp: dict, mesh) -> dict:
+def permuted(batch: ComplexBatch, perm: torch.Tensor) -> ComplexBatch:
+    """``batch`` with its rows (poses) in ``perm``'s order."""
+    fields = fields_of(batch)
+    assert all(v.shape[0] == batch.batch_size for v in fields.values())
+    return batch_of({k: v[perm] for k, v in fields.items()})
+
+
+@contextlib.contextmanager
+def rows_follow(perm: torch.Tensor):
+    """Every row draw of the sampler (``mesh.rows``) with its rows in
+    ``perm``'s order: a batch permuted by ``perm`` gets each pose's own
+    noise, so only the order of the sums over poses changes."""
+    real = meshlib.rows
+    meshlib.rows = lambda *a, **k: real(*a, **k)[perm]
+    try:
+        yield
+    finally:
+        meshlib.rows = real
+
+
+@contextlib.contextmanager
+def rank_rows(model, parts: int):
+    """In one process, the receptor embedding and every forward of ``model``
+    run on each of ``parts`` ranks' rows of the batch apart (the rows a
+    ``parts``-rank mesh gives each rank), then put together: the ranks'
+    arithmetic with the sampler's sums over the whole batch as one process
+    makes them. The CPU's matrix products round a row by the number of
+    rows, so this is how far the ranks' forwards alone move a sample."""
+    real_forward, real_cache = model.forward, sampling.receptor_cache
+
+    def pieces(batch):
+        n = batch.batch_size // parts
+        return [slice(i * n, (i + 1) * n) for i in range(parts)]
+
+    def joined(outs):
+        return type(outs[0])(*(torch.cat(x) if torch.is_tensor(x[0]) else x[0] for x in zip(*outs)))
+
+    def cache(m, batch, shared=True):
+        outs = [real_cache(m, batch.map(lambda a: a[s]), shared) for s in pieces(batch)]
+        return None if outs[0] is None else joined(outs)
+
+    def forward(batch, *a, rec_cache=None, **k):
+        return joined([real_forward(batch.map(lambda t: t[s]), *a, rec_cache=None if rec_cache is None else
+                                    type(rec_cache)(*(c[s] for c in rec_cache)), **k) for s in pieces(batch)])
+
+    model.forward, sampling.receptor_cache = forward, cache
+    try:
+        yield
+    finally:
+        del model.forward
+        sampling.receptor_cache = real_cache
+
+
+def sample_case(inp: dict, mesh, names=tuple(SAMPLERS), perm=None, parts=None) -> dict:
     """The prior and a 3-step sample of the global batch under each sampler
-    config (plain SDE, a phase plan, SVGD)."""
+    config (plain SDE, a phase plan, SVGD) of ``names``. One process only:
+    with ``perm``, the same sample with the poses in ``perm``'s order, each
+    with its own noise, put back in the batch's order; with ``parts``, with
+    the forwards on ``parts`` ranks' rows apart (``rank_rows``)."""
     model, cfg = _model(inp)
     batch = batch_of(inp["batch"])
     out = {}
-    for name, sc in SAMPLERS.items():
+    for name in names:
         gen = torch.Generator().manual_seed(11)
         b = sampling.randomize_position(batch, gen, cfg.sigma.tr_sigma_max)
-        final, traj = sampling.sample(model, b, cfg, sc, gen, return_trajectory=True, device="cpu", mesh=mesh)
-        out[name] = dict(pos=final.lig_pos, traj=traj)
+        if perm is None:
+            with rank_rows(model, parts) if parts else contextlib.nullcontext():
+                final, traj = sampling.sample(model, b, cfg, SAMPLERS[name], gen, return_trajectory=True,
+                                              device="cpu", mesh=mesh)
+            out[name] = dict(pos=final.lig_pos, traj=traj)
+            continue
+        with rows_follow(perm):
+            final, traj = sampling.sample(model, permuted(b, perm), cfg, SAMPLERS[name], gen,
+                                          return_trajectory=True, device="cpu")
+        back = torch.argsort(perm)
+        out[name] = dict(pos=final.lig_pos[back], traj=traj[:, back])
     return out
 
 
@@ -157,8 +227,9 @@ def step2d_case(inp: dict, mesh) -> dict:
 
 def cli_case(inp: dict, mesh) -> dict:
     """``inp["cli"]``'s ``main`` on ``inp["argv"]`` (with the rank's own
-    ``inp["rank_argv"][rank]`` appended); for finetune, also the buffer's
-    items."""
+    ``inp["rank_argv"][rank]`` appended); for the training CLIs also each
+    step's gradients and the parameters it left (``captured_gradients``),
+    for finetune the buffer's items."""
     import importlib
 
     from confidence_bootstrapping_tpu_torch.bootstrapping import finetune as ft
@@ -173,8 +244,10 @@ def cli_case(inp: dict, mesh) -> dict:
         return buffers[-1]
 
     ft.CBBuffer = keep
+    grads, steps = [], []
     try:
-        result = importlib.import_module(f"confidence_bootstrapping_tpu_torch.cli.{inp['cli']}").main(argv)
+        with captured_gradients(grads, steps):
+            result = importlib.import_module(f"confidence_bootstrapping_tpu_torch.cli.{inp['cli']}").main(argv)
     finally:
         ft.CBBuffer = real
     if inp["cli"] == "infer":
@@ -182,7 +255,7 @@ def cli_case(inp: dict, mesh) -> dict:
     state, history = result
     items = [(b.name, float(b.confidence), b.iteration, np.asarray(b.padded["lig_pos"])) for b in
              (buffers[0].complexes if buffers else [])]
-    return dict(history=history, buffer=items,
+    return dict(history=history, buffer=items, grads=grads, steps=steps,
                 params={n: p.detach().clone() for n, p in state.model.named_parameters()})
 
 
